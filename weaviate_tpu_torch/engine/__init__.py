@@ -1,0 +1,6 @@
+"""Vector engine: the device-resident store and the flat index."""
+
+from weaviate_tpu_torch.engine.flat import FlatIndex
+from weaviate_tpu_torch.engine.store import DeviceVectorStore
+
+__all__ = ["DeviceVectorStore", "FlatIndex"]
