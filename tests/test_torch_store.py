@@ -155,14 +155,16 @@ def test_store_raises_without_cuda_when_device_unset():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TFlat(dim=4, quantization="pq", device="cpu")
+    # quantization (item 9) is ported; epochs and the mesh are not, with
+    # or without it
     with pytest.raises(NotImplementedError, match="item 7"):
         TFlat(dim=4, epoch_rows=64, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        TFlat(dim=4, quantization="pq", epoch_rows=64, device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
         TStore(dim=4, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 13"):
+        TFlat(dim=4, quantization="bq", mesh=object(), device="cpu")
     idx = TFlat(dim=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        idx.compress("pq")
     with pytest.raises(NotImplementedError, match="item 10"):
         idx.hybrid_batch_async(np.zeros((1, 4), np.float32), 3)

@@ -106,6 +106,39 @@ class Collection:
         self._pool = ThreadPoolExecutor(max_workers=8,
                                         thread_name_prefix=f"{config.name}-search")
 
+    def apply_runtime_config(self) -> None:
+        """Propagate runtime-mutable config (reference: UpdateUserConfig ->
+        hnsw/config_update.go) into LIVE shard objects, which copied config
+        values at construction: BM25 k1/b and runtime compression. The
+        flat index takes no search knob at runtime (ef, nprobe and the
+        upgrade threshold belong to the hnsw, ivf and dynamic indexes)."""
+        with self._lock:
+            shards = list(self.shards.values())
+        for shard in shards:
+            inv = shard._inverted
+            inv.k1 = self.config.inverted.bm25_k1
+            inv.b = self.config.inverted.bm25_b
+            for vec_name, idx in shard.vector_indexes.items():
+                vc = self.config.vector_config(vec_name)
+                if idx is None or vc is None:
+                    continue
+                if vc.index.quantization and not idx.compressed and \
+                        hasattr(idx, "compress"):
+                    # runtime compression (compress.go:38): train on the
+                    # live contents and swap to the compressed path. Too
+                    # little data to train is not an error: the config
+                    # sticks and a later update or restart retries
+                    try:
+                        idx.compress(
+                            quantization=vc.index.quantization,
+                            pq_segments=vc.index.pq_segments,
+                            pq_centroids=vc.index.pq_centroids,
+                        )
+                    except (RuntimeError, ValueError) as e:
+                        logger.warning(
+                            "collection %s/%s: deferring runtime "
+                            "compression: %s", self.config.name, vec_name, e)
+
     # -- shard management ----------------------------------------------------
 
     def _load_shard(self, name: str) -> Shard:

@@ -76,6 +76,107 @@ class Database:
             {"config": col.config.to_dict(), "sharding": col.sharding.to_dict()},
         )
 
+    # mutable-at-runtime config surface (reference: UpdateUserConfig /
+    # update-class validation — vectorizer, index type, sharding and
+    # multi-tenancy are immutable after creation)
+    def validate_collection_update(self, new_cfg: CollectionConfig) -> None:
+        """Immutability checks only — no mutation."""
+        cur = self.get_collection(new_cfg.name).config
+        for vc_new in new_cfg.vectors:
+            vc_cur = cur.vector_config(vc_new.name)
+            if vc_cur is None:
+                raise ValueError(
+                    f"cannot add vector space {vc_new.name!r} via update")
+            if vc_new.vectorizer != vc_cur.vectorizer:
+                raise ValueError("vectorizer is immutable")
+            if vc_new.index.index_type != vc_cur.index.index_type:
+                raise ValueError("vectorIndexType is immutable")
+            if vc_new.index.metric != vc_cur.index.metric:
+                raise ValueError("distance metric is immutable")
+            if (vc_cur.index.quantization
+                    and vc_new.index.quantization != vc_cur.index.quantization):
+                # enabling is a one-way door (reference config_update.go:
+                # compression can be turned ON via update, never off)
+                raise ValueError("quantization cannot be disabled or "
+                                 "changed once enabled")
+            if vc_new.index.quantization and not vc_cur.index.quantization:
+                # compatibility gate before anything persists — a config
+                # that compress() would reject must not commit
+                itype = vc_cur.index.index_type
+                if itype in ("hnsw", "ivf") and \
+                        vc_new.index.quantization != "pq":
+                    raise ValueError(
+                        f"{itype} supports runtime quantization='pq' only")
+                if itype == "hnsw" and vc_cur.index.metric not in (
+                        "l2-squared", "dot", "cosine", "cosine-dot"):
+                    raise ValueError(
+                        f"no ADC form for metric {vc_cur.index.metric!r}")
+        if new_cfg.sharding.desired_count != cur.sharding.desired_count:
+            raise ValueError("shard count is immutable (resharding "
+                             "is not supported)")
+        if new_cfg.multi_tenancy.enabled != cur.multi_tenancy.enabled:
+            raise ValueError("multiTenancy.enabled is immutable")
+
+    def update_collection(self, new_cfg: CollectionConfig) -> None:
+        """Apply a schema update to a live collection: validate, persist
+        the runtime-mutable fields, then push them into the live shards
+        (runtime compression included). A replication-factor change moves
+        shard data through the scaler, which is not ported: it raises."""
+        with self._lock:
+            self.validate_collection_update(new_cfg)
+            cur = self.get_collection(new_cfg.name).config
+            if new_cfg.replication.factor != cur.replication.factor:
+                raise NotImplementedError(
+                    "replication factor changes (the scaler): a later "
+                    "slice of the port, with replication")
+
+            def apply(cfg):
+                cfg.description = new_cfg.description
+                cfg.inverted = new_cfg.inverted
+                cfg.module_config = new_cfg.module_config
+                cfg.multi_tenancy.auto_tenant_creation = \
+                    new_cfg.multi_tenancy.auto_tenant_creation
+                cfg.multi_tenancy.auto_tenant_activation = \
+                    new_cfg.multi_tenancy.auto_tenant_activation
+                for vc_new in new_cfg.vectors:
+                    vc = cfg.vector_config(vc_new.name)
+                    # runtime-tunable index knobs (reference:
+                    # hnsw/config_update.go — ef, rescore, thresholds)
+                    vc.index.ef = vc_new.index.ef
+                    vc.index.ef_construction = vc_new.index.ef_construction
+                    vc.index.rescore_limit = vc_new.index.rescore_limit
+                    vc.index.flat_to_ann_threshold = \
+                        vc_new.index.flat_to_ann_threshold
+                    vc.index.ivf_nprobe = vc_new.index.ivf_nprobe
+                    if vc_new.index.quantization and \
+                            not vc.index.quantization:
+                        # runtime compression enable (compress.go:38 via
+                        # config_update.go) — applied to live indexes in
+                        # apply_runtime_config
+                        vc.index.quantization = vc_new.index.quantization
+                        vc.index.pq_segments = vc_new.index.pq_segments
+                        vc.index.pq_centroids = vc_new.index.pq_centroids
+                    vc.module_config = vc_new.module_config
+
+            self.update_collection_config(new_cfg.name, apply)
+            # push runtime knobs into LIVE objects — they copied config
+            # values at construction
+            self.get_collection(new_cfg.name).apply_runtime_config()
+
+    def update_collection_config(self, name: str, mutate) -> None:
+        """Runtime-mutable config path (reference: UpdateUserConfig,
+        vector_index.go:33). ``mutate(config)`` edits in place; validation
+        runs on a copy so a rejected update leaves the live config intact."""
+        import copy
+
+        with self._lock:
+            col = self.get_collection(name)
+            candidate = copy.deepcopy(col.config)
+            mutate(candidate)
+            candidate.validate()
+            mutate(col.config)
+            self._persist(col)
+
     def get_collection(self, name: str) -> Collection:
         col = self.collections.get(name)
         if col is None:

@@ -1,5 +1,5 @@
 """Shard: the unit of storage + indexing (port of ``weaviate_tpu/db/shard.py``
-for flat and noop vector indexes on one device).
+for flat (plain or BQ/PQ-quantized) and noop vector indexes on one device).
 
 Owns an LSM KV store (objects bucket + docid mappings), one vector index
 per named vector, and the inverted index behind filters. Write path:
@@ -47,19 +47,31 @@ def _make_vector_index(vc: VectorConfig, dim: int, device=None):
     cfg = vc.index
     if cfg.index_type == "noop":
         return None
+    common = dict(dim=dim, metric=cfg.metric, capacity=8192, chunk_size=8192,
+                  device=device)
+    if cfg.index_type == "flat" and cfg.quantization:
+        return FlatIndex(
+            quantization=cfg.quantization,
+            pq_segments=cfg.pq_segments,
+            pq_centroids=cfg.pq_centroids,
+            rescore_limit=cfg.rescore_limit,
+            prefix_bits=cfg.prefix_bits,
+            epoch_rows=cfg.epoch_rows,
+            **common,
+        )
+    if cfg.index_type in ("hnsw", "ivf") and cfg.quantization == "bq":
+        # no bq form for graph hops or IVF lists: the JAX package honours
+        # the compression request with the quantized flat scan
+        return FlatIndex(quantization="bq", rescore_limit=cfg.rescore_limit,
+                         prefix_bits=cfg.prefix_bits, **common)
     if cfg.index_type in _NOT_PORTED:
         raise NotImplementedError(_NOT_PORTED[cfg.index_type])
     if cfg.index_type != "flat":
         raise ValueError(f"unknown index type {cfg.index_type}")
     return FlatIndex(
-        dim=dim,
-        metric=cfg.metric,
-        capacity=8192,
-        chunk_size=8192,
         dtype="bfloat16" if cfg.storage_dtype == "bfloat16" else "float32",
-        quantization=cfg.quantization,
         epoch_rows=cfg.epoch_rows,
-        device=device,
+        **common,
     )
 
 
@@ -154,6 +166,10 @@ class Shard:
             if idx is not None and keep:
                 idx.add_batch(np.asarray([ids[j] for j in keep]),
                               np.stack([vecs[j] for j in keep]))
+                # a config that asks for quantization on a plain index
+                # compresses at runtime (compress.go:38): re-applied after
+                # the rebuild so a restart does not drop compression
+                self._maybe_compress(vec_name, idx)
 
     def _ensure_vector_index(self, vec_name: str, dim: int):
         if vec_name in self.vector_indexes:
@@ -173,6 +189,25 @@ class Shard:
 
     def _tenant_label(self) -> str:
         return self.name if self.config.multi_tenancy.enabled else ""
+
+    def _maybe_compress(self, vec_name: str, idx) -> None:
+        vc = self.config.vector_config(vec_name)
+        if (vc is None or not vc.index.quantization
+                or getattr(idx, "compressed", True)
+                or not hasattr(idx, "compress")
+                # trainability floor — the same gate the config-update path
+                # has, so a restart never drops compression an update applied
+                or len(idx) < (vc.index.pq_centroids or 16)):
+            return
+        try:
+            idx.compress(quantization=vc.index.quantization,
+                         pq_segments=vc.index.pq_segments,
+                         pq_centroids=vc.index.pq_centroids,
+                         rescore_limit=vc.index.rescore_limit,
+                         prefix_bits=vc.index.prefix_bits)
+        except (RuntimeError, ValueError) as e:
+            logger.warning("shard %s/%s: deferring runtime compression: %s",
+                           self.name, vec_name, e)
 
     # -- write path ----------------------------------------------------------
 
@@ -246,6 +281,7 @@ class Shard:
                 idx = self._ensure_vector_index(vec_name, len(vecs[0]))
                 if idx is not None:
                     idx.add_batch(np.asarray(ids), np.stack(vecs))
+                    self._maybe_compress(vec_name, idx)
         return doc_ids
 
     def _batched_search(self, vec_name: str, idx, query: np.ndarray, k: int,

@@ -1,9 +1,11 @@
 """Flat (brute-force) vector index (port of ``weaviate_tpu/engine/flat.py``,
-unquantized, one device, no epochs).
+plain or BQ/PQ-quantized, one device, no epochs).
 
 Reference: adapters/repos/db/vector/flat/index.go (full scan). Here the
 full scan is the CUDA kernels' workload: one batched distance product over
-the device-resident corpus per chunk, fused with a running top-k.
+the device-resident corpus per chunk, fused with a running top-k; with
+``quantization`` the store holds codes and scans them through the
+scan-reduce kernels, then rescores exactly (engine/quantized.py).
 
 Doc-id mapping: callers address vectors by external int64 doc ids (the
 shard layer maps UUIDs -> doc ids). Internally ids map to store slots;
@@ -16,8 +18,9 @@ import threading
 
 import numpy as np
 
+from weaviate_tpu_torch.engine.quantized import QuantizedVectorStore
 from weaviate_tpu_torch.engine.store import DeviceVectorStore
-from weaviate_tpu_torch.runtime import tracing
+from weaviate_tpu_torch.runtime import hbm_ledger, tracing
 
 
 def _per_query_allow(allow_list) -> bool:
@@ -33,7 +36,9 @@ def _per_query_allow(allow_list) -> bool:
 class FlatIndex:
     """Implements the reference ``VectorIndex`` contract for brute-force
     search. ``selection`` picks the scan's top-k strategy ("approx" |
-    "exact" | "fused" — ops/topk.chunked_topk_distances)."""
+    "exact" | "fused" — ops/topk.chunked_topk_distances). With
+    ``quantization`` it passes through to the quantized store's survivor
+    selection, which takes "approx" and "fused" only."""
 
     index_type = "flat"
     # the batched entry point accepts PER-QUERY allow lists and runs them
@@ -47,17 +52,23 @@ class FlatIndex:
                  quantization: str | None = None,
                  selection: str = "approx", epoch_rows: int = 0,
                  device=None, **quant_kwargs):
-        if quantization or quant_kwargs:
-            raise NotImplementedError(
-                "quantized flat stores: ROADMAP Queue 1 item 9")
         if epoch_rows:
             raise NotImplementedError("epoch stores: ROADMAP Queue 1 item 7")
         self.dim = dim
         self.metric = metric
-        self.store = DeviceVectorStore(
-            dim=dim, metric=metric, capacity=capacity, dtype=dtype,
-            mesh=mesh, chunk_size=chunk_size, selection=selection,
-            device=device)
+        if quantization:
+            self.store = QuantizedVectorStore(
+                dim=dim, metric=metric, quantization=quantization,
+                capacity=capacity, chunk_size=chunk_size, mesh=mesh,
+                selection=selection, device=device, **quant_kwargs)
+        else:
+            if quant_kwargs:
+                raise TypeError(
+                    f"unexpected kwargs without quantization: {sorted(quant_kwargs)}")
+            self.store = DeviceVectorStore(
+                dim=dim, metric=metric, capacity=capacity, dtype=dtype,
+                mesh=mesh, chunk_size=chunk_size, selection=selection,
+                device=device)
         self._lock = threading.RLock()
         self._id_to_slot: dict[int, int] = {}
         self._slot_to_id: np.ndarray = np.full(self.store.capacity, -1, dtype=np.int64)
@@ -120,7 +131,8 @@ class FlatIndex:
 
     @property
     def compressed(self) -> bool:
-        return False
+        """Reference Compressed() (vector_index.go:37)."""
+        return isinstance(self.store, QuantizedVectorStore)
 
     def search_by_vector(self, query: np.ndarray, k: int,
                          allow_list: np.ndarray | None = None):
@@ -201,9 +213,38 @@ class FlatIndex:
 
         return handle.map(_resolve)
 
-    def compress(self, quantization: str = "pq", **_quant_kwargs) -> None:
-        raise NotImplementedError(
-            f"runtime {quantization} compression: ROADMAP Queue 1 item 9")
+    def compress(self, quantization: str = "pq", **quant_kwargs) -> None:
+        """Runtime compression: train a quantizer on the current contents
+        and swap the store (reference hnsw/compress.go:38, switched on by a
+        config update once enough data exists). The slot layout is kept,
+        so the id<->slot tables carry over untouched."""
+        with self._lock:
+            old = self.store
+            if isinstance(old, QuantizedVectorStore):
+                raise RuntimeError("index is already compressed")
+            snap = old.snapshot()
+            # the new store inherits the old one's memory-ledger owner
+            # (compress runs outside the shard's owner scope); the old
+            # store's entries go with it when the swap drops it
+            own = old._hbm_owner or hbm_ledger.current_owner()
+            with hbm_ledger.owner(**own):
+                new = QuantizedVectorStore(
+                    dim=self.dim, metric=self.metric, quantization=quantization,
+                    capacity=old.capacity, chunk_size=old.chunk_size,
+                    device=old.device, **quant_kwargs)
+            live = np.nonzero(snap["valid"])[0]
+            live_vecs = snap["vectors"][live]
+            if quantization == "pq" and new.codebook is None:
+                if len(live) < new.pq_centroids:
+                    raise RuntimeError(
+                        f"need >= {new.pq_centroids} live vectors to train PQ, "
+                        f"have {len(live)}")
+                new.train(live_vecs)
+            if len(live):
+                # vectors were already normalized at original insert
+                new.set_at_prenormalized(live, live_vecs)
+            new._count = snap["count"]
+            self.store = new
 
     def hybrid_batch_async(self, *_args, **_kwargs):
         raise NotImplementedError("device hybrid search: ROADMAP Queue 1 item 10")
@@ -260,13 +301,13 @@ class FlatIndex:
     def restore(cls, snap: dict, mesh=None, **kwargs) -> "FlatIndex":
         if snap.get("epoch_rows"):
             raise NotImplementedError("epoch stores: ROADMAP Queue 1 item 7")
-        if snap.get("quantization"):
-            raise NotImplementedError(
-                "quantized flat stores: ROADMAP Queue 1 item 9")
         idx = cls.__new__(cls)
         idx.dim = snap["dim"]
         idx.metric = snap["metric"]
-        idx.store = DeviceVectorStore.restore(snap, mesh=mesh, **kwargs)
+        if snap.get("quantization"):
+            idx.store = QuantizedVectorStore.restore(snap, mesh=mesh, **kwargs)
+        else:
+            idx.store = DeviceVectorStore.restore(snap, mesh=mesh, **kwargs)
         idx._lock = threading.RLock()
         slot_to_id = snap["slot_to_id"]
         size = max(idx.store.capacity, len(slot_to_id))

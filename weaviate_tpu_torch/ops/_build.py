@@ -41,6 +41,12 @@ SIGNATURES = {
                          _I, _I, _P, _P, _I, _P]),
     "fused_topk_pairs": ("wtt_fused_topk_pairs",
                          [_P, _P, _I, _I, _I, _P, _P, _P]),
+    "bq_scan_reduce": ("wtt_bq_scan_reduce",
+                       [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _P, _P, _P]),
+    "pq4_scan_reduce": ("wtt_pq4_scan_reduce",
+                        [_P, _P, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _I, _P, _P, _P]),
 }
 
 _lock = threading.Lock()

@@ -1,7 +1,7 @@
-"""Hand-written CUDA kernels of the flat scan, with their plain versions.
+"""Hand-written CUDA kernels of the flat scans, with their plain versions.
 
-Port of ``weaviate_tpu/ops/pallas_kernels.py`` for the three kernels on
-the flat nearVector path:
+Port of ``weaviate_tpu/ops/pallas_kernels.py`` for the kernels on the
+flat nearVector path and the quantized flat path:
 
 - ``distance_block``    masked [B,d] x [N,d] -> [B,N] distances
                         (csrc/distance_block.cu)
@@ -11,6 +11,11 @@ the flat nearVector path:
                         kernel)
 - ``fused_topk_pairs``  exact top-k over (value, id) candidate pairs
                         (csrc/fused_topk_pairs.cu)
+- ``bq_scan_reduce``    hamming over packed sign words with a strided
+                        block-argmin: one candidate per ``reduce_l`` rows
+                        (csrc/bq_scan_reduce.cu)
+- ``pq4_scan_reduce``   4-bit PQ ADC through a per-query int8 LUT with the
+                        same strided block-argmin (csrc/pq4_scan_reduce.cu)
 
 Each wrapper takes its plain PyTorch version (``*_plain``) only when the
 tensors it is given lie on the CPU — the tests run that way. On a CUDA
@@ -39,7 +44,8 @@ FUSED_TOPK_MAX_K = 128
 FUSED_PAIRS_MAX_K = 256
 
 launch_counts = {"distance_block": 0, "fused_topk_scan": 0,
-                 "fused_topk_pairs": 0}
+                 "fused_topk_pairs": 0, "bq_scan_reduce": 0,
+                 "pq4_scan_reduce": 0}
 _count_lock = threading.Lock()
 
 
@@ -397,3 +403,366 @@ def fused_topk_scan(q: torch.Tensor, x: torch.Tensor, k: int,
     _check_rc("fused_topk_scan", rc)
     _count("fused_topk_scan")
     return fused_topk_pairs(part_d, part_i, k)
+
+
+# -- the quantized scan-reduce kernels ----------------------------------------
+#
+# Both kernels compute what the reference's wrappers return
+# (pallas_kernels.bq_scan_reduce / pq4_scan_reduce), not the TPU's block
+# structure. The rows are cut into supertiles of ``reduce_l * out_w``
+# rows; output column c of supertile t keeps the best of the rows
+# t*supertile + s*out_w + c, s = 0 .. reduce_l-1, ordered by the packed
+# int32 key ``value * 64 + s`` (ties go to the lower slice). A dead row
+# (``valid`` False, or past N) carries a dead offset that puts it past any
+# live value; a row the query's allow bits forbid is INT32_MAX and never
+# wins. The geometry is the reference's host-side geometry, number for
+# number: the ids depend on ``out_w``.
+
+SCAN_ID_BITS = 6  # slice-id field of the packed key: reduce_l <= 64
+_INT32_MAX = 2 ** 31 - 1
+_SCAN_CHUNK_ELEMS = 1 << 24  # plain versions: [B, rows] intermediates per chunk
+
+
+class ScanGeometry:
+    """Host-side geometry of one scan-reduce call."""
+
+    __slots__ = ("row_major", "reduce_l", "out_w", "supertile", "pn")
+
+    def __init__(self, row_major, reduce_l, out_w, supertile, pn):
+        self.row_major = row_major
+        self.reduce_l = reduce_l
+        self.out_w = out_w
+        self.supertile = supertile
+        self.pn = pn
+
+    @property
+    def n_supertiles(self) -> int:
+        return self.pn // self.supertile
+
+    @property
+    def out_cols(self) -> int:
+        return self.pn // self.reduce_l
+
+
+def scan_geometry(n: int, width: int, b: int, reduce_l: int, *,
+                  width_pad: int, transposed: bool = False,
+                  sub_rows: int | None = None,
+                  masked: bool = False) -> ScanGeometry:
+    """The reference's geometry (``bq_scan_reduce`` :1196-1252 with
+    ``width_pad`` 4 words, ``pq4_scan_reduce`` :1421-1453 with 8
+    segments): orientation by code width, sub-rows by padded width and
+    batch, ``reduce_l`` floored to a power of two <= 64, ``out_w`` from
+    the supertile cap, and MASK_BLOCK alignment when a mask is given."""
+    pw = _pad_to(max(width, 1), width_pad)
+    pb = _pad_to(max(b, 1), 8)
+    row_major = width >= 24 if not transposed else False
+    if sub_rows is None:
+        if row_major:
+            sub_rows = 256
+        else:
+            sub_rows = 2048 if pw <= 8 else (1024 if pw <= 24 else 512)
+        if pb > 512:
+            sub_rows = min(sub_rows, 1024)
+    reduce_l = max(1, min(reduce_l, 64))
+    reduce_l = 1 << (reduce_l.bit_length() - 1)
+    st_cap = 8192 if row_major else 16384
+    out_w = min(max(128, st_cap // reduce_l), sub_rows)
+    supertile = reduce_l * out_w
+    if masked:
+        while supertile % MASK_BLOCK:
+            out_w *= 2
+            supertile = reduce_l * out_w
+    return ScanGeometry(row_major, reduce_l, out_w, supertile,
+                        _pad_to(max(n, 1), supertile))
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Bit count of 32-bit words held in an int64 tensor (0 <= x < 2**32),
+    SWAR: torch has no popcount op."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def _u32(words: torch.Tensor) -> torch.Tensor:
+    """int32 words (the uint32 bit pattern) -> int64 in [0, 2**32)."""
+    return words.to(torch.int64) & 0xFFFFFFFF
+
+
+def _fit_allow_words(allow_bits: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Words of columns [lo, hi) (MASK_BLOCK-aligned); columns past the
+    given words are disallowed, as the reference's zero padding makes them."""
+    b, wa = allow_bits.shape
+    w0, w1 = lo // 32, hi // 32
+    out = torch.zeros((b, w1 - w0), dtype=torch.int32, device=allow_bits.device)
+    keep = max(0, min(wa, w1) - w0)
+    if keep:
+        out[:, :keep] = allow_bits[:, w0:w0 + keep]
+    return out
+
+
+def _strided_argmin_plain(values, b: int, n: int, g: ScanGeometry,
+                          dead_off: int, valid, allow_bits, device):
+    """The plain strided block-argmin: ``values(lo, hi)`` -> [B, hi-lo]
+    int64 row values (rows past N read as all-zero codes). Returns
+    (raw [B, cols] int64 winning values with the dead offset, ids [B, cols]
+    int32 global rows)."""
+    st, L, ow = g.supertile, g.reduce_l, g.out_w
+    n_st = g.n_supertiles
+    per = max(1, _SCAN_CHUNK_ELEMS // max(1, b) // st)
+    packed = torch.empty((b, n_st * ow), dtype=torch.int64, device=device)
+    for t0 in range(0, n_st, per):
+        t1 = min(n_st, t0 + per)
+        lo, hi = t0 * st, t1 * st
+        v = values(lo, hi)
+        pos = torch.arange(lo, hi, dtype=torch.int64, device=device)
+        dead = pos >= n
+        if valid is not None:
+            live = torch.zeros(hi - lo, dtype=torch.bool, device=device)
+            top = min(hi, n)
+            if top > lo:
+                live[:top - lo] = valid[lo:top]
+            dead = dead | ~live
+        key = (v + dead.to(torch.int64)[None, :] * dead_off) * 64 \
+            + (pos % st // ow)[None, :]
+        if allow_bits is not None:
+            ok = unpack_allow_bitmask(_fit_allow_words(allow_bits, lo, hi))
+            key = torch.where(ok, key, torch.full_like(key, _INT32_MAX))
+        packed[:, t0 * ow:t1 * ow] = key.reshape(b, t1 - t0, L, ow).amin(dim=2) \
+            .reshape(b, -1)
+    col = torch.arange(n_st * ow, dtype=torch.int64, device=device)
+    ids = (packed & 63) * ow + (col % ow)[None, :] + (col // ow * st)[None, :]
+    return packed >> SCAN_ID_BITS, ids.to(torch.int32)
+
+
+def _check_scan_operands(name, codes, codes_dtypes, width, transposed, valid,
+                         allow_bits, b):
+    if codes.ndim != 2:
+        raise ValueError(f"{name}: codes must be 2-D, got {tuple(codes.shape)}")
+    if codes.dtype not in codes_dtypes:
+        raise TypeError(f"{name}: codes dtype {codes.dtype}, expected {codes_dtypes}")
+    if not codes.is_contiguous():
+        raise ValueError(f"{name}: codes must be contiguous")
+    cw = codes.shape[0] if transposed else codes.shape[1]
+    if cw != width:
+        raise ValueError(f"{name}: code width {cw} != {width}")
+    n = codes.shape[1] if transposed else codes.shape[0]
+    if valid is not None and (valid.device != codes.device or valid.shape != (n,)
+                              or valid.dtype != torch.bool):
+        raise ValueError(f"{name}: valid must be a [N] bool tensor on the codes' device")
+    if allow_bits is not None and (
+            allow_bits.device != codes.device or allow_bits.ndim != 2
+            or allow_bits.shape[0] != b or allow_bits.dtype != torch.int32):
+        raise ValueError(f"{name}: allow_bits must be [B, W] int32 words on the "
+                         f"codes' device, got {tuple(allow_bits.shape)}")
+    return n
+
+
+def _launch_scan(name, g, b, qblock, device, *args):
+    """Shared launch of the two scan-reduce kernels: the output buffers,
+    the grid's column blocks, the C call and its count."""
+    from weaviate_tpu_torch.ops import _build
+
+    vals = torch.empty((b, g.out_cols), dtype=torch.float32, device=device)
+    ids = torch.empty((b, g.out_cols), dtype=torch.int32, device=device)
+    rc = _build.kernel(name)(*args, g.reduce_l, g.out_w, g.supertile,
+                             g.n_supertiles, -(-b // qblock),
+                             vals.data_ptr(), ids.data_ptr(), _stream(device))
+    _check_rc(name, rc)
+    _count(name)
+    return vals, ids
+
+
+# -- bq_scan_reduce ------------------------------------------------------------
+
+BQ_QBLOCK = 32  # queries per CTA (csrc/bq_scan_reduce.cu)
+
+
+def bq_geometry(n, w, b, reduce_l=128, transposed=False, sub_rows=None,
+                masked=False) -> ScanGeometry:
+    return scan_geometry(n, w, b, reduce_l, width_pad=4, transposed=transposed,
+                         sub_rows=sub_rows, masked=masked)
+
+
+def bq_scan_reduce_plain(q_bits, x_bits, valid=None, reduce_l=128,
+                         transposed=False, sub_rows=None, allow_bits=None):
+    """Plain version of ``bq_scan_reduce``: XOR + popcount per word, the
+    strided block-argmin over packed (hamming - popcount(q), slice) keys."""
+    b, w = q_bits.shape
+    n = x_bits.shape[1] if transposed else x_bits.shape[0]
+    g = bq_geometry(n, w, b, reduce_l, transposed, sub_rows, allow_bits is not None)
+    d = 32 * w
+    dev = x_bits.device
+    q64 = _u32(q_bits)
+    qpop = popcount32(q64).sum(dim=1)
+
+    def values(lo, hi):
+        top = min(hi, n)
+        xs = torch.zeros((hi - lo, w), dtype=torch.int64, device=dev)
+        if top > lo:
+            xs[:top - lo] = _u32(x_bits[:, lo:top].T if transposed else x_bits[lo:top])
+        acc = torch.zeros((b, hi - lo), dtype=torch.int64, device=dev)
+        for j in range(w):
+            acc += popcount32(q64[:, j, None] ^ xs[None, :, j])
+        return acc - qpop[:, None]
+
+    raw, ids = _strided_argmin_plain(values, b, n, g, 2 * d + 2, valid, allow_bits, dev)
+    vals = raw.float() + qpop.float()[:, None]
+    vals = torch.where(vals > d, torch.full_like(vals, MASKED_DISTANCE), vals)
+    return vals, ids
+
+
+def bq_scan_reduce(q_bits: torch.Tensor, x_bits: torch.Tensor,
+                   valid: torch.Tensor | None = None, reduce_l: int = 128,
+                   transposed: bool = False, sub_rows: int | None = None,
+                   allow_bits: torch.Tensor | None = None):
+    """Full-corpus BQ scan with candidate reduction (reference
+    ``pallas_kernels.bq_scan_reduce``). ``q_bits`` [B, W] and ``x_bits``
+    [N, W] (or [W, N] with ``transposed``) are int32 tensors holding the
+    uint32 sign words; ``allow_bits`` [B, Wa] int32 packed allow words.
+
+    Returns (vals [B, pn/L] f32 true hamming distances, dead and
+    disallowed slots at MASKED_DISTANCE; ids [B, pn/L] int32 global rows).
+    CUDA tensors launch csrc/bq_scan_reduce.cu; CPU tensors take
+    ``bq_scan_reduce_plain``."""
+    if q_bits.ndim != 2 or q_bits.dtype != torch.int32:
+        raise ValueError(f"bq_scan_reduce: q_bits must be [B, W] int32, got "
+                         f"{tuple(q_bits.shape)} {q_bits.dtype}")
+    if q_bits.device != x_bits.device:
+        raise ValueError(f"q_bits on {q_bits.device}, x_bits on {x_bits.device}")
+    b, w = q_bits.shape
+    n = _check_scan_operands("bq_scan_reduce", x_bits, (torch.int32,), w,
+                             transposed, valid, allow_bits, b)
+    if x_bits.device.type == "cpu":
+        return bq_scan_reduce_plain(q_bits, x_bits, valid, reduce_l, transposed,
+                                    sub_rows, allow_bits)
+    g = bq_geometry(n, w, b, reduce_l, transposed, sub_rows, allow_bits is not None)
+    q_bits = q_bits.contiguous()
+    vec4 = int(not transposed and w % 4 == 0 and x_bits.data_ptr() % 16 == 0)
+    valid = None if valid is None else valid.contiguous()
+    bits = None if allow_bits is None else allow_bits.contiguous()
+    return _launch_scan(
+        "bq_scan_reduce", g, b, BQ_QBLOCK, x_bits.device,
+        q_bits.data_ptr(), x_bits.data_ptr(), int(transposed), vec4,
+        _ptr(valid), _ptr(bits), 0 if bits is None else bits.shape[1], b, n, w)
+
+
+# -- pq4_scan_reduce -----------------------------------------------------------
+
+PQ4_QBLOCK = 16  # queries per CTA (csrc/pq4_scan_reduce.cu)
+# The kernel holds its 16 queries' tables for every segment in shared
+# memory: m padded to 16 segments x 16 codes x 16 queries bytes, within
+# the 227 KB a CTA may opt into on sm_90. So m <= 896 segments (3584 dims
+# at the default m = d/4).
+PQ4_SMEM_BYTES = 227 * 1024
+PQ4_MAX_SEGMENTS = PQ4_SMEM_BYTES // (16 * PQ4_QBLOCK) // 16 * 16
+
+
+def pq4_check_segments(m: int) -> None:
+    """Raise when the CUDA kernel's shared-memory table cannot hold ``m``
+    segments."""
+    if m > PQ4_MAX_SEGMENTS:
+        raise ValueError(
+            f"pq4_scan_reduce on CUDA holds at most {PQ4_MAX_SEGMENTS} segments "
+            f"(a {PQ4_SMEM_BYTES}-byte shared-memory table), got m = {m}")
+
+
+def pq4_geometry(n, m, b, reduce_l=64, transposed=False, sub_rows=None,
+                 masked=False) -> ScanGeometry:
+    return scan_geometry(n, m, b, reduce_l, width_pad=8, transposed=transposed,
+                         sub_rows=sub_rows, masked=masked)
+
+
+def quantize_lut_int8(lut: torch.Tensor):
+    """Per-query int8 quantization of ADC tables, code-major flattened
+    (reference ``ops/pq.py:263``): lut [B, m, kc] f32 -> (lut8 [B, kc*m]
+    int8 with lane order c*m + s, scale [B] f32); adc = sums / scale."""
+    b, m, kc = lut.shape
+    amax = torch.clamp(lut.reshape(b, -1).abs().amax(dim=1), min=1e-20)
+    # a true division: ``127.0 / tensor`` is a reciprocal times 127 in torch
+    scale = torch.full_like(amax, 127.0) / amax
+    lut8 = torch.clamp(torch.round(lut * scale[:, None, None]), -127, 127)
+    lut8 = lut8.transpose(1, 2).reshape(b, kc * m)
+    return lut8.to(torch.int8), scale
+
+
+def pq4_lut8(lut: torch.Tensor):
+    """The scan's table: lut [B, m, kc<=16] f32 padded to 8-multiple
+    segments and 16 centroids with zeros, quantized per query. Returns
+    (lut8 [B, 16*pm] int8 code-major, scale [B] f32, pm)."""
+    b, m, kc = lut.shape
+    if kc > 16:
+        raise ValueError(f"pq4 kernel requires k <= 16 centroids, got {kc}")
+    pm = _pad_to(max(m, 1), 8)
+    lut = torch.nn.functional.pad(lut.float(), (0, 16 - kc, 0, pm - m))
+    lut8, scale = quantize_lut_int8(lut)
+    return lut8.contiguous(), scale.contiguous(), pm
+
+
+def pq4_scan_reduce_plain(lut, codes, valid=None, reduce_l=64, transposed=False,
+                          sub_rows=None, allow_bits=None):
+    """Plain version of ``pq4_scan_reduce``: per segment, the int8 table
+    entry of each row's code (``code & 15``) summed in int64, then the
+    strided block-argmin."""
+    b, m, _kc = lut.shape
+    n = codes.shape[1] if transposed else codes.shape[0]
+    g = pq4_geometry(n, m, b, reduce_l, transposed, sub_rows, allow_bits is not None)
+    lut8, scale, pm = pq4_lut8(lut)
+    dev = codes.device
+    lut64 = lut8.to(torch.int64)
+
+    def values(lo, hi):
+        top = min(hi, n)
+        cs = torch.zeros((hi - lo, m), dtype=torch.int64, device=dev)
+        if top > lo:
+            cs[:top - lo] = (codes[:, lo:top].T if transposed else codes[lo:top]).to(
+                torch.int64)
+        cs = cs & 15
+        acc = torch.zeros((b, hi - lo), dtype=torch.int64, device=dev)
+        for s in range(m):
+            acc += torch.index_select(lut64, 1, cs[:, s] * pm + s)
+        return acc
+
+    raw, ids = _strided_argmin_plain(values, b, n, g, 2 * 127 * pm + 2, valid,
+                                     allow_bits, dev)
+    vals = raw.float() / scale[:, None]
+    vals = torch.where(raw > 127 * pm, torch.full_like(vals, MASKED_DISTANCE), vals)
+    return vals, ids
+
+
+def pq4_scan_reduce(lut: torch.Tensor, codes: torch.Tensor,
+                    valid: torch.Tensor | None = None, reduce_l: int = 64,
+                    transposed: bool = False, sub_rows: int | None = None,
+                    allow_bits: torch.Tensor | None = None):
+    """Full-corpus 4-bit PQ ADC scan with candidate reduction (reference
+    ``pallas_kernels.pq4_scan_reduce``). ``lut`` [B, m, kc<=16] f32 ADC
+    tables (``ops/pq.pq_lut``), ``codes`` [N, m] uint8 (or [m, N] with
+    ``transposed``) holding codes below 16.
+
+    Returns (vals [B, pn/L] f32 approximate ADC distances, dead and
+    disallowed slots at MASKED_DISTANCE; ids [B, pn/L] int32). CUDA
+    tensors launch csrc/pq4_scan_reduce.cu; CPU tensors take
+    ``pq4_scan_reduce_plain``."""
+    if lut.ndim != 3:
+        raise ValueError(f"pq4_scan_reduce: lut must be [B, m, k], got {tuple(lut.shape)}")
+    if lut.device != codes.device:
+        raise ValueError(f"lut on {lut.device}, codes on {codes.device}")
+    b, m, kc = lut.shape
+    if kc > 16:
+        raise ValueError(f"pq4 kernel requires k <= 16 centroids, got {kc}")
+    n = _check_scan_operands("pq4_scan_reduce", codes, (torch.uint8,), m,
+                             transposed, valid, allow_bits, b)
+    if codes.device.type == "cpu":
+        return pq4_scan_reduce_plain(lut, codes, valid, reduce_l, transposed,
+                                     sub_rows, allow_bits)
+    pq4_check_segments(m)
+    g = pq4_geometry(n, m, b, reduce_l, transposed, sub_rows, allow_bits is not None)
+    lut8, scale, pm = pq4_lut8(lut)
+    vec16 = int(not transposed and m % 16 == 0 and codes.data_ptr() % 16 == 0)
+    valid = None if valid is None else valid.contiguous()
+    bits = None if allow_bits is None else allow_bits.contiguous()
+    return _launch_scan(
+        "pq4_scan_reduce", g, b, PQ4_QBLOCK, codes.device,
+        lut8.data_ptr(), scale.data_ptr(), pm, codes.data_ptr(), int(transposed),
+        vec16, _ptr(valid), _ptr(bits), 0 if bits is None else bits.shape[1], b, n, m)
