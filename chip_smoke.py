@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch/CUDA port (``weaviate_tpu_torch``) on one
 NVIDIA card.
 
-Run from the repository root:  python3 chip_smoke.py [--seed N] [--rows N]
+Run from the repository root:
+    python3 chip_smoke.py [--seed N] [--rows N] [--hybrid-docs N]
 
 It drives the port's flat nearVector path at VectorDBBench's
 Performance768D1M case (Cohere wiki-22-12: 1,000,000 x 768, cosine,
@@ -38,8 +39,31 @@ is downloaded), in phases:
    through batch_put and queried the same way. Each quantized collection
    is held to the serial path, to exact distances and to RECALL_FLOOR.
 
-Phases 5 and 6 each reset the launch counters as they start and read them
-as they end: every kernel in QUANT_KERNELS must have run there.
+7. hybrid: a collection at the size of BEIR FiQA-2018 (Thakur et al.,
+   NeurIPS 2021 Datasets and Benchmarks, Table 1: 57,638 documents,
+   648 test queries, documents of 132 words and queries of 11 on
+   average), ``title`` and ``text`` TEXT properties (word tokenization,
+   en stopwords) and a 768-d cosine flat vector, Weaviate's BM25 defaults
+   (k1 1.2, b 0.75), k=10 and the hybrid default (relativeScore, alpha
+   0.75) in turn with rankedFusion at alpha 0.3 and 0.75. Deviations from
+   FiQA: the text is Zipf text made from ``--seed`` (the en stopwords as
+   the most frequent words), the vectors are clustered as in phase 4, the
+   titles hold ~6 words (FiQA's are empty) and an int property ``n``
+   carries a 10% filter. 8 client threads send (a) 648 FiQA-shaped
+   queries, (b) 256 queries of the same shape whose words keep the
+   candidate union within the 4,096-candidate budget, (c) (b) under
+   where(n == 0) and (d) (b)'s queries with the index's selection set to
+   "fused", so that the dense leg runs fused_topk_scan, each with one
+   plain nearVector request per three hybrid ones on the same batcher.
+   Every query of (b), (c) and (d) must take the device path (counted per
+   query); every device answer is held to the host reference path
+   (device_hybrid off), and every host-served query of (a) must exceed
+   the budget.
+
+Phases 5, 6 and 7 each reset the launch counters as they start and read
+them as they end: every kernel in QUANT_KERNELS must have run in phases 5
+and 6, and ``bm25_block`` and ``distance_block`` in phase 7, whose run (d)
+must launch ``fused_topk_scan``.
 
 It prints one line per phase, then a JSON line of per-kernel numbers, and
 as its last line ``{"ok": true, "device": {...}}``. Any failure exits
@@ -71,10 +95,14 @@ CHUNK = 8192
 ADD_BATCH = 65_536
 IMPORT_BATCH = 10_000
 IMPORT_BUDGET_S = 300.0  # phase 4 cuts its row count past this
-CLIENTS, CALLS = 8, 64
-PLAIN_CALLS = 32  # phase 4 at half the calls, to keep the script near 600 s
+# calls per client in phase 6 (CALLS) and phase 4 (PLAIN_CALLS), and phase
+# 4's queries after its deletes: cut so that phase 7's FiQA-sized hybrid
+# collection (whose text import takes minutes on the host) keeps the script
+# within its time
+CLIENTS, CALLS = 8, 32
+PLAIN_CALLS = 16
 VIEWS_CUT = 90           # where(views >= 90) keeps 10% of the 0..99 values
-DELETES, REQUERIES = 1000, 64
+DELETES, REQUERIES = 1000, 32
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 FP32_FLOPS = 67e12
@@ -95,6 +123,8 @@ KERNEL_SOURCES = {
                        "weaviate_tpu/ops/pallas_kernels.py:1166"),
     "pq4_scan_reduce": ("weaviate_tpu_torch/csrc/pq4_scan_reduce.cu",
                         "weaviate_tpu/ops/pallas_kernels.py:1397"),
+    "bm25_block": ("weaviate_tpu_torch/csrc/bm25_block.cu",
+                   "weaviate_tpu/ops/pallas_kernels.py:1606"),
 }
 # no single PyTorch call computes a strided block-argmin over hamming or
 # LUT sums: the scan-reduce kernels have no library yardstick
@@ -283,6 +313,12 @@ def phase_kernels(torch, K, seed: int) -> dict:
                 raise AssertionError(f"distance_block {metric} {dtype} disagrees")
             err = max(err, (a - b).abs().max().item())
     xn = torch.nn.functional.normalize(x, dim=1).contiguous()
+    # batch invariance: a query's distances must not move with the rows
+    # batched beside it (the batcher pads drains to 1, 2, 4, 8, ... rows)
+    full = K.distance_block(q, xn, METRIC)
+    for b in (1, 2, 4, 8, 64):
+        if not torch.equal(K.distance_block(q[:b], xn, METRIC), full[:b]):
+            raise AssertionError(f"distance_block rows at B={b} differ from B={BATCH}")
     one = torch.ones((), device=dev)
     qn = torch.nn.functional.normalize(q, dim=1)
     b_ms, b_by = bound_ms(q.numel() * 4 + xn.numel() * 4 + CHUNK + BATCH * CHUNK * 4,
@@ -295,7 +331,8 @@ def phase_kernels(torch, K, seed: int) -> dict:
         bound_ms=b_ms, bound_by=b_by)
     log(f"phase 2 kernels: distance_block q[{BATCH},{DIM}] x [{CHUNK},{DIM}] "
         f"l2/dot/cosine x f32/bf16 with valid mask: max_abs_err {err:.3g} "
-        f"(rtol {RTOL}, atol {ATOL}); kernel {out['distance_block']['ms']:.4f} ms, "
+        f"(rtol {RTOL}, atol {ATOL}), rows equal at B = 1..{BATCH} (batch-invariant); "
+        f"kernel {out['distance_block']['ms']:.4f} ms, "
         f"plain {out['distance_block']['plain_ms']:.4f} ms, "
         f"addmm {out['distance_block']['library_ms']:.4f} ms, "
         f"{_bound_text(out['distance_block'])}")
@@ -397,7 +434,73 @@ def phase_kernels(torch, K, seed: int) -> dict:
         f"kernel {out['fused_topk_pairs']['ms']:.4f} ms, "
         f"plain {out['fused_topk_pairs']['plain_ms']:.4f} ms, torch.topk "
         f"{out['fused_topk_pairs']['library_ms']:.4f} ms, {_bound_text(out['fused_topk_pairs'])}")
+    out["bm25_block"] = _bm25_kernel(torch, K, rng, timer)
     return out
+
+
+def _bm25_operands(torch, rng, b, s, t, c):
+    """Random operands of bm25_block on the card: integer term
+    frequencies (60% zero), property lengths, boosts including 0, real
+    term indexes (every segment names a term below T) and idf, per-row
+    k1 / b with the host-rounded 1 - b, and ~90% live candidates."""
+    from weaviate_tpu_torch.ops import kernels as K
+
+    dev = "cuda"
+    tf = rng.integers(1, 6, (b, s, c)).astype(np.float32)
+    tf[rng.random((b, s, c)) < 0.6] = 0.0
+    k1 = rng.uniform(0.5, 2.0, b).astype(np.float32)
+    bb = rng.uniform(0.0, 1.0, b).astype(np.float32)
+    host = dict(
+        seg_tf=tf, seg_len=rng.integers(1, 400, (b, s, c)).astype(np.float32),
+        seg_term=rng.integers(0, t, (b, s)).astype(np.int32),
+        seg_boost=rng.choice(np.float32([0.0, 0.5, 1.0, 2.0]), (b, s)),
+        seg_avg=rng.uniform(20.0, 200.0, (b, s)).astype(np.float32),
+        idf=rng.uniform(0.0, 8.0, (b, t)).astype(np.float32), k1=k1, b=bb,
+        omb=(np.float32(1.0) - bb).astype(np.float32))
+    ops = {n: torch.from_numpy(a).to(dev) for n, a in host.items()}
+    ops["cand_bits"] = K.pack_allow_bitmask_t(
+        torch.from_numpy(rng.random((b, c)) < 0.9).to(dev))
+    return ops
+
+
+BM25_ARGS = ("seg_tf", "seg_len", "seg_term", "seg_boost", "seg_avg", "idf", "k1", "b",
+             "omb", "cand_bits")
+BM25_SHAPE = (64, 16, 8, 4096)  # B, S, T, C of the hybrid path at its 4096 budget
+
+
+def _bm25_kernel(torch, K, rng, timer) -> dict:
+    """bm25_block against its plain version on the card, bit for bit, at
+    ragged shapes and at the hybrid path's (64 rows x 16 segments x 8
+    terms x 4096 candidates): both evaluate the host scorer's f32
+    operations in its order, so equality is exact. Two shapes hold more
+    terms than one of the kernel's 64-term tiles, T = 320 ending in a
+    partial tile and T = 512."""
+    shapes = [(1, 1, 1, 512), (3, 5, 3, 1024), (7, 13, 6, 1536), (16, 32, 16, 2048),
+              (2, 64, 64, 512), (33, 8, 8, 512), (2, 640, 320, 512), (3, 1024, 512, 1024),
+              BM25_SHAPE]
+    for b, s, t, c in shapes:
+        ops = _bm25_operands(torch, rng, b, s, t, c)
+        a = K.bm25_block(*(ops[n] for n in BM25_ARGS))
+        p = K.bm25_block_plain(*(ops[n] for n in BM25_ARGS))
+        if not torch.equal(a, p):
+            bad = int((a != p).sum().item())
+            raise AssertionError(f"bm25_block [{b},{s},{t},{c}]: {bad} values differ "
+                                 "from the plain version")
+    b, s, t, c = BM25_SHAPE
+    args = [ops[n] for n in BM25_ARGS]
+    # bytes: both planes and the scalars read once, the output written once;
+    # operations: the reference kernel's cost estimate, B*C*(4S + T(S+3))
+    nbytes = 2 * b * s * c * 4 + 3 * b * s * 4 + b * t * 4 + 3 * b * 4 + b * c // 8 \
+        + b * c * 4
+    b_ms, b_by = bound_ms(nbytes, b * c * (4 * s + t * (s + 3)), FP32_FLOPS)
+    o = dict(max_abs_err=0.0, ms=timer(lambda: K.bm25_block(*args), reps=50),
+             plain_ms=timer(lambda: K.bm25_block_plain(*args), reps=5),
+             library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    log(f"phase 2 kernels: bm25_block {len(shapes) - 1} ragged shapes and the hybrid "
+        f"path's [{b},{s},{t},{c}] (B, S, T, C): equal to the plain version bit for bit; "
+        f"kernel {o['ms']:.4f} ms, plain {o['plain_ms']:.4f} ms, library {NO_LIBRARY}, "
+        f"{_bound_text(o)}")
+    return o
 
 
 def _same_scan(torch, a, b, what) -> float:
@@ -1016,11 +1119,348 @@ def phase_quantized_end_to_end(torch, K, seed: int, db, st4: dict) -> dict:
     return counts
 
 
+# -- phase 7: hybrid search at the size of BEIR FiQA-2018 -------------------------
+
+FIQA_DOCS = 57_638        # corpus documents (Thakur et al., NeurIPS 2021 D&B, Table 1)
+FIQA_QUERIES = 648        # test queries
+FIQA_DOC_WORDS = 132.32   # average document length in words
+FIQA_QUERY_WORDS = 10.77  # average query length in words
+TITLE_WORDS = 6           # FiQA's titles are empty; here short ones, so BM25F spans two
+VOCAB, ZIPF_S = 100_000, 1.0
+HYBRID_K = 10
+HYBRID_BUDGET = 4096      # WEAVIATE_TPU_HYBRID_MAX_CANDIDATES' default
+BUDGET_QUERIES = 256      # queries of runs (b) and (c) each
+# Weaviate's hybrid default (relativeScore, alpha 0.75), then rankedFusion at 0.3 and 0.75
+HYBRID_SETTINGS = (("relativeScore", 0.75), ("rankedFusion", 0.3), ("rankedFusion", 0.75))
+FUSED_RTOL = 1e-6         # the host fuses in Python floats, the device in f32
+
+
+def _zipf_words(seed: int):
+    """The vocabulary (rank -> word: the en stopwords first, as the most
+    frequent ranks of English text are, then ``w<rank>``) and its Zipf
+    probabilities."""
+    from weaviate_tpu_torch.text.stopwords import _EN
+
+    stop = sorted(_EN)
+    words = np.array(stop + [f"w{r}" for r in range(len(stop), VOCAB)], dtype=object)
+    p = 1.0 / np.arange(1, VOCAB + 1, dtype=np.float64) ** ZIPF_S
+    return words, p / p.sum(), len(stop)
+
+
+def _fiqa_corpus(seed: int, n: int):
+    """``n`` documents of Zipf text (text ~132 words, title ~6), an int
+    property ``n`` (i % 10: ``n == 0`` keeps 10%), and each word's
+    document frequency over both properties (an upper bound of any query's
+    candidate union)."""
+    rng = np.random.default_rng([seed, 7])
+    words, p, _ = _zipf_words(seed)
+    sigma = 0.6
+    lens = np.clip(np.rint(rng.lognormal(np.log(FIQA_DOC_WORDS) - sigma ** 2 / 2, sigma, n)),
+                   5, 2000).astype(np.int64)
+    tlens = 1 + rng.poisson(TITLE_WORDS - 1, n)
+    df = np.zeros(VOCAB, np.int64)
+    props = []
+    for ln in (lens, tlens):
+        ranks = rng.choice(VOCAB, int(ln.sum()), p=p)
+        doc = np.repeat(np.arange(n, dtype=np.int64), ln)
+        df += np.bincount(np.unique(doc * VOCAB + ranks) % VOCAB, minlength=VOCAB)
+        ends = np.cumsum(ln)
+        props.append([" ".join(words[ranks[e - m:e]]) for e, m in zip(ends, ln)])
+    return props[0], props[1], df, float(lens.mean())
+
+
+def _fiqa_queries(seed: int, df, budget: bool, count: int):
+    """FiQA-shaped queries (~10.8 words, Zipf, stopwords included). With
+    ``budget``, content words come only from the band of words whose
+    document frequency keeps the sum over the query, and so its candidate
+    union, within HYBRID_BUDGET."""
+    rng = np.random.default_rng([seed, 8, int(budget)])
+    words, p, n_stop = _zipf_words(seed)
+    band = np.flatnonzero((df >= 8) & (df <= 1200))
+    band = band[band >= n_stop]
+    pb = p[band] / p[band].sum()
+    out = []
+    for _ in range(count):
+        m = 1 + rng.poisson(FIQA_QUERY_WORDS - 1)
+        toks, used = [], 0
+        for r in rng.choice(VOCAB, m, p=p):
+            if r < n_stop:
+                toks.append(words[r])
+                continue
+            if budget:
+                r = rng.choice(band, p=pb)
+                if used + df[r] > HYBRID_BUDGET:
+                    continue
+                used += df[r]
+            toks.append(words[r])
+        if budget and used == 0:
+            r = rng.choice(band, p=pb)
+            toks.append(words[r])
+        out.append(" ".join(toks))
+    return out
+
+
+def _same_answer(dev, ref) -> bool:
+    """Two hybrid answers [(uuid, score)] agree: scores equal position by
+    position within FUSED_RTOL, and every uuid that differs sits in a tie
+    (within FUSED_RTOL) inside the list or at its k-th place."""
+    if len(dev) != len(ref):
+        return False
+    ds = np.array([x[1] for x in dev], np.float64)
+    rs = np.array([x[1] for x in ref], np.float64)
+    if not np.allclose(ds, rs, rtol=FUSED_RTOL, atol=1e-9):
+        return False
+    tol = FUSED_RTOL * np.maximum(np.abs(rs), 1e-9) + 1e-9
+    for pos, (u, sc) in enumerate(dev):
+        if u == ref[pos][0]:
+            continue
+        tied = [v for v, t in ref if abs(t - sc) <= tol[pos]]
+        if u not in tied and abs(sc - rs[-1]) > tol[pos]:
+            return False
+    return True
+
+
+def _tie_ordered_reference(col, shard, query, vec, fusion, alpha, allow):
+    """The host reference with the device path's tie order: every BM25
+    candidate scored by the host scorer, the leg cut at the over-fetch
+    after ordering by (score desc, doc id asc), the dense leg from the
+    host path, fused by text/hybrid.py. Differs from the host path only
+    in the order of exactly tied BM25 scores, which the host's
+    argpartition leaves arbitrary (and which moves RRF ranks)."""
+    from weaviate_tpu_torch.db.collection import SearchResult
+    from weaviate_tpu_torch.text.hybrid import fusion_ranked, fusion_relative_score
+
+    fetch = max(HYBRID_K * 10, 100)
+    ids, scores = shard.bm25_search(query, 1 << 30, None, allow)
+    order = np.lexsort((ids, -scores.astype(np.float64)))[:fetch]
+    sparse = [SearchResult(uuid=shard._doc_to_uuid[int(i)], score=float(scores[j]))
+              for j, i in zip(order, ids[order])]
+    legs, weights = [], []
+    if alpha < 1.0:
+        legs.append(sparse)
+        weights.append(1.0 - alpha)
+    if alpha > 0.0:
+        dense = col.near_vector(vec, k=fetch, include_objects=False,
+                                allow_list_by_shard=None if allow is None
+                                else {shard.name: allow})
+        for r in dense:
+            r.score = -r.distance
+        legs.append(dense)
+        weights.append(alpha)
+    fuse = fusion_relative_score if fusion == "relativeScore" else fusion_ranked
+    return [(r.uuid, s) for s, r in fuse(legs, weights, HYBRID_K)]
+
+
+def phase_hybrid(torch, K, seed: int, db, n_docs: int) -> dict:
+    """Phase 7. Returns its launch counts."""
+    from weaviate_tpu_torch.filters import Filter, Operator
+    from weaviate_tpu_torch.schema.config import (CollectionConfig, Property,
+                                                  VectorConfig, VectorIndexConfig)
+
+    dev = "cuda"
+    rng = np.random.default_rng([seed, 9])
+    t0 = time.perf_counter()
+    texts, titles, df, mean_len = _fiqa_corpus(seed, n_docs)
+    cent = centers(seed)
+    gen_s = time.perf_counter() - t0
+    col = db.create_collection(CollectionConfig(
+        name="FiQA",
+        properties=[Property(name="title", data_type="text"),
+                    Property(name="text", data_type="text"),
+                    Property(name="n", data_type="int")],
+        vectors=[VectorConfig(index=VectorIndexConfig(index_type="flat", metric=METRIC))]))
+    ref = torch.empty((n_docs, DIM), dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    for s in range(0, n_docs, 2000):
+        n = min(2000, n_docs - s)
+        v = clustered(seed + 3, s, n, cent)
+        res = col.batch_put([
+            {"uuid": _uuid(8002, s + i),
+             "properties": {"title": titles[s + i], "text": texts[s + i], "n": (s + i) % 10},
+             "vector": v[i]} for i in range(n)])
+        if any(r["status"] != "SUCCESS" for r in res):
+            raise AssertionError(f"batch_put failed: {res[0]}")
+        ref[s:s + n] = torch.nn.functional.normalize(torch.from_numpy(v).to(dev), dim=1)
+    import_s = time.perf_counter() - t0
+    if col.object_count() != n_docs:
+        raise AssertionError(f"object_count {col.object_count()} != {n_docs}")
+    shard = next(iter(col.shards.values()))
+    if shard.hybrid_max_candidates != HYBRID_BUDGET:
+        raise AssertionError(f"candidate budget {shard.hybrid_max_candidates}")
+    where = Filter.where("n", Operator.EQUAL, 0)
+    # run -> (queries, filter, the index's selection)
+    runs = {"a": (_fiqa_queries(seed, df, False, FIQA_QUERIES), None, "approx"),
+            "b": (_fiqa_queries(seed, df, True, BUDGET_QUERIES), None, "approx")}
+    runs["c"] = (runs["b"][0], where, "approx")
+    runs["d"] = (runs["b"][0], None, "fused")
+
+    def vectors(count, tag):
+        return near_queries(seed + tag, rng.integers(0, n_docs, count),
+                            lambda r: ref[torch.from_numpy(r).to(dev)].cpu().numpy(),
+                            NEAR_NOISE)
+
+    # per-query attribution: which path served each hybrid call
+    tls = threading.local()
+    served: dict = {}
+    orig = col._hybrid_device
+
+    def recording(*a, **kw):
+        r = orig(*a, **kw)
+        served[tls.key] = r is not None
+        return r
+
+    col._hybrid_device = recording
+    idx = shard.vector_indexes[""]
+    batcher = shard._query_batcher("", idx)
+    K.reset_launch_counts()  # phase 7's run starts here
+    d0 = batcher.dispatches
+    answers, parts, qvecs, fused_launches = {}, [], {}, {}
+    for name, (queries, flt, selection) in runs.items():
+        idx.store.selection = selection
+        nq = len(queries)
+        qv = qvecs[name] = vectors(nq, 10 + ord(name))
+        pv = vectors(nq // 3, 20 + ord(name))
+        # one plain nearVector request after every third hybrid one
+        reqs = []
+        for i in range(nq):
+            reqs.append(("h", i))
+            if i % 3 == 2:
+                reqs.append(("v", i // 3))
+
+        def ask(j, _q=queries, _qv=qv, _pv=pv, _f=flt, _name=name, _reqs=reqs):
+            kind, i = _reqs[j]
+            if kind == "v":
+                return col.near_vector(_pv[i], k=HYBRID_K, include_objects=False)
+            fusion, alpha = HYBRID_SETTINGS[i % 3]
+            tls.key = (_name, i)
+            return col.hybrid(_q[i], vector=_qv[i], alpha=alpha, k=HYBRID_K, fusion=fusion,
+                              where=_f, include_objects=False)
+
+        h0, l0 = batcher.hybrid_batched, K.launch_counts["bm25_block"]
+        f0 = {kn: K.launch_counts[kn] for kn in ("fused_topk_scan", "fused_topk_pairs")}
+        out, lat, wall = _run_clients(ask, len(reqs))
+        fused_launches[name] = {kn: K.launch_counts[kn] - c for kn, c in f0.items()}
+        hyb = [j for j, r in enumerate(reqs) if r[0] == "h"]
+        n_dev = sum(served[(name, reqs[j][1])] for j in hyb)
+        if batcher.hybrid_batched - h0 != n_dev:
+            raise AssertionError(f"run {name}: {n_dev} queries served on the device but "
+                                 f"hybrid_batched rose by {batcher.hybrid_batched - h0}")
+        if name != "a" and n_dev != nq:
+            raise AssertionError(f"run {name}: {nq - n_dev} of {nq} budget-eligible "
+                                 "queries left the device path")
+        for j in hyb:
+            i = reqs[j][1]
+            res = out[j]
+            sc = np.array([r.score for r in res], np.float64)
+            if not len(res) or not np.isfinite(sc).all() or (np.diff(sc) > 1e-7).any():
+                raise AssertionError(f"run {name} query {i}: malformed answer")
+            answers[(name, i)] = [(r.uuid, r.score) for r in res]
+        launches = K.launch_counts["bm25_block"] - l0
+        hl = np.asarray([lat[j] for j in hyb])
+        parts.append(
+            f"({name}) {nq} {'FiQA-shaped' if name == 'a' else 'budget-eligible'} hybrid "
+            f"queries{' with where(n == 0), 10%' if flt is not None else ''} under "
+            f"selection {selection} + {nq // 3} "
+            f"nearVector from {CLIENTS} clients: device path served {n_dev}/{nq} "
+            f"({n_dev / nq:.1%}), hybrid_batched +{batcher.hybrid_batched - h0}; "
+            f"{len(hyb) / wall:.1f} hybrid QPS, p50 "
+            f"{np.percentile(hl, 50):.1f} ms, p99 {np.percentile(hl, 99):.1f} ms; "
+            f"bm25_block launches {launches} (one per fused dispatch, "
+            f"{n_dev / max(launches, 1):.2f} hybrid rows each)")
+    dispatches = batcher.dispatches - d0
+    # ... and ends here: the host reference below runs the dense leg on the
+    # card too, and its launches are not the hybrid path's
+    counts = dict(K.launch_counts)
+    col._hybrid_device = orig
+    idx.store.selection = "approx"
+    if fused_launches["d"]["fused_topk_scan"] <= 0:
+        raise AssertionError("run d: the fused selection's dense leg did not launch "
+                             "fused_topk_scan")
+    # every answer of the device path against the host reference path, serially
+    shard.device_hybrid = False
+    exact = tie_ordered = over_budget = 0
+    t1 = time.perf_counter()
+    try:
+        for (name, i), ans in answers.items():
+            queries, flt, _selection = runs[name]
+            if not served[(name, i)]:
+                # the host path served it: the query's candidate union must
+                # really exceed the budget
+                allow = None if flt is None else shard.allow_mask(flt)
+                pack = shard._inverted.bm25_pack(queries[i], None, allow,
+                                                 max_candidates=1 << 30)
+                if pack is None or len(pack["doc_ids"]) <= HYBRID_BUDGET:
+                    raise AssertionError(f"run {name} query {i} took the host path "
+                                         "within the candidate budget")
+                over_budget += 1
+                continue
+            fusion, alpha = HYBRID_SETTINGS[i % 3]
+            host = col.hybrid(queries[i], vector=qvecs[name][i],
+                              alpha=alpha, k=HYBRID_K, fusion=fusion, where=flt,
+                              include_objects=False)
+            if _same_answer(ans, [(r.uuid, r.score) for r in host]):
+                exact += 1
+                continue
+            allow = None if flt is None else shard.allow_mask(flt)
+            oracle = _tie_ordered_reference(col, shard, queries[i], qvecs[name][i],
+                                            fusion, alpha, allow)
+            if not _same_answer(ans, oracle):
+                raise AssertionError(
+                    f"run {name} query {i} {queries[i]!r} ({fusion} {alpha}): device, "
+                    "host path, tie-ordered reference:\n" + "\n".join(
+                        f"  {a[0][-8:]} {a[1]!r} | {h.uuid[-8:]} {h.score!r} | "
+                        f"{o[0][-8:]} {o[1]!r}" for a, h, o in zip(ans, host, oracle)))
+            tie_ordered += 1
+    finally:
+        shard.device_hybrid = True
+    ref_s = time.perf_counter() - t1
+    # where a device-served query's time goes (host clock, after the
+    # count): the host's BM25 planning of one query, and one fused
+    # dispatch of 8 (b) rows against the dense scan alone at its depth
+    plan_ms, ops = [], []
+    for i in range(64):
+        fusion, alpha = HYBRID_SETTINGS[i % 3]
+        t2 = time.perf_counter()
+        ops.append(shard._hybrid_operand(idx, runs["b"][0][i], HYBRID_K, alpha, fusion,
+                                         None, None))
+        plan_ms.append((time.perf_counter() - t2) * 1e3)
+    fused_ms, dense_ms = [], []
+    for r in range(8):
+        rows = qvecs["b"][8 * r:8 * r + 8]
+        t2 = time.perf_counter()
+        idx.hybrid_batch_async(rows, 16, None, ops[8 * r:8 * r + 8]).result()
+        t3 = time.perf_counter()
+        idx.search_by_vector_batch_async(rows, 128).result()
+        fused_ms.append((t3 - t2) * 1e3)
+        dense_ms.append((time.perf_counter() - t3) * 1e3)
+    log(f"phase 7 hybrid: BEIR FiQA-2018 shape, {n_docs} documents (text {mean_len:.1f} "
+        f"words, title ~{TITLE_WORDS}, Zipf s={ZIPF_S} over {VOCAB} words, made in "
+        f"{gen_s:.1f} s), {DIM}-d {METRIC} flat; batch_put in {import_s:.1f} s "
+        f"({n_docs / import_s:.0f} objects/s); k1 1.2, b 0.75, k={HYBRID_K}, "
+        f"{'/'.join(f'{f} {a}' for f, a in HYBRID_SETTINGS)} in turn: " + " | ".join(parts)
+        + f"; {dispatches} batched dispatches in all; host reference ({ref_s:.1f} s, serial, "
+        f"device_hybrid off): {exact} device answers equal to it (uuids, scores within "
+        f"rtol {FUSED_RTOL}, order where scores differ), {tie_ordered} equal to it once "
+        f"exactly tied BM25 scores are ordered by doc id as the device orders them, 0 "
+        f"differ; {over_budget} host-served queries all over the {HYBRID_BUDGET}-candidate "
+        f"budget; launches {counts}, of which run (d) {fused_launches['d']}; "
+        f"per device-served query: BM25 planning on the host "
+        f"p50 {np.median(plan_ms):.2f} ms; a fused dispatch of 8 rows p50 "
+        f"{np.median(fused_ms):.2f} ms against the dense scan alone (k 128) "
+        f"{np.median(dense_ms):.2f} ms")
+    for kn in ("bm25_block", "distance_block"):
+        if counts[kn] <= 0:
+            raise AssertionError(f"{kn} was not launched on the hybrid path")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rows", type=int, default=ROWS,
                     help="corpus rows (default: the 1M of Performance768D1M)")
+    ap.add_argument("--hybrid-docs", type=int, default=FIQA_DOCS,
+                    help="phase 7's documents (default: FiQA-2018's 57,638)")
     args = ap.parse_args()
     import torch
 
@@ -1044,20 +1484,22 @@ def main() -> int:
     try:
         db = Database(tmp, device="cuda")
         # each path counts its own launches: phase 4 the plain one, phase 5
-        # the quantized index, phase 6 the quantized collections
+        # the quantized index, phase 6 the quantized collections, phase 7
+        # hybrid
         counts4, st4 = phase_end_to_end(torch, K, args.seed, args.rows, db)
         counts5 = phase_quantized_index(torch, K, args.seed, args.rows)
         counts6 = phase_quantized_end_to_end(torch, K, args.seed, db, st4)
+        counts7 = phase_hybrid(torch, K, args.seed, db, args.hybrid_docs)
     finally:
         if db is not None:
             db.close()
         shutil.rmtree(tmp, ignore_errors=True)
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
-        # launches over the three main paths: phases 4, 5 and 6
+        # launches over the four main paths: phases 4, 5, 6 and 7
+        launches = sum(c[name] for c in (counts4, counts5, counts6, counts7))
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                            launches=counts4[name] + counts5[name] + counts6[name],
-                            **numbers[name]))
+                            launches=launches, **numbers[name]))
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

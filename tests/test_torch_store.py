@@ -165,6 +165,23 @@ def test_unported_options_raise():
         TStore(dim=4, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
         TFlat(dim=4, quantization="bq", mesh=object(), device="cpu")
+    # device hybrid (item 10) is ported: the async handle resolves to the
+    # sync answer, and a pure-vector row of the drain to the plain search
+    from weaviate_tpu_torch.ops.bm25 import FUSION_RANKED, SparseOperand
+
     idx = TFlat(dim=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        idx.hybrid_batch_async(np.zeros((1, 4), np.float32), 3)
+    rng = np.random.default_rng(3)
+    idx.add_batch(np.arange(6), rng.standard_normal((6, 4)).astype(np.float32))
+    q = rng.standard_normal((2, 4)).astype(np.float32)
+    op = SparseOperand(
+        np.array([1, 4]), idx.slots_for_doc_ids([1, 4]),
+        np.array([[1.0, 2.0]], np.float32), np.array([[3.0, 4.0]], np.float32),
+        np.array([0], np.int32), np.array([1.0], np.float32),
+        np.array([3.5], np.float32), np.array([0.7], np.float32),
+        1.2, 0.75, float(np.float32(0.25)), 0.5, FUSION_RANKED, 100)
+    ids, d = idx.hybrid_batch_async(q, 3, sparse_ops=[op, None]).result()
+    want_ids, want_d = idx.hybrid_batch(q, 3, sparse_ops=[op, None])
+    np.testing.assert_array_equal(ids, want_ids)
+    np.testing.assert_array_equal(d, want_d)
+    assert set(ids[0].tolist()) >= {1, 4}
+    np.testing.assert_array_equal(ids[1], idx.search_by_vector_batch(q[1:], 3)[0][0])

@@ -4,8 +4,10 @@ no tenants).
 
 Reference: adapters/repos/db/index.go — putObject routes by sharding
 state, objectVectorSearch scatter-gathers across shards and merges by
-distance. Replication, tenants, backup/offload, remote shards and epoch
-migration are later slices of the port.
+distance; keyword (bm25) and hybrid search scatter-gather the same way,
+and a hybrid query on one shard runs as one fused device program.
+Replication, tenants, backup/offload, remote shards and epoch migration
+are later slices of the port.
 """
 
 from __future__ import annotations
@@ -255,19 +257,55 @@ class Collection:
         _, out_i = native.merge_topk_host(d, idx, k=min(k, len(flat)))
         return [flat[i] for i in out_i.tolist() if i >= 0]
 
+    @staticmethod
+    def _and_masks(a, b) -> np.ndarray:
+        """Intersect two allow lists (bool mask or doc-id array forms)."""
+        a, b = np.asarray(a), np.asarray(b)
+        if a.dtype != np.bool_ and b.dtype != np.bool_:
+            # both doc-id arrays: sorted-set intersect (the roaring AND of
+            # the reference)
+            return native.intersect_sorted(
+                np.unique(a), np.unique(b)).astype(np.int64)
+
+        def to_mask(x, size):
+            if x.dtype == np.bool_:
+                m = np.zeros(size, dtype=bool)
+                m[: len(x)] = x
+                return m
+            m = np.zeros(size, dtype=bool)
+            m[x[x < size]] = True
+            return m
+
+        size = max(len(a) if a.dtype == np.bool_ else (int(a.max()) + 1 if len(a) else 0),
+                   len(b) if b.dtype == np.bool_ else (int(b.max()) + 1 if len(b) else 0))
+        return to_mask(a, size) & to_mask(b, size)
+
+    def _shard_allow(self, shard: Shard, name: str, allow_list_by_shard, where):
+        """The allow list a shard's leg runs under: the caller's per-shard
+        list ANDed with the shard's evaluation of ``where``."""
+        allow = None if allow_list_by_shard is None else \
+            allow_list_by_shard.get(name)
+        if where is not None:
+            fmask = shard.allow_mask(where)
+            allow = fmask if allow is None else self._and_masks(allow, fmask)
+        return allow
+
     @_timed("vector")
     def near_vector(self, query, k: int = 10, vec_name: str = "",
                     include_objects: bool = True,
-                    where=None) -> list[SearchResult]:
+                    where=None, allow_list_by_shard: dict | None = None,
+                    max_distance: float | None = None,
+                    autocut: int = 0) -> list[SearchResult]:
         """Scatter-gather nearVector: per-shard search (the ``where``
         filter evaluated per shard to an AllowList mask applied inside the
-        device scan), merged by distance and truncated to k."""
+        device scan, ANDed with ``allow_list_by_shard``'s list), merged by
+        distance and truncated to k."""
         query = np.asarray(query, dtype=np.float32)
         names = list(self.sharding.shard_names)
 
         def one(name: str) -> list[SearchResult]:
             shard = self._load_shard(name)
-            allow = shard.allow_mask(where)
+            allow = self._shard_allow(shard, name, allow_list_by_shard, where)
             ids, dists = shard.vector_search(query, k, vec_name, allow)
             out = []
             for doc_id, dist in zip(ids.tolist(), dists.tolist()):
@@ -279,9 +317,202 @@ class Collection:
         gathered = [one(names[0])] if len(names) == 1 else \
             list(self._pool.map(tracing.propagate(one), names))
         merged = self._merge_by_distance(gathered, k)
+        if max_distance is not None:
+            merged = [r for r in merged if r.distance <= max_distance]
+        if autocut > 0 and merged:
+            from weaviate_tpu_torch.query.autocut import autocut as _autocut
+
+            merged = merged[: _autocut([r.distance for r in merged], autocut)]
         if include_objects:
             self._attach_objects(merged)
         return merged
+
+    @_timed("bm25")
+    def bm25(self, query: str, k: int = 10, properties: list[str] | None = None,
+             include_objects: bool = True,
+             allow_list_by_shard: dict | None = None,
+             where=None, autocut: int = 0) -> list[SearchResult]:
+        """Scatter-gather keyword search; merge by score descending
+        (reference: Index.objectSearch -> per-shard BM25 -> merge)."""
+        names = list(self.sharding.shard_names)
+
+        def one(name: str) -> list[SearchResult]:
+            shard = self._load_shard(name)
+            allow = self._shard_allow(shard, name, allow_list_by_shard, where)
+            ids, scores = shard.bm25_search(query, k, properties, allow)
+            return self._results(shard, name, ids, scores)
+
+        gathered = [one(names[0])] if len(names) == 1 else \
+            list(self._pool.map(tracing.propagate(one), names))
+
+        merged = [r for results in gathered for r in results]
+        merged.sort(key=lambda r: -r.score)
+        merged = merged[:k]
+        if autocut > 0 and merged:
+            from weaviate_tpu_torch.query.autocut import autocut as _autocut
+
+            merged = merged[: _autocut([-r.score for r in merged], autocut)]
+        if include_objects:
+            self._attach_objects(merged)
+        return merged
+
+    @staticmethod
+    def _results(shard: Shard, name: str, ids, scores) -> list[SearchResult]:
+        """Score-ranked shard rows -> SearchResults (rows whose doc id no
+        longer maps to a uuid are dropped)."""
+        out = []
+        for doc_id, score in zip(ids.tolist(), scores.tolist()):
+            uuid = shard._doc_to_uuid.get(doc_id)
+            if uuid is not None:
+                out.append(SearchResult(uuid=uuid, score=score, shard=name))
+        return out
+
+    @_timed("hybrid")
+    def hybrid(self, query: str, vector=None, alpha: float = 0.75, k: int = 10,
+               properties: list[str] | None = None, vec_name: str = "",
+               fusion: str = "relativeScore", where=None,
+               include_objects: bool = True,
+               autocut: int = 0) -> list[SearchResult]:
+        """Hybrid sparse+dense search (reference: hybrid/searcher.go:74 runs
+        both legs in parallel, then fuses). ``alpha`` weighs the dense leg
+        (0 = pure BM25, 1 = pure vector). ``vector=None`` degrades to
+        sparse-only, as the reference does without a vectorizer.
+
+        Single-shard queries with a query vector take the fused DEVICE
+        path first: one batched device program runs the dense scan,
+        scores the packed BM25 candidates, and fuses — the host
+        two-thread reference below stays the fallback (and the parity
+        oracle) for everything the device path declines."""
+        from weaviate_tpu_torch.text.hybrid import (fusion_ranked,
+                                                    fusion_relative_score)
+
+        if vector is None:
+            alpha = 0.0  # degrade to sparse-only (reference does the same
+            # when no vectorizer can produce a query vector)
+        # evaluate the filter once per shard and let both legs reuse the
+        # masks (every shard is local in the port)
+        names = list(self.sharding.shard_names)
+        allow_by_shard = None
+        if where is not None:
+            allow_by_shard = {n: self._load_shard(n).allow_mask(where)
+                              for n in names}
+
+        if vector is not None and len(names) == 1:
+            dev = self._hybrid_device(
+                names[0], query, vector, alpha, k, properties, vec_name,
+                fusion, None if allow_by_shard is None
+                else allow_by_shard.get(names[0]))
+            if dev is not None:
+                return self._finish_hybrid(dev, autocut, include_objects)
+
+        # over-fetch each leg so fusion has overlap to work with; legs run
+        # on ephemeral threads, NOT self._pool — a leg parked in a pool
+        # worker while its inner scatter-gather waits for that same pool
+        # can deadlock
+        fetch = max(k * 10, 100)
+        legs, weights = [], []
+        results: dict[str, list] = {}
+        errors: dict[str, BaseException] = {}
+
+        def run(name, fn, *a, **kw):
+            try:
+                results[name] = fn(*a, **kw)
+            except BaseException as e:  # re-raised on the caller thread
+                errors[name] = e
+
+        # legs skip object fetch; only the fused top-k pays for it below
+        # (tracing.propagate: Thread targets don't inherit contextvars)
+        threads = []
+        if alpha < 1.0:
+            threads.append(threading.Thread(
+                target=tracing.propagate(run),
+                args=("sparse", self.bm25, query, fetch, properties),
+                kwargs=dict(include_objects=False,
+                            allow_list_by_shard=allow_by_shard)))
+        if vector is not None and alpha > 0.0:
+            threads.append(threading.Thread(
+                target=tracing.propagate(run),
+                args=("dense", self.near_vector, vector, fetch, vec_name),
+                kwargs=dict(include_objects=False,
+                            allow_list_by_shard=allow_by_shard)))
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise next(iter(errors.values()))
+        if "sparse" in results:
+            legs.append(results["sparse"])
+            weights.append(1.0 - alpha)
+        if "dense" in results:
+            dense = results["dense"]
+            # similarity score for fusion: any monotone-decreasing map of
+            # distance works (min-max normalization is affine-invariant)
+            for r in dense:
+                r.score = -r.distance
+            legs.append(dense)
+            weights.append(alpha)
+        if not legs:
+            return []
+        fuse = fusion_relative_score if fusion == "relativeScore" else fusion_ranked
+        # fusion returns (fused_score, result) pairs WITHOUT mutating the
+        # leg results; materialize fresh results so concurrent queries
+        # sharing leg objects never race on .score
+        fused = [SearchResult(uuid=r.uuid, distance=r.distance, score=s,
+                              object=r.object, shard=r.shard)
+                 for s, r in fuse(legs, weights, k)]
+        return self._finish_hybrid(fused, autocut, include_objects)
+
+    def _finish_hybrid(self, results: list[SearchResult], autocut: int,
+                       include_objects: bool) -> list[SearchResult]:
+        if autocut > 0 and results:
+            from weaviate_tpu_torch.query.autocut import autocut_results
+
+            results = autocut_results(results, autocut, by="score")
+        if include_objects:
+            self._attach_objects(results)
+        return results
+
+    def _hybrid_device(self, name: str, query: str, vector, alpha: float,
+                       k: int, properties, vec_name: str, fusion: str,
+                       allow_mask) -> list[SearchResult] | None:
+        """Fused device hybrid for one shard. None = the shard declined
+        (unsupported index, candidate budget, kill switch) and the caller
+        runs the host reference path."""
+        shard = self._load_shard(name)
+        res = shard.hybrid_search(
+            query, np.asarray(vector, np.float32), k, alpha=alpha,
+            fusion=fusion, properties=properties, vec_name=vec_name,
+            allow_mask=allow_mask)
+        if res is None:
+            return None
+        return self._results(shard, name, *res)
+
+    def hybrid_async(self, query: str, vector=None, alpha: float = 0.75,
+                     k: int = 10, properties: list[str] | None = None,
+                     vec_name: str = "", fusion: str = "relativeScore",
+                     where=None, include_objects: bool = True,
+                     autocut: int = 0):
+        """Dispatch-only twin of ``hybrid``: returns a
+        ``DeviceResultHandle`` resolving to the same ``list[SearchResult]``.
+        On the device path the copy to the host waits for ``.result()``;
+        when the device path declines, the host reference runs inline and
+        the handle is pre-resolved (``DeviceResultHandle.ready``)."""
+        from weaviate_tpu_torch.runtime.transfer import DeviceResultHandle
+
+        names = list(self.sharding.shard_names)
+        if vector is not None and len(names) == 1 and where is None:
+            shard = self._load_shard(names[0])
+            h = shard.hybrid_search_async(
+                query, np.asarray(vector, np.float32), k, alpha=alpha,
+                fusion=fusion, properties=properties, vec_name=vec_name)
+            if h is not None:
+                return h.map(lambda res, _s=shard, _n=names[0]:
+                             self._finish_hybrid(self._results(_s, _n, *res),
+                                                 autocut, include_objects))
+        return DeviceResultHandle.ready(self.hybrid(
+            query, vector, alpha, k, properties, vec_name, fusion, where,
+            include_objects, autocut))
 
     # -- maintenance ---------------------------------------------------------
 

@@ -5,8 +5,10 @@ Owns an LSM KV store (objects bucket + docid mappings), one vector index
 per named vector, and the inverted index behind filters. Write path:
 objects + postings land in the KV store, vectors in the device index;
 read path: the vector index's top-k through the shard's query batcher,
-resolved to uuids. The on-disk layout is the JAX package's, so either
-package reopens the other's shards.
+resolved to uuids; keyword search in the inverted index; hybrid search as
+one fused device program (BM25F of the host-planned candidates + fusion
+with the dense scan) riding the same batcher. The on-disk layout is the
+JAX package's, so either package reopens the other's shards.
 """
 
 from __future__ import annotations
@@ -101,6 +103,18 @@ class Shard:
             "QUERY_ASYNC_PIPELINE", "true").lower() in (
                 "true", "1", "on", "enabled")
         self._query_batchers: dict[str, "QueryBatcher"] = {}
+        # device hybrid: BM25 + fusion ride the dense dispatch when the
+        # index supports it. The kill switch keeps hybrid on the host
+        # reference path; the candidate budget bounds the packed sparse
+        # operand (over-budget queries take the host path).
+        self.device_hybrid = os.environ.get(
+            "WEAVIATE_TPU_DEVICE_HYBRID", "true").lower() in (
+                "true", "1", "on", "enabled")
+        try:
+            self.hybrid_max_candidates = int(os.environ.get(
+                "WEAVIATE_TPU_HYBRID_MAX_CANDIDATES", "4096"))
+        except ValueError:
+            self.hybrid_max_candidates = 4096
         self.read_only = False
         self.collection_name = collection.name
         self.config = collection
@@ -309,6 +323,9 @@ class Shard:
                     capacity_fn=lambda i=idx: i.store.capacity,
                     async_batch_fn=(idx.search_by_vector_batch_async
                                     if self.async_pipeline else None),
+                    # fused sparse+dense drain: hybrid rows ride the
+                    # same coalescing window as plain vector queries
+                    hybrid_batch_fn=idx.hybrid_batch_async,
                     owner={"collection": self.collection_name,
                            "shard": self.name,
                            "tenant": self._tenant_label()},
@@ -426,6 +443,152 @@ class Shard:
         dists = np.asarray(dists, np.float32)
         counts = (ids >= 0).sum(axis=1).astype(np.int64)
         return ids, dists, counts
+
+    def bm25_search(self, query: str, k: int = 10,
+                    properties: list[str] | None = None,
+                    allow_mask: np.ndarray | None = None):
+        """(doc_ids, scores) keyword search (reference: shard ObjectSearch
+        -> inverted.BM25Searcher). ``allow_mask`` accepts either form the
+        vector path does: bool mask or doc-id array."""
+        with tracing.span("shard.bm25_search", shard=self.name, k=k,
+                          filtered=allow_mask is not None):
+            return self._inverted.bm25_search(query, k, properties,
+                                              self._norm_allow(allow_mask))
+
+    def _norm_allow(self, allow_mask):
+        """Allow-list normalization shared by the keyword and hybrid
+        paths: bool mask passes through, doc-id arrays densify over this
+        shard's doc-id space."""
+        if allow_mask is None:
+            return None
+        allow_mask = np.asarray(allow_mask)
+        if allow_mask.dtype != np.bool_:
+            ids = allow_mask.astype(np.int64)
+            allow_mask = np.zeros(self.doc_id_space, dtype=bool)
+            allow_mask[ids[ids < len(allow_mask)]] = True
+        return allow_mask
+
+    # -- hybrid dataplane ------------------------------------------------------
+
+    def _hybrid_index(self, vec_name: str):
+        """The vector index for ``vec_name`` iff it can run the fused
+        device hybrid program (and the kill switch is off)."""
+        if not self.device_hybrid:
+            return None
+        idx = self.vector_indexes.get(vec_name)
+        if idx is None or not getattr(idx, "supports_device_hybrid",
+                                      False):
+            return None
+        return idx
+
+    def _hybrid_operand(self, idx, query: str, k: int, alpha: float,
+                        fusion: str, properties, allow_mask):
+        """Plan one hybrid query's sparse leg for device scoring:
+        ``bm25_pack`` picks the candidate universe + per-segment
+        operands, doc ids translate to store slots. None = this query
+        can't ride the device path (no candidates, budget blown, or a
+        candidate isn't resident in the vector index)."""
+        from weaviate_tpu_torch.ops.bm25 import SparseOperand, fusion_kind
+
+        pack = self._inverted.bm25_pack(
+            query, properties, allow_mask,
+            max_candidates=self.hybrid_max_candidates)
+        if pack is None:
+            return None
+        slots = idx.slots_for_doc_ids(pack["doc_ids"])
+        if len(slots) == 0 or (slots < 0).any():
+            # a candidate missing from the vector index would silently
+            # vanish from the sparse leg — host fallback keeps recall
+            return None
+        return SparseOperand(
+            pack["doc_ids"], slots, pack["seg_tf"], pack["seg_len"],
+            pack["seg_term"], pack["seg_boost"], pack["seg_avg"],
+            pack["idf"], pack["k1"], pack["b"], pack["one_minus_b"],
+            float(alpha), fusion_kind(fusion),
+            max(k * 10, 100),  # host reference over-fetch (collection.py)
+            pack["stats"])
+
+    def hybrid_search(self, query: str, vector, k: int = 10,
+                      alpha: float = 0.75, fusion: str = "rankedFusion",
+                      properties: list[str] | None = None,
+                      vec_name: str = "",
+                      allow_mask: np.ndarray | None = None):
+        """Fused device hybrid: ONE batched device program runs the dense
+        scan, BM25F-scores the packed sparse candidates, and merges the
+        legs (RRF / relative-score) — no host scoring, no second
+        dispatch. Single queries coalesce with concurrent vector and
+        hybrid traffic through the shard's QueryBatcher. Returns
+        (doc_ids, fused_scores) or None when the device path can't serve
+        this query — callers then run the host reference path
+        (text/hybrid.py). The JAX package also declines while vectors
+        wait in its index queue; the port has no index queue, so every
+        acknowledged vector is in the dense leg."""
+        idx = self._hybrid_index(vec_name)
+        if idx is None or vector is None:
+            return None
+        allow_mask = self._norm_allow(allow_mask)
+        with tracing.span("shard.hybrid_search", shard=self.name, k=k,
+                          filtered=allow_mask is not None):
+            op = self._hybrid_operand(idx, query, k, alpha, fusion,
+                                      properties, allow_mask)
+            if op is None:
+                return None
+            from weaviate_tpu_torch.runtime.query_batcher import \
+                DeviceHybridUnavailable
+
+            q = np.asarray(vector, np.float32)
+            try:
+                if self.dynamic_batching and q.ndim == 1:
+                    b = self._query_batcher(vec_name, idx)
+                    ids, dists = b.search(q, k, allow_mask, sparse=op)
+                else:
+                    h = idx.hybrid_batch_async(
+                        np.atleast_2d(q), k,
+                        [allow_mask] if allow_mask is not None else None,
+                        [op])
+                    if h is None:
+                        return None
+                    ids, dists = h.result()
+                    ids, dists = ids[0], dists[0]
+            except DeviceHybridUnavailable:
+                return None
+            return self._hybrid_rows(ids, dists, k)
+
+    @staticmethod
+    def _hybrid_rows(ids, dists, k: int):
+        """Hybrid rows carry NEGATED fused scores on the distance plane:
+        drop dead slots and flip the scores back for the caller."""
+        ids = np.asarray(ids)[:k]
+        dists = np.asarray(dists)[:k]
+        live = ids >= 0
+        return (ids[live].astype(np.int64),
+                (-dists[live]).astype(np.float32))
+
+    def hybrid_search_async(self, query: str, vector, k: int = 10,
+                            alpha: float = 0.75,
+                            fusion: str = "rankedFusion",
+                            properties: list[str] | None = None,
+                            vec_name: str = "",
+                            allow_mask: np.ndarray | None = None):
+        """Dispatch-only twin of ``hybrid_search``: returns a
+        ``DeviceResultHandle`` resolving to the same (doc_ids,
+        fused_scores), with the copy to the host deferred to
+        ``.result()``. None = host fallback (same conditions as the sync
+        path)."""
+        idx = self._hybrid_index(vec_name)
+        if idx is None or vector is None:
+            return None
+        allow_mask = self._norm_allow(allow_mask)
+        op = self._hybrid_operand(idx, query, k, alpha, fusion,
+                                  properties, allow_mask)
+        if op is None:
+            return None
+        q = np.atleast_2d(np.asarray(vector, np.float32))
+        h = idx.hybrid_batch_async(
+            q, k, [allow_mask] if allow_mask is not None else None, [op])
+        if h is None:
+            return None
+        return h.map(lambda res, _k=k: self._hybrid_rows(res[0][0], res[1][0], _k))
 
     @property
     def doc_id_space(self) -> int:

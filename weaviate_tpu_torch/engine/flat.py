@@ -21,6 +21,7 @@ import numpy as np
 from weaviate_tpu_torch.engine.quantized import QuantizedVectorStore
 from weaviate_tpu_torch.engine.store import DeviceVectorStore
 from weaviate_tpu_torch.runtime import hbm_ledger, tracing
+from weaviate_tpu_torch.runtime.transfer import DeviceResultHandle
 
 
 def _per_query_allow(allow_list) -> bool:
@@ -246,8 +247,88 @@ class FlatIndex:
             new._count = snap["count"]
             self.store = new
 
-    def hybrid_batch_async(self, *_args, **_kwargs):
-        raise NotImplementedError("device hybrid search: ROADMAP Queue 1 item 10")
+    # -- hybrid dataplane ------------------------------------------------------
+
+    @property
+    def supports_device_hybrid(self) -> bool:
+        """True when this index can run the fused sparse+dense hybrid
+        program: the plain device store only — the quantized store keeps
+        the host hybrid path (its handles don't expose raw (dist, slot)
+        arrays in store-slot space)."""
+        return type(self.store) is DeviceVectorStore
+
+    def slots_for_doc_ids(self, doc_ids) -> np.ndarray:
+        """Store slots for external doc ids (-1 = not in this index) —
+        the shard layer translates BM25 candidates with this before
+        packing sparse operands."""
+        with self._lock:
+            return np.asarray(
+                [self._id_to_slot.get(int(d), -1) for d in doc_ids],
+                dtype=np.int32)
+
+    def hybrid_batch_async(self, queries: np.ndarray, k: int,
+                           allow_list=None, sparse_ops=None):
+        """One fused device program for a mixed hybrid + pure-vector
+        drain: the dense scan dispatches async, its DEVICE-RESIDENT
+        (dist, slot) tensors feed straight into the BM25 scoring + fusion
+        program (``ops/bm25.py::hybrid_topk``) — one dispatch chain, one
+        device->host copy through the returned handle. ``sparse_ops`` is
+        a per-row list of ``SparseOperand`` (None = pure-vector row
+        riding the same batch). Returns None when the device hybrid path
+        can't take the request (unsupported store) — callers fall back to
+        the host hybrid path.
+
+        A filter always takes the store's bitmask path, even a shared one
+        or a batch of one: the gathered path's finish step remaps slots
+        on the HOST, which would break the on-device fusion."""
+        from weaviate_tpu_torch.ops.bm25 import (hybrid_topk, pack_to_device,
+                                                 stack_sparse_operands)
+
+        if not self.supports_device_hybrid:
+            return None
+        queries = np.atleast_2d(np.asarray(queries))
+        sparse_ops = list(sparse_ops or [None] * len(queries))
+        live_ops = [op for op in sparse_ops if op is not None]
+        per_query = _per_query_allow(allow_list)
+        # dense leg depth: every row's over-fetch must fit so fusion
+        # ranks match the host reference; pow2 so shapes bucket
+        fetch = max([k] + [int(op.fetch) for op in live_ops])
+        f_depth = 1 << max(0, fetch - 1).bit_length()
+        with tracing.span("flat.hybrid_batch", k=k, queries=len(queries),
+                          hybrid=len(live_ops), dispatch="async"):
+            with self._lock:
+                allow_mask = self._translate_batch_allow(
+                    queries, allow_list, per_query)
+                if allow_mask is not None and allow_mask.ndim == 1:
+                    shared = np.zeros(self.store.capacity, dtype=bool)
+                    shared[:len(allow_mask)] = allow_mask
+                    allow_mask = np.broadcast_to(
+                        shared, (len(queries), self.store.capacity))
+                handle = self.store.search_async(queries, f_depth,
+                                                 allow_mask, keep_rows=True)
+                dn_d, dn_i = handle.arrays
+                pack = pack_to_device(
+                    stack_sparse_operands(sparse_ops, len(queries)),
+                    dn_d.device)
+                d, i = hybrid_topk(dn_d, dn_i, pack, k)
+                table = self._slot_to_id  # replaced wholesale by compact
+
+        def _resolve(d_np, i_np, _table=table):
+            clipped = np.clip(i_np, 0, len(_table) - 1)
+            ids = np.where(i_np >= 0, _table[clipped], -1)
+            return ids, d_np
+
+        return DeviceResultHandle(
+            (d, i), finish=_resolve,
+            attrs=dict(handle.attrs, hybrid=len(live_ops), k=k))
+
+    def hybrid_batch(self, queries: np.ndarray, k: int, allow_list=None,
+                     sparse_ops=None):
+        """Sync twin of ``hybrid_batch_async`` (same fused program, the
+        copy to the host just happens inline). Returns None on the same
+        conditions."""
+        h = self.hybrid_batch_async(queries, k, allow_list, sparse_ops)
+        return None if h is None else h.result()
 
     # -- helpers --------------------------------------------------------------
 

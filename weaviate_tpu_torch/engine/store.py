@@ -59,14 +59,14 @@ def storage_dtype(dtype) -> torch.dtype:
     return out
 
 
-def normalize_allow_mask(allow_mask, n_queries: int):
+def normalize_allow_mask(allow_mask, n_queries: int, keep_rows: bool = False):
     """Allow-mask intake: [1, C] broadcasts to the shared [C] form
-    (keeping the gathered low-selectivity cutover); a [B, C] mask must
-    match the query count."""
+    (keeping the gathered low-selectivity cutover) unless ``keep_rows``;
+    a [B, C] mask must match the query count."""
     if allow_mask is None:
         return None
     allow_mask = np.asarray(allow_mask)
-    if allow_mask.ndim == 2 and allow_mask.shape[0] == 1:
+    if allow_mask.ndim == 2 and allow_mask.shape[0] == 1 and not keep_rows:
         allow_mask = allow_mask[0]
     elif allow_mask.ndim == 2 and allow_mask.shape[0] != n_queries:
         raise ValueError(
@@ -364,16 +364,18 @@ class DeviceVectorStore:
         return "cosine" if self.metric in ("cosine", "cosine-dot") else self.metric
 
     def search_async(self, queries: np.ndarray, k: int,
-                     allow_mask: np.ndarray | None = None
-                     ) -> DeviceResultHandle:
+                     allow_mask: np.ndarray | None = None,
+                     keep_rows: bool = False) -> DeviceResultHandle:
         """Dispatch-only twin of ``search``: the scan launches under
         ``_lock`` and the results STAY on the device in the returned
-        handle; ``.result()`` performs the one device->host copy."""
+        handle; ``.result()`` performs the one device->host copy.
+        ``keep_rows`` keeps a [1, C] mask per-query (the bitmask path),
+        so the handle's device arrays hold store slots for any batch."""
         queries = np.asarray(queries, dtype=np.float32)
         squeeze = queries.ndim == 1
         if squeeze:
             queries = queries[None, :]
-        allow_mask = normalize_allow_mask(allow_mask, len(queries))
+        allow_mask = normalize_allow_mask(allow_mask, len(queries), keep_rows)
         with tracing.span("store.scan", rows=self.capacity,
                           queries=len(queries), k=k, sharded=False,
                           filtered=allow_mask is not None) as sp:

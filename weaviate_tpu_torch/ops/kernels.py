@@ -1,7 +1,8 @@
-"""Hand-written CUDA kernels of the flat scans, with their plain versions.
+"""Hand-written CUDA kernels of the flat scans and of BM25F scoring, with
+their plain versions.
 
 Port of ``weaviate_tpu/ops/pallas_kernels.py`` for the kernels on the
-flat nearVector path and the quantized flat path:
+flat nearVector path, the quantized flat path and the hybrid path:
 
 - ``distance_block``    masked [B,d] x [N,d] -> [B,N] distances
                         (csrc/distance_block.cu)
@@ -16,6 +17,8 @@ flat nearVector path and the quantized flat path:
                         (csrc/bq_scan_reduce.cu)
 - ``pq4_scan_reduce``   4-bit PQ ADC through a per-query int8 LUT with the
                         same strided block-argmin (csrc/pq4_scan_reduce.cu)
+- ``bm25_block``        negated BM25F over packed posting candidates, bit
+                        for bit the host scorer's f32 (csrc/bm25_block.cu)
 
 Each wrapper takes its plain PyTorch version (``*_plain``) only when the
 tensors it is given lie on the CPU — the tests run that way. On a CUDA
@@ -33,7 +36,7 @@ import threading
 import numpy as np
 import torch
 
-from weaviate_tpu_torch.ops.distances import MASKED_DISTANCE, normalize, sq_norms
+from weaviate_tpu_torch.ops.distances import MASKED_DISTANCE, sq_norms
 
 # Metrics with a hand-written kernel; hamming and manhattan stay plain
 # torch (elementwise 3D intermediates — nothing for a kernel to win).
@@ -45,7 +48,7 @@ FUSED_PAIRS_MAX_K = 256
 
 launch_counts = {"distance_block": 0, "fused_topk_scan": 0,
                  "fused_topk_pairs": 0, "bq_scan_reduce": 0,
-                 "pq4_scan_reduce": 0}
+                 "pq4_scan_reduce": 0, "bm25_block": 0}
 _count_lock = threading.Lock()
 
 
@@ -95,6 +98,8 @@ def pack_allow_bitmask(allow, n_cols: int | None = None) -> np.ndarray:
     # [B, block, j, w] -> bits j of word w: packbits over j, little-endian
     a = buf.reshape(b, n_cols // MASK_BLOCK, 32, _MASK_WORDS).transpose(0, 1, 3, 2)
     packed = np.packbits(a, axis=-1, bitorder="little")  # [B, block, w, 4] bytes
+    # packbits may return non-contiguous strides for size-1 axes ([1, 512])
+    packed = np.ascontiguousarray(packed)
     return packed.view("<u4").astype(np.uint32).reshape(b, n_cols // 32)
 
 
@@ -174,9 +179,15 @@ def smallest_positions(vals: torch.Tensor, k: int) -> torch.Tensor:
 # -- distance_block ----------------------------------------------------------
 
 def _kernel_query(q: torch.Tensor, metric: str) -> torch.Tensor:
+    """f32 query rows for the kernels; unit length for cosine. The norm is
+    taken in f64 and rounded once: torch's f32 row reductions on the card
+    sum in an order that depends on the number of rows, so a query's unit
+    vector, and with it every distance, would move with the rows batched
+    beside it (by 1 ulp at B = 4 against B = 8)."""
     q = q.float()
     if metric in ("cosine", "cosine-dot"):
-        q = normalize(q)
+        norm = torch.linalg.vector_norm(q.double(), dim=-1, keepdim=True).float()
+        q = q / torch.where(norm > 1e-30, norm, torch.ones_like(norm))
     return q.contiguous()
 
 
@@ -766,3 +777,85 @@ def pq4_scan_reduce(lut: torch.Tensor, codes: torch.Tensor,
         "pq4_scan_reduce", g, b, PQ4_QBLOCK, codes.device,
         lut8.data_ptr(), scale.data_ptr(), pm, codes.data_ptr(), int(transposed),
         vec16, _ptr(valid), _ptr(bits), 0 if bits is None else bits.shape[1], b, n, m)
+
+
+# -- bm25_block ----------------------------------------------------------------
+#
+# The host scorer (text/inverted.py ``bm25_search``) accumulates in f32;
+# the kernel and its plain version evaluate the same f32 operations in the
+# same order, so all three agree bit for bit (ops/bm25.py's parity note).
+
+def bm25_block_plain(seg_tf, seg_len, seg_term, seg_boost, seg_avg, idf,
+                     k1, b, omb, cand_bits):
+    """Plain version of ``bm25_block``: the reference kernel's unrolled
+    loops as whole-tensor ops — per segment ``contrib = boost*tf /
+    max(omb + b*len/avg, 1e-9)`` (0 where tf <= 0), segments summed per
+    term in pack order, terms saturated ``idf*a / (k1 + a)`` and summed in
+    order."""
+    n_b, n_s, n_c = seg_tf.shape
+    n_t = idf.shape[1]
+    norm = omb[:, None, None] + (b[:, None, None] * seg_len) / seg_avg[:, :, None]
+    contrib = (seg_boost[:, :, None] * seg_tf) / torch.clamp(norm, min=1e-9)
+    contrib = torch.where(seg_tf > 0.0, contrib, torch.zeros_like(contrib))
+    t_iota = torch.arange(n_t, dtype=seg_term.dtype, device=seg_tf.device)
+    acc = torch.zeros((n_b, n_t, n_c), dtype=torch.float32, device=seg_tf.device)
+    zero = torch.zeros((), dtype=torch.float32, device=seg_tf.device)
+    for s in range(n_s):
+        hit = (seg_term[:, s, None] == t_iota)[:, :, None]
+        acc = acc + torch.where(hit, contrib[:, s, None, :], zero)
+    score = torch.zeros((n_b, n_c), dtype=torch.float32, device=seg_tf.device)
+    for t in range(n_t):
+        a = acc[:, t, :]
+        score = score + (idf[:, t, None] * a) / (k1[:, None] + a)
+    live = unpack_allow_bitmask(cand_bits, n_c)
+    return torch.where(live, -score, torch.full_like(score, MASKED_DISTANCE))
+
+
+def bm25_block(seg_tf: torch.Tensor, seg_len: torch.Tensor, seg_term: torch.Tensor,
+               seg_boost: torch.Tensor, seg_avg: torch.Tensor, idf: torch.Tensor,
+               k1: torch.Tensor, b: torch.Tensor, omb: torch.Tensor,
+               cand_bits: torch.Tensor) -> torch.Tensor:
+    """NEGATED BM25F scores over packed candidates (reference
+    ``pallas_kernels.bm25_block``). ``seg_tf``/``seg_len`` [B, S, C] f32
+    planes over the candidate axis; ``seg_term`` [B, S] int32,
+    ``seg_boost``/``seg_avg`` [B, S] f32; ``idf`` [B, T] f32;
+    ``k1``/``b``/``omb`` [B] f32 (``omb`` the host-rounded f32 ``1 - b``);
+    ``cand_bits`` [B, C // 32] int32 block-strided candidate liveness. C
+    is a MASK_BLOCK multiple.
+
+    Returns [B, C] f32: ``-score`` on live candidates, MASKED_DISTANCE
+    elsewhere. CUDA tensors launch csrc/bm25_block.cu, which takes any S
+    and T; CPU tensors take ``bm25_block_plain``."""
+    if seg_tf.ndim != 3 or seg_len.shape != seg_tf.shape:
+        raise ValueError(f"seg_tf {tuple(seg_tf.shape)} and seg_len "
+                         f"{tuple(seg_len.shape)} must be one [B, S, C] shape")
+    n_b, n_s, n_c = seg_tf.shape
+    n_t = idf.shape[1] if idf.ndim == 2 else -1
+    if n_c % MASK_BLOCK:
+        raise ValueError(f"bm25_block: C = {n_c} is not a multiple of {MASK_BLOCK}")
+    shapes = {"seg_term": (seg_term, (n_b, n_s)), "seg_boost": (seg_boost, (n_b, n_s)),
+              "seg_avg": (seg_avg, (n_b, n_s)), "idf": (idf, (n_b, n_t)),
+              "k1": (k1, (n_b,)), "b": (b, (n_b,)), "omb": (omb, (n_b,)),
+              "cand_bits": (cand_bits, (n_b, n_c // 32))}
+    for name, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape or t.device != seg_tf.device:
+            raise ValueError(f"bm25_block: {name} must be {shape} on {seg_tf.device}, "
+                             f"got {tuple(t.shape)} on {t.device}")
+    if seg_tf.device.type == "cpu":
+        return bm25_block_plain(seg_tf.float(), seg_len.float(), seg_term,
+                                seg_boost.float(), seg_avg.float(), idf.float(),
+                                k1.float(), b.float(), omb.float(), cand_bits)
+    from weaviate_tpu_torch.ops import _build
+
+    f32 = [t.float().contiguous() for t in (seg_tf, seg_len)]
+    term = seg_term.to(torch.int32).contiguous()
+    rest = [t.float().contiguous() for t in (seg_boost, seg_avg, idf, k1, b, omb)]
+    bits = cand_bits.to(torch.int32).contiguous()
+    out = torch.empty((n_b, n_c), dtype=torch.float32, device=seg_tf.device)
+    rc = _build.kernel("bm25_block")(
+        f32[0].data_ptr(), f32[1].data_ptr(), term.data_ptr(),
+        *(t.data_ptr() for t in rest), bits.data_ptr(), n_b, n_s, n_t, n_c,
+        out.data_ptr(), _stream(seg_tf.device))
+    _check_rc("bm25_block", rc)
+    _count("bm25_block")
+    return out

@@ -1,6 +1,6 @@
 """Server-side dynamic query batching (port of
-``weaviate_tpu/runtime/query_batcher.py`` without the hybrid slot and the
-kernelscope / tailboard hooks, which the port does not have yet).
+``weaviate_tpu/runtime/query_batcher.py`` without the kernelscope /
+tailboard hooks, which the port does not have yet).
 
 Continuous batching, not a fixed window: a request that finds the device
 idle dispatches IMMEDIATELY; requests that arrive while a dispatch is in
@@ -17,6 +17,14 @@ capacity/8, because a solo dispatch also forfeits batching).
 
 Drained batches are padded to power-of-two B buckets and k is bucketed
 the same way (mixed k's batch together at the k bucket and slice).
+
+Hybrid requests ride the same drains: a request carrying a packed sparse
+operand (``ops/bm25.SparseOperand``) coalesces with plain vector queries,
+and the drain runs the fused sparse + dense program (``hybrid_batch_fn``)
+instead of the dense one. There is no sync fallback for such a drain: when
+the index cannot run the fused program, the hybrid waiters get a typed
+``DeviceHybridUnavailable`` (the shard layer serves them on the host
+path) and the vector rows re-dispatch on their own.
 
 Zero-sync pipeline: with an ``async_batch_fn`` (an index
 ``search_by_vector_batch_async`` returning a ``DeviceResultHandle``) the
@@ -51,16 +59,26 @@ def _next_pow2(n: int) -> int:
     return p
 
 
+class DeviceHybridUnavailable(RuntimeError):
+    """The drain carried hybrid (sparse+dense) requests but the index
+    could not run the fused device program for this dispatch shape —
+    the shard layer catches this and serves the query through the host
+    hybrid path instead."""
+
+
 class _Pending:
-    __slots__ = ("query", "k", "allow", "event", "ids", "dists", "error",
-                 "ctx", "t_enqueue", "t_exec_start", "t_exec_end",
+    __slots__ = ("query", "k", "allow", "sparse", "event", "ids", "dists",
+                 "error", "ctx", "t_enqueue", "t_exec_start", "t_exec_end",
                  "batch_size", "t_mask_start", "t_mask_end",
                  "t_fetch_start", "t_fetch_end")
 
-    def __init__(self, query, k, allow):
+    def __init__(self, query, k, allow, sparse=None):
         self.query = query
         self.k = k
         self.allow = allow
+        # hybrid requests carry their packed sparse operand
+        # (ops/bm25.SparseOperand) the way filtered ones carry ``allow``
+        self.sparse = sparse
         self.event = threading.Event()
         self.t_enqueue = 0.0
         self.ids = None
@@ -90,6 +108,9 @@ class QueryBatcher:
     ``capacity_fn`` (optional, returns the backing store's row capacity)
     powers the selectivity heuristic that routes tiny filters solo — wire
     it only when the store has a gathered cutover.
+    ``hybrid_batch_fn(queries, k, allows, sparses) -> DeviceResultHandle
+    | None`` runs the fused sparse+dense program for drains carrying
+    sparse operands (None = unavailable for this dispatch shape).
     """
 
     def __init__(self, batch_fn, max_batch: int = 256,
@@ -97,10 +118,11 @@ class QueryBatcher:
                  capacity_fn=None,
                  owner: dict | None = None, async_batch_fn=None,
                  transfer_depth: int = 2,
-                 max_queue: int | None = None):
+                 max_queue: int | None = None, hybrid_batch_fn=None):
         from weaviate_tpu_torch.runtime import hbm_ledger
 
         self._batch_fn = batch_fn
+        self._hybrid_fn = hybrid_batch_fn
         self._async_fn = async_batch_fn
         self._transfer: TransferPipeline | None = None
         self._transfer_depth = transfer_depth
@@ -128,6 +150,7 @@ class QueryBatcher:
         self.dispatches = 0
         self.batched_queries = 0
         self.filtered_batched = 0
+        self.hybrid_batched = 0
         self.async_dispatches = 0
         # dispatches launched while a previous batch was still in the
         # transfer window — the overlap the double-buffering exists for
@@ -162,15 +185,20 @@ class QueryBatcher:
             return self._transfer
 
     def search(self, query: np.ndarray, k: int,
-               allow: np.ndarray | None = None):
+               allow: np.ndarray | None = None, sparse=None):
         """Blocking per-request entry; coalesces under concurrency.
+
+        ``sparse`` (a packed ``ops/bm25.SparseOperand``) marks a hybrid
+        request: it rides the coalesced dispatch the way allow lists do
+        and the drain runs the fused sparse+dense device program.
 
         Deadline-aware: a request whose budget is spent fails typed
         before enqueueing, and the wait is capped at the remaining
         budget. Overload-aware: a full queue sheds with a retriable
         OverloadedError."""
         retry.check("batcher")
-        item = _Pending(np.asarray(query, dtype=np.float32), k, allow)
+        item = _Pending(np.asarray(query, dtype=np.float32), k, allow,
+                        sparse)
         t_enqueue = item.t_enqueue = time.perf_counter()
         with self._cv:
             if len(self._queue) >= self.max_queue:
@@ -279,7 +307,9 @@ class QueryBatcher:
         fb = self.filter_batching
         filter_batching = bool(fb() if callable(fb) else fb)
         for it in drained:
-            if it.allow is not None and (
+            # hybrid requests never go solo: their sparse operand only
+            # dispatches through the fused batched program
+            if it.sparse is None and it.allow is not None and (
                     not filter_batching or self._prefer_solo(it)):
                 solo.append(it)
             else:
@@ -303,12 +333,18 @@ class QueryBatcher:
         b_pad = min(_next_pow2(b), max(self.max_batch, b))
         k_bucket = _next_pow2(max(it.k for it in coal))
         filtered = [it for it in coal if it.allow is not None]
+        hybrid = [it for it in coal if it.sparse is not None]
         t_mask0 = time.perf_counter()
         allows = None
         if filtered:
             # per-request allow lists ride along row-aligned; unfiltered
             # and padded rows are None (all-ones downstream)
             allows = [it.allow for it in coal] + [None] * (b_pad - b)
+        sparses = None
+        if hybrid:
+            # sparse operands ride row-aligned exactly like allow lists;
+            # pure-vector and padded rows are None (dense-only downstream)
+            sparses = [it.sparse for it in coal] + [None] * (b_pad - b)
         queries = np.zeros((b_pad,) + coal[0].query.shape, dtype=np.float32)
         for row, it in enumerate(coal):
             queries[row] = it.query
@@ -382,7 +418,36 @@ class QueryBatcher:
         handle = None
         ids = dists = None
         try:
-            if self._async_fn is not None:
+            if hybrid:
+                # fused sparse+dense program: there is NO sync fallback
+                # for hybrid drains (batch_fn has no sparse-operand slot)
+                # — unavailability is a typed error the shard layer
+                # converts into the host hybrid path, and the pure-vector
+                # remainder re-dispatches normally
+                if self._hybrid_fn is not None:
+                    faultline.fire("batcher.dispatch", batch=b, k=k_bucket)
+                    handle = tracing.run_in(ctx, self._hybrid_fn, queries,
+                                            k_bucket, allows, sparses)
+                if handle is None:
+                    _hbm.release(pad_key)
+                    err = DeviceHybridUnavailable(
+                        "index cannot run the fused hybrid program for "
+                        "this dispatch")
+                    t1 = time.perf_counter()
+                    for it in hybrid:
+                        it.t_exec_end = t1
+                        it.error = err
+                        it.event.set()
+                    rest = [it for it in coal if it.sparse is None]
+                    if rest:
+                        self._dispatch(rest)
+                    return
+                self.hybrid_batched += len(hybrid)
+                from weaviate_tpu_torch.runtime.metrics import \
+                    batcher_hybrid_batched
+
+                batcher_hybrid_batched.inc(len(hybrid))
+            elif self._async_fn is not None:
                 # dispatch-and-go: launch, hand the handle to the transfer
                 # thread, return to drain the NEXT batch
                 faultline.fire("batcher.dispatch", batch=b, k=k_bucket)
@@ -391,6 +456,10 @@ class QueryBatcher:
             if handle is None:
                 ids, dists = _sync_batch()
         except Exception as e:  # noqa: BLE001
+            if hybrid:
+                # no sparse-aware sync retry exists — surface the fault
+                _fail(e)
+                return
             result = _retry_once(e)
             if result is None:
                 return
@@ -418,6 +487,11 @@ class QueryBatcher:
         def _complete(res, err, t_fetch0, t_fetch1):
             for it in coal:
                 it.t_fetch_start, it.t_fetch_end = t_fetch0, t_fetch1
+            if err is not None and hybrid:
+                # the sync retry path can't re-run a hybrid program (no
+                # sparse-operand slot) — deliver the fault
+                _fail(err)
+                return
             if err is None:
                 _finish(res)
                 return
