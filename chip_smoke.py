@@ -11,9 +11,17 @@ top-k 100), with clustered Gaussian vectors made from ``--seed`` (nothing
 is downloaded), in phases:
 
 0. card: name and power limit (nvidia-smi), torch and CUDA versions;
-1. build: compiles every kernel in weaviate_tpu_torch/csrc with nvcc;
+1. build: compiles every kernel in weaviate_tpu_torch/csrc with nvcc and
+   prints each one's registers, shared memory and spills;
 2. kernels: each CUDA kernel against its plain PyTorch version on the
-   card, at the main path's shapes, with timings and bounds;
+   card, at the main path's shapes, with timings and bounds. The four
+   block kernels (bq_hamming_block, bq_mxu_block, pq4_lut_block,
+   pq4_recon_block) at ragged shapes, then at 256 queries x the 1M-row
+   corpus's sign words and 4-bit PQ codes with ~10% dead rows, then
+   bq_mxu_block at the two shapes of tools/probe_r4.py; bq_mxu_block is
+   also held to bf16(exact hamming) at 768 dims. No path of the repo runs
+   bq_hamming_block or pq4_recon_block: their launches are counted in
+   this section's own window;
 3. index: FlatIndex on the card, 1M rows, 1,024 queries through the
    async batch entry point for selection "approx" (distance_block per
    8192-row chunk) and "fused" (fused_topk_scan + fused_topk_pairs),
@@ -59,8 +67,12 @@ is downloaded), in phases:
    query); every device answer is held to the host reference path
    (device_hybrid off), and every host-served query of (a) must exceed
    the budget.
+8. conformance: ``kernel_conformance(device="cuda")``
+   (weaviate_tpu_torch/ops/conformance.py, bench.py's sec_conformance) at
+   bench's 128 dims must return "ok", and must launch every kernel in
+   CONFORMANCE_KERNELS.
 
-Phases 5, 6 and 7 each reset the launch counters as they start and read
+Phases 5, 6, 7 and 8 each reset the launch counters as they start and read
 them as they end: every kernel in QUANT_KERNELS must have run in phases 5
 and 6, and ``bm25_block`` and ``distance_block`` in phase 7, whose run (d)
 must launch ``fused_topk_scan``.
@@ -125,7 +137,23 @@ KERNEL_SOURCES = {
                         "weaviate_tpu/ops/pallas_kernels.py:1397"),
     "bm25_block": ("weaviate_tpu_torch/csrc/bm25_block.cu",
                    "weaviate_tpu/ops/pallas_kernels.py:1606"),
+    "bq_mxu_block": ("weaviate_tpu_torch/csrc/bq_mxu_block.cu",
+                     "weaviate_tpu/ops/pallas_kernels.py:417"),
+    "pq4_lut_block": ("weaviate_tpu_torch/csrc/pq4_lut_block.cu",
+                      "weaviate_tpu/ops/pallas_kernels.py:516"),
+    "pq4_recon_block": ("weaviate_tpu_torch/csrc/pq4_recon_block.cu",
+                        "weaviate_tpu/ops/pallas_kernels.py:624"),
+    "bq_hamming_block": ("weaviate_tpu_torch/csrc/bq_hamming_block.cu",
+                         "weaviate_tpu/ops/pallas_kernels.py:1495"),
 }
+# no path of the repo runs these two (the conformance entry point drives
+# the other two block kernels): phase 2's block-kernel window counts them
+PHASE2_PATH = ("bq_hamming_block", "pq4_recon_block")
+CONFORMANCE_KERNELS = ("distance_block", "bq_mxu_block", "pq4_lut_block", "fused_topk_scan")
+# bench.py's pq4 tolerance, 8e-3 * max(1, max|ref|): one bf16 ulp at the
+# output's scale, for f32 sums taken in another order (pq4_recon_block)
+PQ_TOL = 8e-3
+PROBE_SHAPES = ((256, 48), (1024, 4))  # tools/probe_r4.py:176-177: (B, W) at 1M rows
 # no single PyTorch call computes a strided block-argmin over hamming or
 # LUT sums: the scan-reduce kernels have no library yardstick
 NO_LIBRARY = "none: no single PyTorch call computes the function"
@@ -276,16 +304,20 @@ def phase_build() -> None:
         with open(_build.log_path(name)) as f:
             text = f.read()
         used = [int(t.split()[0]) for t in text.split("Used ")[1:]]
+        smem = [int(b) for b in re.findall(r"(\d+) bytes smem", text)]
         # ptxas prints one line per instantiation: any non-zero one spills
         spills = [int(b) for b in re.findall(r"(\d+) bytes spill (?:stores|loads)", text)]
-        regs.append(f"{name} max {max(used) if used else '?'} registers"
-                    f"{' (spills)' if any(spills) else ''}")
+        regs.append(f"{name} max {max(used) if used else '?'} registers, "
+                    f"{max(smem) if smem else 0} bytes static smem, "
+                    f"{max(spills) if spills else 0} bytes spilled")
     log(f"phase 1 build: {secs:.1f} s for {len(_build.SIGNATURES)} kernels "
         f"(nvcc sm_90a, in parallel); {'; '.join(regs)}")
 
 
-def phase_kernels(torch, K, seed: int) -> dict:
-    """Each kernel against its plain version at the main path's shapes."""
+def phase_kernels(torch, K, seed: int) -> tuple[dict, dict]:
+    """Each kernel against its plain version at the main path's shapes.
+    Returns the per-kernel numbers and the launch counts of the block
+    kernels' window."""
     from weaviate_tpu_torch.ops.distances import MASKED_DISTANCE
     from weaviate_tpu_torch.ops.topk import merge_epoch_topk
 
@@ -391,8 +423,11 @@ def phase_kernels(torch, K, seed: int) -> dict:
         f"merge included), plain {out['fused_topk_scan']['plain_ms']:.3f} ms, "
         f"addmm+topk {out['fused_topk_scan']['library_ms']:.3f} ms, "
         f"{_bound_text(out['fused_topk_scan'])}")
-    out.update(_scan_reduce_kernels(torch, K, X, qs, vmask, bits, rng, timer))
-    del X, allow, bits, vmask, bias
+    scan, operands = _scan_reduce_kernels(torch, K, X, qs, vmask, bits, rng, timer)
+    out.update(scan)
+    block, counts2 = _block_kernels(torch, K, operands, qs, rng, timer)
+    out.update(block)
+    del X, allow, bits, vmask, bias, operands
     torch.cuda.empty_cache()
 
     # fused_topk_pairs: [256, 8192] at k = 100 and 256, and the scan's merge shape
@@ -435,7 +470,7 @@ def phase_kernels(torch, K, seed: int) -> dict:
         f"plain {out['fused_topk_pairs']['plain_ms']:.4f} ms, torch.topk "
         f"{out['fused_topk_pairs']['library_ms']:.4f} ms, {_bound_text(out['fused_topk_pairs'])}")
     out["bm25_block"] = _bm25_kernel(torch, K, rng, timer)
-    return out
+    return out, counts2
 
 
 def _bm25_operands(torch, rng, b, s, t, c):
@@ -521,7 +556,9 @@ def _scan_reduce_kernels(torch, K, X, qs, vmask, bits, rng, timer) -> dict:
     corpus X as sign words and as 4-bit PQ codes, with and without the
     per-query allow bits, and the two-stage scan's transposed prefix).
     Equality is exact: the arithmetic is integer, and the one f32
-    division by the query's scale is exact in IEEE."""
+    division by the query's scale is exact in IEEE. Returns the numbers
+    and the operands the block kernels reuse (the sign words, the 4-bit
+    codes, the queries' LUTs and the centroids)."""
     from weaviate_tpu_torch.ops import bq as bq_ops
     from weaviate_tpu_torch.ops import pq as pq_ops
 
@@ -596,7 +633,7 @@ def _scan_reduce_kernels(torch, K, X, qs, vmask, bits, rng, timer) -> dict:
         f"allow_bits, and the transposed prefix [4,{n}]: equal to the plain version "
         f"(max_abs_err {err:.3g}); kernel {o['ms']:.3f} ms (prefix {prefix_ms:.3f} ms), "
         f"plain {o['plain_ms']:.3f} ms, library {NO_LIBRARY}, {_bound_text(o)}")
-    del xw, pt
+    del pt
 
     # [256, m = 192] 4-bit codes of the same corpus, codebook trained here
     m = pq_ops.default_pq_segments(DIM)
@@ -623,7 +660,184 @@ def _scan_reduce_kernels(torch, K, X, qs, vmask, bits, rng, timer) -> dict:
         f"allow_bits: equal to the plain version (max_abs_err {err:.3g}); kernel "
         f"{o['ms']:.3f} ms (int8 LUT quantization included), plain {o['plain_ms']:.3f} ms, "
         f"library {NO_LIBRARY}, {_bound_text(o)}")
-    return out
+    return out, dict(qw=qw, xw=xw, codes=codes, lut=lut, centroids=book.centroids)
+
+
+def _same_block(torch, a, b, what, tol=None) -> float:
+    """Block-kernel outputs against the plain version's: the same dtype
+    and shape; equal, or (``tol``) within tol * max(1, max|ref|) on live
+    entries with every masked entry equal. Returns the largest error."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        raise AssertionError(f"{what}: {a.dtype} {tuple(a.shape)} against the plain "
+                             f"version's {b.dtype} {tuple(b.shape)}")
+    if tol is None:
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: {int((a != b).sum())} values differ from the "
+                                 "plain version")
+        return 0.0
+    af, bf = a.float(), b.float()
+    live = bf < 1e38  # masked entries are bf16(d + MASKED_DISTANCE)
+    diff = (af - bf)[live].abs()
+    err = diff.max().item() if diff.numel() else 0.0
+    lim = tol * max(1.0, bf[live].abs().max().item() if diff.numel() else 0.0)
+    if err > lim or not torch.equal(a[~live], b[~live]):
+        raise AssertionError(f"{what}: max error {err} past {lim}, or masked entries differ")
+    return err
+
+
+def _block_kernels(torch, K, ops, qs, rng, timer) -> tuple[dict, dict]:
+    """The four block kernels against their plain versions on the card:
+    ragged shapes (B = 1, 5, 256; N off every tile; W = 3 and 48; m = 24
+    and 384; k = 12 and 16), then the main path's: 256 queries x the
+    1M-row corpus's sign words (W = 24) and 4-bit PQ codes (m = 192, ds =
+    4) from _scan_reduce_kernels, with ~10% dead rows; then bq_mxu_block at
+    the shapes of tools/probe_r4.py. The bq kernels and pq4_lut_block must
+    equal their plain versions bit for bit, pq4_recon_block within PQ_TOL.
+    Returns the numbers and the launch counts of this window."""
+    from weaviate_tpu_torch.ops.bq import bq_hamming_np
+
+    dev = qs.device
+    out = {}
+    t0 = time.perf_counter()
+    K.reset_launch_counts()  # the block kernels' window starts here
+
+    def words(shape):
+        return torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, shape, dtype=np.int64)
+                                .astype(np.int32)).to(dev)
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+    def dead10(n):
+        return torch.from_numpy(rng.random(n) > 0.1).to(dev)
+
+    def popcounts(x):
+        return K.popcount32(x.to(torch.int64) & 0xFFFFFFFF).sum(dim=1).float()
+
+    ragged = 0
+    for b, n, w in [(1, 1001, 3), (5, 70001, 48), (256, 4099, 3), (256, 9001, 48)]:
+        q, x, valid = words((b, w)), words((n, w)), dead10(n)
+        _same_block(torch, K.bq_hamming_block(q, x), K.bq_hamming_block_plain(q, x),
+                    f"bq_hamming_block ragged [{b},{w}] x [{n},{w}]")
+        # a caller's cached popcounts are used as given: any f32 values
+        xp = torch.from_numpy(rng.uniform(0, 32 * w, n).astype(np.float32)).to(dev)
+        planes = K.bq_queries_to_planes(q, w)
+        for kw in ({}, dict(valid=valid),
+                   dict(valid=valid, x_pop=xp, q_planes=planes, q_pop=planes.float().sum(1))):
+            _same_block(torch, K.bq_mxu_block(q, x, **kw), K.bq_mxu_block_plain(q, x, **kw),
+                        f"bq_mxu_block ragged [{b},{w}] x [{n},{w}] {sorted(kw)}")
+        ragged += 1
+    for b, n, m, kc, ds in [(1, 1001, 24, 12, 4), (5, 70001, 384, 16, 2),
+                            (256, 4099, 24, 12, 4), (256, 9001, 384, 16, 2)]:
+        lut, valid = randn(b, m, kc, scale=3.0), dead10(n)
+        codes = torch.from_numpy(rng.integers(0, 16, (n, m)).astype(np.uint8)).to(dev)
+        for v in (None, valid):
+            _same_block(torch, K.pq4_lut_block(lut, codes, v), K.pq4_lut_block_plain(lut, codes, v),
+                        f"pq4_lut_block ragged [{b},{m},{kc}] x [{n},{m}]")
+        q, cent = randn(b, m * ds), randn(m, kc, ds)
+        for metric in ("l2-squared", "dot", "cosine"):
+            qm = torch.nn.functional.normalize(q, dim=1) if metric == "cosine" else q
+            _same_block(torch, K.pq4_recon_block(qm, codes, cent, metric, valid),
+                        K.pq4_recon_block_plain(qm, codes, cent, metric, valid),
+                        f"pq4_recon_block ragged {metric} [{b},{m * ds}] x [{n},{m}] ds {ds}",
+                        tol=PQ_TOL)
+        ragged += 1
+
+    # the main path's shapes: 256 queries x 1,048,576 rows, 768 dims
+    qw, xw = ops["qw"], ops["xw"]
+    (b, w), n = qw.shape, xw.shape[0]
+    valid = dead10(n)
+    ham = K.bq_hamming_block(qw, xw)
+    _same_block(torch, ham, K.bq_hamming_block_plain(qw, xw), f"bq_hamming_block [{b},{w}] x [{n}]")
+    np_rows = 512  # numpy's unpacked bits of [B, np_rows, W] words stay at 100 MB
+    want = bq_hamming_np(qw.cpu().numpy().view(np.uint32),
+                         xw[:np_rows].cpu().numpy().view(np.uint32))
+    if not np.array_equal(ham[:, :np_rows].cpu().numpy(), want):
+        raise AssertionError("bq_hamming_block differs from bq_hamming_np")
+    mxu = K.bq_mxu_block(qw, xw, valid=valid)
+    _same_block(torch, mxu, K.bq_mxu_block_plain(qw, xw, valid=valid),
+                f"bq_mxu_block [{b},{w}] x [{n}]")
+    # past 256 bits bf16 rounds: live rows are bf16(exact hamming)
+    if not torch.equal(mxu[:, valid], ham[:, valid].to(torch.bfloat16)):
+        raise AssertionError("bq_mxu_block is not bf16(exact hamming) on the live rows")
+    planes = K.bq_queries_to_planes(qw, w)
+    cached = K.bq_mxu_block(qw, xw, popcounts(xw), valid, planes, planes.float().sum(1))
+    if not torch.equal(cached, mxu):
+        raise AssertionError("bq_mxu_block with cached x_pop and q_planes differs")
+    del ham, mxu, cached
+    nbytes_words = qw.numel() * 4 + xw.numel() * 4
+    b_ms, b_by = bound_ms(nbytes_words + b * n * 4, 2.0 * b * n * 32 * w, INT8_OPS)
+    out["bq_hamming_block"] = dict(
+        max_abs_err=0.0, ms=timer(lambda: K.bq_hamming_block(qw, xw), reps=10),
+        plain_ms=timer(lambda: K.bq_hamming_block_plain(qw, xw), reps=1, warmup=0),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    b_ms, b_by = bound_ms(nbytes_words + b * 4 + n + b * n * 2, 2.0 * b * n * 32 * w, INT8_OPS)
+    out["bq_mxu_block"] = dict(
+        max_abs_err=0.0, ms=timer(lambda: K.bq_mxu_block(qw, xw, valid=valid), reps=10),
+        plain_ms=timer(lambda: K.bq_mxu_block_plain(qw, xw, valid=valid), reps=1, warmup=0),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+    # the probe shapes, kernel only, equal to the plain version on the first rows
+    probe = []
+    for pb, pw in PROBE_SHAPES:
+        q2, x2 = words((pb, pw)), words((n, pw))
+        head = 65_536
+        _same_block(torch, K.bq_mxu_block(q2, x2)[:, :head], K.bq_mxu_block_plain(q2, x2[:head]),
+                    f"bq_mxu_block probe [{pb},{pw}] x [{n}]")
+        probe.append(f"[{pb},{pw} words] x [{n},{pw}] "
+                     f"{timer(lambda: K.bq_mxu_block(q2, x2), reps=5):.3f} ms")
+        del q2, x2
+        torch.cuda.empty_cache()
+
+    codes, lut, cent = ops["codes"], ops["lut"], ops["centroids"]
+    m = cent.shape[0]
+    _same_block(torch, K.pq4_lut_block(lut, codes, valid), K.pq4_lut_block_plain(lut, codes, valid),
+                f"pq4_lut_block [{b},{m},16] x [{n},{m}]")
+    qn = torch.nn.functional.normalize(qs, dim=1)
+    err = 0.0
+    for metric in ("l2-squared", "dot", "cosine"):
+        err = max(err, _same_block(
+            torch, K.pq4_recon_block(qn, codes, cent, metric, valid),
+            K.pq4_recon_block_plain(qn, codes, cent, metric, valid),
+            f"pq4_recon_block {metric} [{b},{DIM}] x [{n},{m}]", tol=PQ_TOL))
+    b_ms, b_by = bound_ms(lut.numel() * 4 + codes.numel() + n + b * n * 2,
+                          2.0 * b * n * 16 * m, BF16_FLOPS)
+    out["pq4_lut_block"] = dict(
+        max_abs_err=0.0, ms=timer(lambda: K.pq4_lut_block(lut, codes, valid), reps=5),
+        plain_ms=timer(lambda: K.pq4_lut_block_plain(lut, codes, valid), reps=1, warmup=0),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    # operations: the distance product only; the reconstruction is a gather
+    b_ms, b_by = bound_ms(qn.numel() * 4 + codes.numel() + cent.numel() * 4 + n + b * n * 2,
+                          2.0 * b * n * DIM, BF16_FLOPS)
+    out["pq4_recon_block"] = dict(
+        max_abs_err=err, ms=timer(lambda: K.pq4_recon_block(qn, codes, cent, METRIC, valid),
+                                  reps=5),
+        plain_ms=timer(lambda: K.pq4_recon_block_plain(qn, codes, cent, METRIC, valid),
+                       reps=1, warmup=0),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    counts = dict(K.launch_counts)
+    for name in PHASE2_PATH:
+        if counts[name] == 0:
+            raise AssertionError(f"{name} was not launched in phase 2")
+    o = out
+    log(f"phase 2 kernels: block kernels, {ragged // 2} ragged shapes each, then "
+        f"[{b},{w} words] x [{n},{w}] with ~10% dead rows: bq_hamming_block equal to the plain "
+        f"version and to bq_hamming_np (first {np_rows} rows), kernel "
+        f"{o['bq_hamming_block']['ms']:.3f} ms, plain {o['bq_hamming_block']['plain_ms']:.3f} ms, "
+        f"{_bound_text(o['bq_hamming_block'])}; bq_mxu_block equal to the plain version and "
+        f"to bf16(exact hamming) on the live rows, also with cached x_pop / q_planes, kernel "
+        f"{o['bq_mxu_block']['ms']:.3f} ms, plain {o['bq_mxu_block']['plain_ms']:.3f} ms, "
+        f"{_bound_text(o['bq_mxu_block'])}; at the probe shapes {', '.join(probe)}")
+    log(f"phase 2 kernels: lut [{b},{m},16] x codes [{n},{m}] with ~10% dead rows: "
+        f"pq4_lut_block equal to the plain version, kernel "
+        f"{o['pq4_lut_block']['ms']:.3f} ms, plain {o['pq4_lut_block']['plain_ms']:.3f} ms, "
+        f"{_bound_text(o['pq4_lut_block'])}; pq4_recon_block l2/dot/cosine within "
+        f"{PQ_TOL} x max(1, max|ref|) (max_abs_err {err:.3g}), {METRIC} kernel "
+        f"{o['pq4_recon_block']['ms']:.3f} ms, plain {o['pq4_recon_block']['plain_ms']:.3f} ms, "
+        f"{_bound_text(o['pq4_recon_block'])}; library {NO_LIBRARY}; launches in this window "
+        f"{ {k: counts[k] for k in out} }; block kernels' checks and timings "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out, counts
 
 
 def _exact_distances(torch, qn, ref, mask):
@@ -1454,6 +1668,26 @@ def phase_hybrid(torch, K, seed: int, db, n_docs: int) -> dict:
     return counts
 
 
+def phase_conformance(K) -> dict:
+    """bench.py's kernel conformance through the port's entry point on the
+    card; returns the launch counts of its run."""
+    from weaviate_tpu_torch.ops.conformance import kernel_conformance
+
+    K.reset_launch_counts()  # phase 8's run starts here
+    t0 = time.perf_counter()
+    status = kernel_conformance(device="cuda")
+    counts = dict(K.launch_counts)
+    if status != "ok":
+        raise AssertionError(f"kernel conformance: {status}")
+    for name in CONFORMANCE_KERNELS:
+        if counts[name] == 0:
+            raise AssertionError(f"{name} was not launched in phase 8")
+    log(f"phase 8 conformance: kernel_conformance(device='cuda') at 128 dims, 8 queries x "
+        f"512 rows: {status} in {time.perf_counter() - t0:.2f} s; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1476,7 +1710,7 @@ def main() -> int:
     t0 = time.perf_counter()
     device = phase_card(torch)
     phase_build()
-    numbers = phase_kernels(torch, K, args.seed)
+    numbers, counts2 = phase_kernels(torch, K, args.seed)
     log(f"card after phase 2 (SM clock, max SM clock, power, temperature): {card_clocks()}")
     phase_index(torch, args.seed, args.rows)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -1494,10 +1728,14 @@ def main() -> int:
         if db is not None:
             db.close()
         shutil.rmtree(tmp, ignore_errors=True)
+    counts8 = phase_conformance(K)
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
-        # launches over the four main paths: phases 4, 5, 6 and 7
-        launches = sum(c[name] for c in (counts4, counts5, counts6, counts7))
+        # launches over the main paths: phases 4, 5, 6, 7 and 8, and phase
+        # 2's window for the two kernels that no path runs
+        launches = sum(c[name] for c in (counts4, counts5, counts6, counts7, counts8))
+        if name in PHASE2_PATH:
+            launches += counts2[name]
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=launches, **numbers[name]))
     log(f"total {time.perf_counter() - t0:.1f} s")

@@ -33,31 +33,6 @@
 using namespace wtt_scan;
 
 constexpr int QB = 32;  // queries per CTA
-constexpr int WC = 8;   // words per register chunk
-
-__device__ __forceinline__ void load_words(uint32_t (&xr)[WC], const uint32_t* __restrict__ x,
-                                           bool in, int transposed, int vec4, long long row,
-                                           int N, int W, int w0) {
-  if (!in) {
-#pragma unroll
-    for (int j = 0; j < WC; ++j) xr[j] = 0u;
-  } else if (!transposed) {
-    const uint32_t* p = x + (size_t)row * W + w0;
-    if (vec4 && w0 + WC <= W) {
-      const uint4 a = __ldg(reinterpret_cast<const uint4*>(p));
-      const uint4 b = __ldg(reinterpret_cast<const uint4*>(p) + 1);
-      xr[0] = a.x; xr[1] = a.y; xr[2] = a.z; xr[3] = a.w;
-      xr[4] = b.x; xr[5] = b.y; xr[6] = b.z; xr[7] = b.w;
-    } else {
-#pragma unroll
-      for (int j = 0; j < WC; ++j) xr[j] = (w0 + j < W) ? __ldg(p + j) : 0u;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < WC; ++j)
-      xr[j] = (w0 + j < W) ? __ldg(x + (size_t)(w0 + j) * N + row) : 0u;
-  }
-}
 
 __global__ void __launch_bounds__(THREADS)
 bq_scan_reduce_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ x,
@@ -69,10 +44,7 @@ bq_scan_reduce_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict
   __shared__ int spop[QB];
   const Place p = place(n_qblocks, QB, out_w);
   const int nq = min(QB, B - p.q0);
-  for (int e = threadIdx.x; e < QB * wp; e += THREADS) {
-    const int qi = e / wp, w = e % wp;
-    sq[e] = (qi < nq && w < W) ? q[(size_t)(p.q0 + qi) * W + w] : 0u;
-  }
+  stage_query_words<QB>(sq, q, p.q0, B, W, wp, THREADS);
   __syncthreads();
   if (threadIdx.x < QB) {
     int pop = 0;
@@ -93,18 +65,9 @@ bq_scan_reduce_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict
     int ham[QB];
 #pragma unroll
     for (int i = 0; i < QB; ++i) ham[i] = 0;
-    for (int w0 = 0; w0 < wp; w0 += WC) {
-      uint32_t xr[WC];
-      load_words(xr, x, in, transposed, vec4, row, N, W, w0);
-#pragma unroll
-      for (int i = 0; i < QB; ++i) {
-        const uint4* qw = reinterpret_cast<const uint4*>(sq + i * wp + w0);
-        const uint4 a = qw[0], b = qw[1];
-        ham[i] += __popc(a.x ^ xr[0]) + __popc(a.y ^ xr[1]) + __popc(a.z ^ xr[2]) +
-                  __popc(a.w ^ xr[3]) + __popc(b.x ^ xr[4]) + __popc(b.y ^ xr[5]) +
-                  __popc(b.z ^ xr[6]) + __popc(b.w ^ xr[7]);
-      }
-    }
+    int unused = 0;
+    row_popcounts<QB, false, false>(sq, wp, x, in, transposed, vec4, row, N, W, ham,
+                                    unused);
 #pragma unroll
     for (int i = 0; i < QB; ++i) {
       int key = (ham[i] - spop[i] + (dead ? dead_off : 0)) * 64 + s;
@@ -136,7 +99,7 @@ extern "C" int wtt_bq_scan_reduce(const void* q, const void* x, int transposed, 
                                   int W, int reduce_l, int out_w, int supertile, int n_st,
                                   int n_qblocks, void* vals, void* ids, void* stream) {
   if (B > 0 && n_st > 0) {
-    const int wp = ((W + WC - 1) / WC) * WC;
+    const int wp = padded_words(W);
     const int smem = QB * wp * (int)sizeof(uint32_t);
     cudaFuncSetAttribute(bq_scan_reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          smem);

@@ -19,6 +19,14 @@ flat nearVector path, the quantized flat path and the hybrid path:
                         same strided block-argmin (csrc/pq4_scan_reduce.cu)
 - ``bm25_block``        negated BM25F over packed posting candidates, bit
                         for bit the host scorer's f32 (csrc/bm25_block.cu)
+- ``bq_hamming_block``  exact f32 hamming [B, N] over packed sign words
+                        (csrc/bq_hamming_block.cu)
+- ``bq_mxu_block``      masked hamming as |q| + |x| - 2 q.x, bf16
+                        (csrc/bq_mxu_block.cu)
+- ``pq4_lut_block``     masked 4-bit ADC through a bf16 LUT, bf16
+                        (csrc/pq4_lut_block.cu)
+- ``pq4_recon_block``   masked 4-bit ADC through the reconstructed rows,
+                        l2 / dot / cosine, bf16 (csrc/pq4_recon_block.cu)
 
 Each wrapper takes its plain PyTorch version (``*_plain``) only when the
 tensors it is given lie on the CPU — the tests run that way. On a CUDA
@@ -48,7 +56,8 @@ FUSED_PAIRS_MAX_K = 256
 
 launch_counts = {"distance_block": 0, "fused_topk_scan": 0,
                  "fused_topk_pairs": 0, "bq_scan_reduce": 0,
-                 "pq4_scan_reduce": 0, "bm25_block": 0}
+                 "pq4_scan_reduce": 0, "bm25_block": 0, "bq_hamming_block": 0,
+                 "bq_mxu_block": 0, "pq4_lut_block": 0, "pq4_recon_block": 0}
 _count_lock = threading.Lock()
 
 
@@ -858,4 +867,377 @@ def bm25_block(seg_tf: torch.Tensor, seg_len: torch.Tensor, seg_term: torch.Tens
         out.data_ptr(), _stream(seg_tf.device))
     _check_rc("bm25_block", rc)
     _count("bm25_block")
+    return out
+
+
+# -- the block kernels: bq_hamming_block, bq_mxu_block, pq4_lut_block,
+#    pq4_recon_block ------------------------------------------------------------
+#
+# Each writes the whole [B, N] matrix, as the reference's do. The three
+# masked ones return bf16, as the reference kernels write it (their
+# docstrings say f32): the f32 value, plus MASKED_DISTANCE on dead rows,
+# rounded to nearest even. A masked entry is therefore bf16(d + 3e38) =
+# 3.004e38, finite, not MASKED_DISTANCE itself. bf16 holds integers exactly
+# only up to 256, so past 256 bits ``bq_mxu_block`` is the exact hamming
+# rounded to bf16.
+
+# pq4_lut_block holds a block of queries' bf16 tables, widened to f32, in
+# shared memory: 16 codes x 4 bytes = 64 bytes a segment a query. One
+# query's table must fit the 227 KB a CTA may opt into on sm_90.
+PQ4_LUT_MAX_SEGMENTS = PQ4_SMEM_BYTES // 64
+
+
+def _check_words(name: str, what: str, t, w: int | None = None) -> None:
+    if not isinstance(t, torch.Tensor) or t.ndim != 2 or t.dtype != torch.int32:
+        raise ValueError(f"{name}: {what} must be a 2-D int32 tensor of sign words, got "
+                         f"{getattr(t, 'dtype', type(t))} {tuple(getattr(t, 'shape', ()))}")
+    if w is not None and t.shape[1] != w:
+        raise ValueError(f"{name}: {what} has {t.shape[1]} words, expected {w}")
+
+
+def _check_rows(name: str, what: str, t, n: int, device, dtype=None) -> None:
+    if t is None:
+        return
+    if t.shape != (n,) or t.device != device or (dtype is not None and t.dtype != dtype):
+        want = f"{dtype} " if dtype is not None else ""
+        raise ValueError(f"{name}: {what} must be a [{n}] {want}tensor on {device}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _same_device(name: str, *ts) -> None:
+    devs = {t.device for t in ts if t is not None}
+    if len(devs) > 1:
+        raise ValueError(f"{name}: operands on different devices {sorted(map(str, devs))}")
+
+
+def _row_chunk(b: int, width: int) -> int:
+    """Rows per chunk of a plain version: [B, rows] and [rows, width]
+    intermediates stay within _SCAN_CHUNK_ELEMS elements."""
+    return max(1, _SCAN_CHUNK_ELEMS // max(1, b, width))
+
+
+def _masked_bf16(d: torch.Tensor, valid, lo: int, hi: int) -> torch.Tensor:
+    """The reference kernels' epilogue: d + (1 - valid) * MASKED_DISTANCE
+    in f32, rounded to bf16."""
+    if valid is not None:
+        d = d + (~valid[lo:hi]).float()[None, :] * MASKED_DISTANCE
+    return d.to(torch.bfloat16)
+
+
+# -- bq_hamming_block ----------------------------------------------------------
+
+def bq_hamming_block_plain(q_bits: torch.Tensor, x_bits: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``bq_hamming_block``: XOR + popcount per word."""
+    b, w = q_bits.shape
+    n = x_bits.shape[0]
+    q64 = _u32(q_bits)
+    out = torch.empty((b, n), dtype=torch.float32, device=x_bits.device)
+    per = _row_chunk(b, w)
+    for lo in range(0, n, per):
+        xs = _u32(x_bits[lo:lo + per])
+        acc = torch.zeros((b, xs.shape[0]), dtype=torch.int64, device=x_bits.device)
+        for j in range(w):
+            acc += popcount32(q64[:, j, None] ^ xs[None, :, j])
+        out[:, lo:lo + per] = acc.float()
+    return out
+
+
+def bq_hamming_block(q_bits: torch.Tensor, x_bits: torch.Tensor) -> torch.Tensor:
+    """Exact hamming distances between packed sign words (reference
+    ``pallas_kernels.bq_hamming_block``): q_bits [B, W] and x_bits [N, W]
+    int32 tensors holding the uint32 words -> [B, N] f32 bit differences.
+    CUDA tensors launch csrc/bq_hamming_block.cu; CPU tensors take
+    ``bq_hamming_block_plain``."""
+    _check_words("bq_hamming_block", "q_bits", q_bits)
+    _check_words("bq_hamming_block", "x_bits", x_bits, q_bits.shape[1])
+    _same_device("bq_hamming_block", q_bits, x_bits)
+    if x_bits.device.type == "cpu":
+        return bq_hamming_block_plain(q_bits, x_bits)
+    from weaviate_tpu_torch.ops import _build
+
+    q_bits, x_bits = q_bits.contiguous(), x_bits.contiguous()
+    (b, w), n = q_bits.shape, x_bits.shape[0]
+    out = torch.empty((b, n), dtype=torch.float32, device=x_bits.device)
+    vec4 = int(w % 4 == 0 and x_bits.data_ptr() % 16 == 0)
+    rc = _build.kernel("bq_hamming_block")(
+        q_bits.data_ptr(), x_bits.data_ptr(), vec4, b, n, w, out.data_ptr(),
+        _stream(x_bits.device))
+    _check_rc("bq_hamming_block", rc)
+    _count("bq_hamming_block")
+    return out
+
+
+# -- bq_mxu_block ----------------------------------------------------------------
+
+def bq_queries_to_planes(q_bits: torch.Tensor, w: int) -> torch.Tensor:
+    """Packed query words [B, W] (int32 holding the uint32 bits) -> 0/1
+    bf16 [B, 32W] in bit-plane order d' = j*W + w: plane j holds bit j of
+    every word (reference ``pallas_kernels.bq_queries_to_planes``)."""
+    u = _u32(q_bits)
+    return torch.cat([(u >> j) & 1 for j in range(32)], dim=1).to(torch.bfloat16)
+
+
+def _planes_to_words(q_planes: torch.Tensor, w: int) -> torch.Tensor:
+    """Inverse of ``bq_queries_to_planes`` for 0/1 planes."""
+    b = q_planes.shape[0]
+    bits = q_planes.reshape(b, 32, w).to(torch.int64)
+    shifts = torch.arange(32, dtype=torch.int64, device=q_planes.device)
+    words = (bits << shifts[None, :, None]).sum(dim=1)
+    # the sum is < 2**32; fold into int32's range keeping the bit pattern
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+
+
+def _bq_mxu_operands(q_bits, x_bits, x_pop, valid, q_planes, q_pop):
+    """Checks ``bq_mxu_block``'s operands; returns (query words, query
+    popcounts [B] f32). With ``q_planes`` the words are packed back from
+    the planes, which must hold only 0 and 1, and ``q_pop`` is used as
+    given, as the reference kernel uses both."""
+    name = "bq_mxu_block"
+    _check_words(name, "q_bits", q_bits)
+    _check_words(name, "x_bits", x_bits, q_bits.shape[1])
+    (b, w), n = q_bits.shape, x_bits.shape[0]
+    _same_device(name, q_bits, x_bits, x_pop, valid, q_planes, q_pop)
+    _check_rows(name, "valid", valid, n, x_bits.device, torch.bool)
+    _check_rows(name, "x_pop", x_pop, n, x_bits.device)
+    if (q_planes is None) != (q_pop is None):
+        raise ValueError(f"{name}: q_planes and q_pop are given together")
+    if q_planes is None:
+        return q_bits, popcount32(_u32(q_bits)).sum(dim=1).float()
+    if q_planes.shape != (b, 32 * w):
+        raise ValueError(f"{name}: q_planes must be [{b}, {32 * w}], got {tuple(q_planes.shape)}")
+    if q_pop.numel() != b or q_pop.shape not in ((b,), (b, 1)):
+        raise ValueError(f"{name}: q_pop must be [{b}] or [{b}, 1], got {tuple(q_pop.shape)}")
+    if not bool(((q_planes == 0) | (q_planes == 1)).all()):
+        raise ValueError(f"{name}: q_planes must hold only 0 and 1")
+    return _planes_to_words(q_planes, w), q_pop.reshape(b).float()
+
+
+def bq_mxu_block_plain(q_bits, x_bits, x_pop=None, valid=None, q_planes=None, q_pop=None):
+    """Plain version of ``bq_mxu_block``: per row ``q_pop + x_pop - 2 *
+    popcount(q & x)`` in f32, the mask added, rounded to bf16."""
+    q_words, qpop = _bq_mxu_operands(q_bits, x_bits, x_pop, valid, q_planes, q_pop)
+    return _bq_mxu_plain(q_words, qpop, x_bits, x_pop, valid)
+
+
+def _bq_mxu_plain(q_words, qpop, x_bits, x_pop, valid):
+    (b, w), n = q_words.shape, x_bits.shape[0]
+    q64 = _u32(q_words)
+    out = torch.empty((b, n), dtype=torch.bfloat16, device=x_bits.device)
+    per = _row_chunk(b, w)
+    for lo in range(0, n, per):
+        hi = min(n, lo + per)
+        xs = _u32(x_bits[lo:hi])
+        dot = torch.zeros((b, hi - lo), dtype=torch.int64, device=x_bits.device)
+        for j in range(w):
+            dot += popcount32(q64[:, j, None] & xs[None, :, j])
+        xp = popcount32(xs).sum(dim=1).float() if x_pop is None else x_pop[lo:hi].float()
+        d = (qpop[:, None] + xp[None, :]) - 2.0 * dot.float()
+        out[:, lo:hi] = _masked_bf16(d, valid, lo, hi)
+    return out
+
+
+def bq_mxu_block(q_bits: torch.Tensor, x_bits: torch.Tensor,
+                 x_pop: torch.Tensor | None = None, valid: torch.Tensor | None = None,
+                 q_planes: torch.Tensor | None = None,
+                 q_pop: torch.Tensor | None = None) -> torch.Tensor:
+    """Masked hamming distances as the reference's MXU kernel computes
+    them (``pallas_kernels.bq_mxu_block``): q_bits [B, W], x_bits [N, W]
+    int32 sign words -> [B, N] bf16 ``bf16(|q| + |x| - 2 q.x + (1 -
+    valid) * MASKED_DISTANCE)``. ``x_pop`` [N] caches the rows' popcounts;
+    ``q_planes`` [B, 32W] (``bq_queries_to_planes``) with ``q_pop`` [B]
+    stand in for the query words. CUDA tensors launch
+    csrc/bq_mxu_block.cu; CPU tensors take ``bq_mxu_block_plain``."""
+    q_words, qpop = _bq_mxu_operands(q_bits, x_bits, x_pop, valid, q_planes, q_pop)
+    if x_bits.device.type == "cpu":
+        return _bq_mxu_plain(q_words, qpop, x_bits, x_pop, valid)
+    from weaviate_tpu_torch.ops import _build
+
+    q_words, x_bits, qpop = q_words.contiguous(), x_bits.contiguous(), qpop.contiguous()
+    xpop = None if x_pop is None else x_pop.float().contiguous()
+    valid = None if valid is None else valid.contiguous()
+    (b, w), n = q_words.shape, x_bits.shape[0]
+    out = torch.empty((b, n), dtype=torch.bfloat16, device=x_bits.device)
+    vec4 = int(w % 4 == 0 and x_bits.data_ptr() % 16 == 0)
+    rc = _build.kernel("bq_mxu_block")(
+        q_words.data_ptr(), x_bits.data_ptr(), vec4, qpop.data_ptr(), _ptr(xpop),
+        _ptr(valid), b, n, w, out.data_ptr(), _stream(x_bits.device))
+    _check_rc("bq_mxu_block", rc)
+    _count("bq_mxu_block")
+    return out
+
+
+# -- pq4_lut_block -------------------------------------------------------------
+
+def _check_pq4_codes(name: str, codes, m: int, device) -> int:
+    if not isinstance(codes, torch.Tensor) or codes.ndim != 2 or codes.dtype != torch.uint8:
+        raise ValueError(f"{name}: codes must be a 2-D uint8 tensor, got "
+                         f"{getattr(codes, 'dtype', type(codes))}")
+    if codes.shape[1] != m:
+        raise ValueError(f"{name}: codes have {codes.shape[1]} segments, expected {m}")
+    if codes.device != device:
+        raise ValueError(f"{name}: codes on {codes.device}, expected {device}")
+    return codes.shape[0]
+
+
+def _pq4_codes_idx(codes: torch.Tensor) -> torch.Tensor:
+    """Codes as table columns: a code past 15 matches no lane of the
+    reference's one-hot and adds 0, here the zero column 16."""
+    return codes.to(torch.int64).clamp(max=16)
+
+
+def _pq4_lut_table(lut: torch.Tensor) -> torch.Tensor:
+    """lut [B, m, k<=16] -> [B, m, 16] f32 holding the bf16-rounded
+    entries, zero for the codes past k (the reference pads and casts its
+    LUT the same way before its product)."""
+    b, m, kc = lut.shape
+    return torch.nn.functional.pad(lut.to(torch.bfloat16).float(), (0, 16 - kc))
+
+
+def _check_pq4_lut(name: str, lut, codes, valid):
+    if not isinstance(lut, torch.Tensor) or lut.ndim != 3 or not lut.is_floating_point():
+        raise ValueError(f"{name}: lut must be a [B, m, k] float tensor")
+    b, m, kc = lut.shape
+    if kc > 16:
+        raise ValueError(f"pq4 kernel requires k <= 16 centroids, got {kc}")
+    n = _check_pq4_codes(name, codes, m, lut.device)
+    _check_rows(name, "valid", valid, n, lut.device, torch.bool)
+    return b, m, n
+
+
+def pq4_lut_block_plain(lut, codes, valid=None):
+    """Plain version of ``pq4_lut_block``: per row, the bf16 table entry
+    of each segment's code summed in f32 in segment order s = 0..m-1 from
+    +0.0, the mask added, rounded to bf16."""
+    b, m, n = _check_pq4_lut("pq4_lut_block", lut, codes, valid)
+    table = torch.nn.functional.pad(_pq4_lut_table(lut), (0, 1)).reshape(b, m * 17)
+    off = torch.arange(m, dtype=torch.int64, device=codes.device) * 17
+    out = torch.empty((b, n), dtype=torch.bfloat16, device=codes.device)
+    per = _row_chunk(b, m)
+    for lo in range(0, n, per):
+        hi = min(n, lo + per)
+        idx = _pq4_codes_idx(codes[lo:hi]) + off[None, :]
+        acc = torch.zeros((b, hi - lo), dtype=torch.float32, device=codes.device)
+        for s in range(m):
+            acc += torch.index_select(table, 1, idx[:, s])
+        out[:, lo:hi] = _masked_bf16(acc, valid, lo, hi)
+    return out
+
+
+def pq4_lut_block(lut: torch.Tensor, codes: torch.Tensor,
+                  valid: torch.Tensor | None = None) -> torch.Tensor:
+    """ADC distances of 4-bit PQ codes through their LUT (reference
+    ``pallas_kernels.pq4_lut_block``): lut [B, m, k<=16] f32 seg-major,
+    codes [N, m] uint8 -> [B, N] bf16 ``bf16(sum_s bf16(lut[b, s,
+    codes[n, s]]) + (1 - valid) * MASKED_DISTANCE)``, the sum in f32. CUDA
+    tensors launch csrc/pq4_lut_block.cu (at most PQ4_LUT_MAX_SEGMENTS
+    segments); CPU tensors take ``pq4_lut_block_plain``."""
+    b, m, n = _check_pq4_lut("pq4_lut_block", lut, codes, valid)
+    if codes.device.type == "cpu":
+        return pq4_lut_block_plain(lut, codes, valid)
+    if m > PQ4_LUT_MAX_SEGMENTS:
+        raise ValueError(
+            f"pq4_lut_block on CUDA holds at most {PQ4_LUT_MAX_SEGMENTS} segments "
+            f"(one query's table in {PQ4_SMEM_BYTES} bytes of shared memory), got m = {m}")
+    from weaviate_tpu_torch.ops import _build
+
+    table = _pq4_lut_table(lut).contiguous()
+    codes = codes.contiguous()
+    valid = None if valid is None else valid.contiguous()
+    out = torch.empty((b, n), dtype=torch.bfloat16, device=codes.device)
+    vec16 = int(m % 16 == 0 and codes.data_ptr() % 16 == 0)
+    rc = _build.kernel("pq4_lut_block")(
+        table.data_ptr(), codes.data_ptr(), vec16, _ptr(valid), b, n, m,
+        out.data_ptr(), _stream(codes.device))
+    _check_rc("pq4_lut_block", rc)
+    _count("pq4_lut_block")
+    return out
+
+
+# -- pq4_recon_block -----------------------------------------------------------
+
+def _check_pq4_recon(q, codes, centroids, metric, valid):
+    name = "pq4_recon_block"
+    # the reference takes any other name as cosine; the port names its metrics
+    if metric not in KERNEL_METRICS:
+        raise ValueError(f"{name}: no kernel for metric {metric!r}")
+    if not isinstance(q, torch.Tensor) or q.ndim != 2 or not q.is_floating_point():
+        raise ValueError(f"{name}: q must be a [B, d] float tensor")
+    if (not isinstance(centroids, torch.Tensor) or centroids.ndim != 3
+            or not centroids.is_floating_point()):
+        raise ValueError(f"{name}: centroids must be a [m, k, ds] float tensor")
+    m, kc, ds = centroids.shape
+    if kc > 16:
+        raise ValueError(f"pq4 kernel requires k <= 16 centroids, got {kc}")
+    if m * ds != q.shape[1]:
+        raise ValueError(f"{name}: m * ds = {m} * {ds} != d = {q.shape[1]}")
+    _same_device(name, q, centroids)
+    n = _check_pq4_codes(name, codes, m, q.device)
+    _check_rows(name, "valid", valid, n, q.device, torch.bool)
+    return q.shape[0], n, m, ds
+
+
+def _pq4_recon_centroids(centroids: torch.Tensor) -> torch.Tensor:
+    """centroids [m, k<=16, ds] -> [m, 16, ds] f32 holding the bf16-rounded
+    values, zero for the codes past k (the reference's padded bf16 block
+    diagonal, without its zeros)."""
+    m, kc, ds = centroids.shape
+    return torch.nn.functional.pad(centroids.to(torch.bfloat16).float(),
+                                   (0, 0, 0, 16 - kc))
+
+
+def _recon_epilogue(dots, qn, xn, metric):
+    if metric == "l2-squared":
+        return qn[:, None] - 2.0 * dots + xn[None, :]  # no clamp, as the reference
+    if metric == "dot":
+        return -dots
+    return 1.0 - dots
+
+
+def pq4_recon_block_plain(q, codes, centroids, metric="l2-squared", valid=None):
+    """Plain version of ``pq4_recon_block``: gather each row's x_hat from
+    the bf16 centroids, ||x_hat||^2 and bf16(q) . x_hat in f32, the
+    reference's epilogue and mask, rounded to bf16."""
+    b, n, m, ds = _check_pq4_recon(q, codes, centroids, metric, valid)
+    qb = q.to(torch.bfloat16).float()
+    qn = (qb * qb).sum(dim=1)
+    cent = torch.nn.functional.pad(_pq4_recon_centroids(centroids), (0, 0, 0, 1))
+    seg = torch.arange(m, dtype=torch.int64, device=codes.device)
+    out = torch.empty((b, n), dtype=torch.bfloat16, device=codes.device)
+    per = _row_chunk(b, m * ds)
+    for lo in range(0, n, per):
+        hi = min(n, lo + per)
+        x_hat = cent[seg[None, :], _pq4_codes_idx(codes[lo:hi])].reshape(hi - lo, m * ds)
+        d = _recon_epilogue(qb @ x_hat.T, qn, (x_hat * x_hat).sum(dim=1), metric)
+        out[:, lo:hi] = _masked_bf16(d, valid, lo, hi)
+    return out
+
+
+def pq4_recon_block(q: torch.Tensor, codes: torch.Tensor, centroids: torch.Tensor,
+                    metric: str = "l2-squared",
+                    valid: torch.Tensor | None = None) -> torch.Tensor:
+    """ADC distances of 4-bit PQ codes through the reconstructed rows
+    (reference ``pallas_kernels.pq4_recon_block``): q [B, d] (cosine:
+    unit length, the caller's job, as in the reference), codes [N, m]
+    uint8, centroids [m, k<=16, ds] with m * ds = d -> [B, N] bf16.
+    q and the centroids are rounded to bf16; ||x_hat||^2 and q . x_hat
+    are f32; l2 is ``|q|^2 - 2 q.x_hat + |x_hat|^2`` unclamped, dot
+    ``-q.x_hat``, cosine ``1 - q.x_hat``. Unlike the reference, a metric
+    outside KERNEL_METRICS raises. CUDA tensors launch
+    csrc/pq4_recon_block.cu; CPU tensors take ``pq4_recon_block_plain``."""
+    b, n, m, ds = _check_pq4_recon(q, codes, centroids, metric, valid)
+    if q.device.type == "cpu":
+        return pq4_recon_block_plain(q, codes, centroids, metric, valid)
+    from weaviate_tpu_torch.ops import _build
+
+    qb = q.to(torch.bfloat16).float().contiguous()
+    qn = (qb * qb).sum(dim=1).contiguous()
+    cent = _pq4_recon_centroids(centroids).contiguous()
+    codes = codes.contiguous()
+    valid = None if valid is None else valid.contiguous()
+    out = torch.empty((b, n), dtype=torch.bfloat16, device=q.device)
+    rc = _build.kernel("pq4_recon_block")(
+        qb.data_ptr(), qn.data_ptr(), codes.data_ptr(), cent.data_ptr(), _ptr(valid),
+        b, n, m, ds, _METRIC_ID[metric], out.data_ptr(), _stream(q.device))
+    _check_rc("pq4_recon_block", rc)
+    _count("pq4_recon_block")
     return out
