@@ -4,6 +4,7 @@ NVIDIA card.
 
 Run from the repository root:
     python3 chip_smoke.py [--seed N] [--rows N] [--hybrid-docs N]
+    python3 chip_smoke.py --topk-times   # phases 0-1 and the selection timings only
 
 It drives the port's flat nearVector path at VectorDBBench's
 Performance768D1M case (Cohere wiki-22-12: 1,000,000 x 768, cosine,
@@ -12,9 +13,17 @@ is downloaded), in phases:
 
 0. card: name and power limit (nvidia-smi), torch and CUDA versions;
 1. build: compiles every kernel in weaviate_tpu_torch/csrc with nvcc and
-   prints each one's registers, shared memory and spills;
+   prints each one's registers, shared memory and spills, and the
+   residency (CTAs per SM) of the two selection kernels;
 2. kernels: each CUDA kernel against its plain PyTorch version on the
-   card, at the main path's shapes, with timings and bounds. The four
+   card, at the main path's shapes, with timings and bounds.
+   fused_topk_scan also on the bf16 copy of the 1M-row corpus, at ragged
+   shapes, under the dot metric on rows with exact zero products, and
+   with its distances equal bit for bit to distance_block's at the rows
+   it returns; fused_topk_pairs equal to its plain version on ties,
+   +0.0 / -0.0, NaN / inf / MASKED entries, empty rows, M < k, k = 1 to
+   256 and a row too wide for shared memory; both timed at the drain
+   shapes (B = 1, 8, 64, 256; topk_times). The four
    block kernels (bq_hamming_block, bq_mxu_block, pq4_lut_block,
    pq4_recon_block) at ragged shapes, then at 256 queries x the 1M-row
    corpus's sign words and 4-bit PQ codes with ~10% dead rows, then
@@ -272,6 +281,113 @@ def _bound_text(o: dict) -> str:
             f"{o['bound_ms'] / o['ms']:.1%} of its bound")
 
 
+def scan_corpus(torch, seed: int, n: int = 1 << 20):
+    """The full capacity of the 1M-row store on the card: unit rows of
+    the clustered corpus, f32."""
+    cent = centers(seed)
+    X = torch.empty((n, DIM), dtype=torch.float32, device="cuda")
+    for s in range(0, n, ADD_BATCH):
+        X[s:s + ADD_BATCH] = torch.nn.functional.normalize(
+            torch.from_numpy(clustered(seed, s, ADD_BATCH, cent)).to("cuda"), dim=1)
+    return X
+
+
+def _scan_bound(X, b: int, k: int) -> tuple[float, str]:
+    """fused_topk_scan's bound: the corpus, queries and valid bytes read
+    once and [b, k] (f32, i32) written, against 2*b*n*d FP32 FFMA."""
+    n, d = X.shape
+    return bound_ms(n * d * X.element_size() + b * d * 4 + n + b * k * 8,
+                    2.0 * b * n * d, FP32_FLOPS)
+
+
+def _pairs_bound(b: int, m: int, k: int) -> tuple[float, str]:
+    """fused_topk_pairs's bound: every value read once, the k winners' ids
+    gathered and [b, k] (f32, i32) written; one compare per value."""
+    return bound_ms(b * m * 4 + b * k * (4 + 8), b * m, FP32_FLOPS)
+
+
+def scan_breakdown(torch, K, X, qs, timer) -> list[str]:
+    """The scan kernel alone (no merge) against a build of it without its
+    selection (``-DWTT_SCAN_SELECT=0``: tiles parked, nothing filtered),
+    at B = 64 and 256, k = 100: what the product with its loads costs and
+    what the filter and merges add."""
+    from weaviate_tpu_torch.ops import _build
+
+    full = _build.kernel("fused_topk_scan")
+    product = _build.build_variant("fused_topk_scan", ("WTT_SCAN_SELECT=0",))
+    parts = []
+    for b in (64, 256):
+        qk, qn, xn, valid, async_ok = K._kernel_args(qs[:b], X, METRIC, None, None)
+        rows_per, slices = K.scan_slices(X.shape[0], b)
+        od = torch.empty((b, slices * TOP_K), device="cuda")
+        oi = torch.empty((b, slices * TOP_K), device="cuda", dtype=torch.int32)
+        ms = {}
+        for name, fn in (("scan", full), ("product", product)):
+            def run(fn=fn):
+                rc = fn(qk.data_ptr(), None, X.data_ptr(), 0, None, None, None, 0, b,
+                        X.shape[0], X.shape[1], TOP_K, 2, rows_per, slices, od.data_ptr(),
+                        oi.data_ptr(), int(async_ok), torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise RuntimeError(f"fused_topk_scan {name} build: cudaError {rc}")
+            ms[name] = timer(run, reps=5)
+        bm, _ = _scan_bound(X, b, TOP_K)
+        parts.append(f"scan kernel alone B={b}: {ms['scan']:.4f} ms, its product alone "
+                     f"{ms['product']:.4f} ms ({bm / ms['product']:.1%} of the FP32 bound), "
+                     f"selection {ms['scan'] - ms['product']:.4f} ms")
+    return parts
+
+
+def residency_text(K) -> str:
+    """CTAs per SM and dynamic shared memory of the two selection kernels
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor) at the k and widths
+    the paths give them."""
+    return "residency (CTAs per SM, dynamic smem bytes): " + "; ".join(
+        f"{name} {label}: {K.kernel_residency(name, *args)}" for name, label, args in (
+            ("fused_topk_scan", "k=10 f32", (10, 0, 256)),
+            ("fused_topk_scan", "k=100 f32", (100, 0, 256)),
+            ("fused_topk_scan", "k=128 f32", (128, 0, 256)),
+            ("fused_topk_scan", "k=100 bf16", (100, 1, 256)),
+            ("fused_topk_scan", "k=100 f32 B<=32", (100, 0, 8)),
+            ("fused_topk_pairs", "M=12800", (12800,)),
+            ("fused_topk_pairs", "M=16384", (16384,)),
+            ("fused_topk_pairs", "M=200000", (200000,))))
+
+
+def topk_times(torch, K, X, vmask, qs, timer) -> list[str]:
+    """Times of the two selection kernels at the shapes a drain gives
+    them: fused_topk_scan (merge included) at B = 1, 8, 64 and 256 on the
+    f32 corpus ``X`` and at B = 256 on its bf16 copy, and fused_topk_pairs
+    at each B's merge shape, at [256, 16384] for k = 100 and 256 and at
+    [1 / 8, 12800]. Each beside its bound; the residency of both kernels
+    where the build exports it. Returns one text part per shape."""
+    parts = []
+    n = X.shape[0]
+    Xb = X.to(torch.bfloat16)
+    for xs, name, bs in ((X, "f32", (1, 8, 64, 256)), (Xb, "bf16", (1, 256))):
+        for b in bs:
+            ms = timer(lambda: K.fused_topk_scan(qs[:b], xs, TOP_K, METRIC, valid=vmask), reps=5)
+            bm, by = _scan_bound(xs, b, TOP_K)
+            rows_per, slices = K.scan_slices(n, b)
+            parts.append(f"scan {name} B={b} k={TOP_K}: {ms:.4f} ms ({slices} slices of "
+                         f"{rows_per}), bound {bm:.4f} ms ({by}, {bm / ms:.1%})")
+    del Xb
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    shapes = [(b, K.scan_slices(n, b)[1] * TOP_K, TOP_K) for b in (1, 8, 64, 256)]
+    # [256, 12800] is the merge shape of the 8192-row slices the scan took
+    # before its slices grew
+    shapes += [(256, 12800, 100), (256, 16384, 100), (256, 16384, 256), (1, 12800, 100),
+               (8, 12800, 100)]
+    for b, m, k in shapes:
+        v = torch.rand((b, m), device="cuda", generator=gen)
+        i = torch.randint(0, n, (b, m), device="cuda", dtype=torch.int32, generator=gen)
+        ms = timer(lambda: K.fused_topk_pairs(v, i, k), reps=20)
+        lib = timer(lambda: torch.topk(v, k, dim=1, largest=False), reps=20)
+        bm, by = _pairs_bound(b, m, k)
+        parts.append(f"pairs [{b},{m}] k={k}: {ms:.4f} ms, torch.topk {lib:.4f} ms, "
+                     f"bound {bm:.5f} ms ({by}, {bm / ms:.1%})")
+    return parts
+
+
 # -- phases -------------------------------------------------------------------
 
 def card_clocks() -> str:
@@ -295,7 +411,7 @@ def phase_card(torch) -> dict:
     return {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}
 
 
-def phase_build() -> None:
+def phase_build(K) -> None:
     from weaviate_tpu_torch.ops import _build
 
     secs = _build.build_all()
@@ -312,6 +428,8 @@ def phase_build() -> None:
                     f"{max(spills) if spills else 0} bytes spilled")
     log(f"phase 1 build: {secs:.1f} s for {len(_build.SIGNATURES)} kernels "
         f"(nvcc sm_90a, in parallel); {'; '.join(regs)}")
+    if hasattr(K, "kernel_residency"):  # absent from builds before the radix select
+        log(f"phase 1 build: {residency_text(K)}")
 
 
 def phase_kernels(torch, K, seed: int) -> tuple[dict, dict]:
@@ -370,11 +488,8 @@ def phase_kernels(torch, K, seed: int) -> tuple[dict, dict]:
         f"{_bound_text(out['distance_block'])}")
 
     # fused_topk_scan at the full capacity of the 1M-row store
-    n = 1 << 20
-    X = torch.empty((n, DIM), dtype=torch.float32, device=dev)
-    for s in range(0, n, ADD_BATCH):
-        X[s:s + ADD_BATCH] = torch.nn.functional.normalize(
-            to_dev(clustered(seed, s, ADD_BATCH, cent)), dim=1)
+    X = scan_corpus(torch, seed)
+    n = X.shape[0]
     vmask = to_dev(rng.random(n) > 0.01)
     allow = to_dev(rng.random((BATCH, n)) < 0.1)
     bits = K.pack_allow_bitmask_t(allow)
@@ -403,8 +518,7 @@ def phase_kernels(torch, K, seed: int) -> tuple[dict, dict]:
     if bad:
         raise AssertionError(f"fused_topk_scan: {bad} id mismatches outside ties")
     rows_per, slices = K.scan_slices(n, BATCH)
-    b_ms, b_by = bound_ms(X.numel() * 4 + qs.numel() * 4 + n + BATCH * TOP_K * 8,
-                          2.0 * BATCH * n * DIM, FP32_FLOPS)
+    b_ms, b_by = _scan_bound(X, BATCH, TOP_K)
     # yardstick: cuBLAS addmm (1 - q.x, dead rows + MASKED as a bias row) then torch.topk
     qsn = torch.nn.functional.normalize(qs, dim=1)
     bias = 1.0 + (~vmask).float() * MASKED_DISTANCE
@@ -423,6 +537,9 @@ def phase_kernels(torch, K, seed: int) -> tuple[dict, dict]:
         f"merge included), plain {out['fused_topk_scan']['plain_ms']:.3f} ms, "
         f"addmm+topk {out['fused_topk_scan']['library_ms']:.3f} ms, "
         f"{_bound_text(out['fused_topk_scan'])}")
+    _scan_checks(torch, K, X, qs, vmask, bits)
+    for part in topk_times(torch, K, X, vmask, qs, timer):
+        log(f"phase 2 kernels: topk times: {part}")
     scan, operands = _scan_reduce_kernels(torch, K, X, qs, vmask, bits, rng, timer)
     out.update(scan)
     block, counts2 = _block_kernels(torch, K, operands, qs, rng, timer)
@@ -455,8 +572,7 @@ def phase_kernels(torch, K, seed: int) -> tuple[dict, dict]:
     if not torch.equal(a[1], b[1]):
         raise AssertionError(f"fused_topk_pairs [{BATCH},{m}] k={TOP_K}: ids disagree")
     err = (a[0] - b[0]).abs().max().item()
-    # every value read once, the k winners' ids gathered, [B, k] (f32, i32) written
-    b_ms, b_by = bound_ms(BATCH * m * 4 + BATCH * TOP_K * (4 + 8), BATCH * m, FP32_FLOPS)
+    b_ms, b_by = _pairs_bound(BATCH, m, TOP_K)
     out["fused_topk_pairs"] = dict(
         max_abs_err=err,
         ms=timer(lambda: K.fused_topk_pairs(mv, mi, TOP_K), reps=20),
@@ -469,8 +585,157 @@ def phase_kernels(torch, K, seed: int) -> tuple[dict, dict]:
         f"kernel {out['fused_topk_pairs']['ms']:.4f} ms, "
         f"plain {out['fused_topk_pairs']['plain_ms']:.4f} ms, torch.topk "
         f"{out['fused_topk_pairs']['library_ms']:.4f} ms, {_bound_text(out['fused_topk_pairs'])}")
+    _pairs_checks(torch, K)
     out["bm25_block"] = _bm25_kernel(torch, K, rng, timer)
     return out, counts2
+
+
+def _scan_checks(torch, K, X, qs, vmask, bits) -> None:
+    """fused_topk_scan beyond phase 2's f32 cases: the bf16 copy of the
+    corpus held tie-aware to the plain version; its returned distances
+    equal distance_block's at the returned rows, bit for bit, at f32 and
+    bf16 (both sum k = 0 .. d-1 in one fmaf chain); the dot metric on rows
+    orthogonal to the queries (exact zero products: every such row is at
+    distance -0.0, thousands of ties that only the row breaks) equal to
+    the plain version id for id."""
+    n = X.shape[0]
+    Xb = X.to(torch.bfloat16)
+    bad, err = 0, 0.0
+    for xs, name in ((X, "f32"), (Xb, "bf16")):
+        for k, ab in ((10, bits), (TOP_K, None)):
+            ad, ai = K.fused_topk_scan(qs, xs, k, METRIC, valid=vmask, allow_bits=ab)
+            if xs is Xb:
+                bd, bi = K.fused_topk_scan_plain(qs, xs, k, METRIC, valid=vmask, allow_bits=ab)
+                a_, b_ = (ad.cpu().numpy(), ai.cpu().numpy()), (bd.cpu().numpy(), bi.cpu().numpy())
+                if not np.array_equal(a_[1] < 0, b_[1] < 0):
+                    raise AssertionError(f"fused_topk_scan bf16 k={k}: live slots differ")
+                live = b_[1] >= 0
+                if not np.allclose(a_[0][live], b_[0][live], rtol=RTOL, atol=ATOL):
+                    raise AssertionError(f"fused_topk_scan bf16 k={k}: distances disagree")
+                err = max(err, float(np.abs(a_[0][live] - b_[0][live]).max()))
+                bad += tie_aware_mismatches(a_[1], a_[0], b_[1], b_[0])
+            # bit-identity with distance_block at the returned rows
+            same = True
+            for s in range(0, qs.shape[0], 64):
+                full = K.distance_block(qs[s:s + 64], xs, METRIC)
+                got = ai[s:s + 64]
+                want = torch.gather(full, 1, got.clamp(min=0).long())
+                same &= bool(torch.equal(torch.where(got >= 0, want, ad[s:s + 64]), ad[s:s + 64]))
+                del full
+            if not same:
+                raise AssertionError(f"fused_topk_scan {name} k={k}: distances differ from "
+                                     "distance_block's at the returned rows")
+    if bad:
+        raise AssertionError(f"fused_topk_scan bf16: {bad} id mismatches outside ties")
+    del Xb
+    # ragged shapes: B past a 64-query block, N past a 128-row tile, d not
+    # a multiple of 16 or of 4 (the synchronous, non-cp.async path)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    ragged = ((3, 1000, 77), (70, 5000, 130), (1, 129, DIM), (130, 300, 36), (65, 9000, 20))
+    for (b, m, d), metric in zip(ragged * 3, ("l2-squared",) * 5 + ("dot",) * 5 + ("cosine",) * 5):
+        qr = torch.randn((b, d), device="cuda", generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            xr = torch.randn((m, d), device="cuda", generator=gen).to(dtype)
+            vr = torch.rand(m, device="cuda", generator=gen) > 0.2
+            br = K.pack_allow_bitmask_t(torch.rand((b, m), device="cuda", generator=gen) < 0.7)
+            for k, ab in ((7, None), (128, br)):
+                ad, ai = K.fused_topk_scan(qr, xr, k, metric, valid=vr, allow_bits=ab)
+                bd, bi = K.fused_topk_scan_plain(qr, xr, k, metric, valid=vr, allow_bits=ab)
+                a_, b_ = (ad.cpu().numpy(), ai.cpu().numpy()), (bd.cpu().numpy(), bi.cpu().numpy())
+                live = b_[1] >= 0
+                if not (np.array_equal(a_[1] < 0, ~live)
+                        and np.allclose(a_[0][live], b_[0][live], rtol=RTOL, atol=ATOL)
+                        and tie_aware_mismatches(a_[1], a_[0], b_[1], b_[0]) == 0):
+                    raise AssertionError(f"fused_topk_scan {metric} {dtype} [{b},{d}] x "
+                                         f"[{m},{d}] k={k} disagrees with the plain version")
+                full = K.distance_block(qr, xr, metric)
+                want = torch.gather(full, 1, ai.clamp(min=0).long())
+                if not torch.equal(torch.where(ai >= 0, want, ad), ad):
+                    raise AssertionError(f"fused_topk_scan {metric} {dtype} [{b},{d}] x "
+                                         f"[{m},{d}]: distances differ from distance_block's")
+    # dot metric, exact zero products: queries live in the first half of
+    # the dimensions, every third row in the second half only; the other
+    # rows point away (distance > 0), so the k best are all zero ties
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    nd = 20_000
+    qd = torch.rand((64, DIM), device="cuda", generator=gen)
+    qd[:, DIM // 2:] = 0.0
+    xd = -torch.rand((nd, DIM), device="cuda", generator=gen)
+    xd[::3, :DIM // 2] = 0.0
+    for k in (10, TOP_K, 128):
+        ad, ai = K.fused_topk_scan(qd, xd, k, "dot")
+        bd, bi = K.fused_topk_scan_plain(qd, xd, k, "dot")
+        if not (torch.equal(ai, bi) and torch.equal(ad, bd)):
+            raise AssertionError(f"fused_topk_scan dot zero products k={k} disagrees")
+        if not bool((ad == 0).all()):
+            raise AssertionError("fused_topk_scan dot zero products: the ties did not win")
+    log(f"phase 2 kernels: fused_topk_scan bf16 copy of the [{n},{DIM}] corpus k=10 (per-query "
+        f"allow_bits) / {TOP_K}: ids equal to the plain version ({bad} mismatches outside ties),"
+        f" max_abs_err {err:.3g}; f32 and bf16 distances equal distance_block's at the returned "
+        f"rows bit for bit; {len(ragged)} ragged shapes x 3 metrics x f32/bf16 x k=7/128 "
+        f"(per-query allow_bits at 128, d = 20 / 36 / 77 / 130 / 768) held alike; dot on [{nd},{DIM}] rows with exact zero products (ties at 0) "
+        f"k=10/{TOP_K}/128: equal to the plain version")
+
+
+def _pairs_checks(torch, K) -> None:
+    """fused_topk_pairs equal to its plain version (ids and values under
+    ==) on the inputs that break a careless select: values on 16 levels
+    (the k-th value shared by many positions), +0.0 / -0.0 groups, NaN,
+    +inf, -inf and MASKED_DISTANCE entries, rows with nothing live, M < k,
+    M = 1, M not a multiple of 32, k = 1 / 100 / 256, [256, 16384] and a
+    row too wide for shared memory ([8, 200000])."""
+    from weaviate_tpu_torch.ops.distances import MASKED_DISTANCE
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def rand(b, m):
+        return torch.rand((b, m), device="cuda", generator=gen)
+
+    def levels(b, m):
+        return torch.floor(rand(b, m) * 16) / 16
+
+    def zeros(b, m):
+        v = levels(b, m) + 0.5
+        z = rand(b, m) < 0.3
+        sign = torch.where(rand(b, m) < 0.5, -1.0, 1.0)
+        return torch.where(z, sign * 0.0, v)
+
+    def specials(b, m):
+        v = levels(b, m) - 0.5
+        r = rand(b, m)
+        v = torch.where(r < 0.1, float("nan"), v)
+        v = torch.where((r >= 0.1) & (r < 0.2), float("inf"), v)
+        v = torch.where((r >= 0.2) & (r < 0.3), MASKED_DISTANCE, v)
+        v = torch.where((r >= 0.3) & (r < 0.32), float("-inf"), v)
+        v[::4] = MASKED_DISTANCE  # nothing live
+        v[1::4] = float("nan")
+        v[2::8, : m // 2] = float("nan")
+        return v
+
+    cases = []
+    for k in (1, TOP_K, 256):
+        cases += [(f"16 levels k={k}", levels(64, 8192), k),
+                  (f"+-0 k={k}", zeros(64, 4099), k),
+                  (f"specials k={k}", specials(64, 4096), k),
+                  (f"random k={k}", rand(64, 8192), k)]
+    cases += [("M<k", levels(16, 50), TOP_K), ("M<k zeros", zeros(16, 200), 256),
+              ("M=1 k=1", rand(8, 1), 1), ("M=1 k=100", specials(8, 1), TOP_K),
+              ("M=1000+7", levels(33, 1007), TOP_K), ("M=31", zeros(3, 31), 16),
+              ("[256,16384] k=100", rand(256, 16384), TOP_K),
+              ("[256,16384] k=256", levels(256, 16384), 256),
+              ("[256,16385] levels", levels(256, 16385), TOP_K),
+              ("[8,200000] k=100", rand(8, 200_000), TOP_K),
+              ("[8,200000] levels k=256", levels(8, 200_000), 256),
+              ("[8,200000] specials", specials(8, 200_000), TOP_K)]
+    for name, v, k in cases:
+        ids = torch.randint(0, 1 << 30, v.shape, device="cuda", dtype=torch.int32, generator=gen)
+        a = K.fused_topk_pairs(v, ids, k)
+        b = K.fused_topk_pairs_plain(v, ids, k)
+        if not (torch.equal(a[1], b[1]) and torch.equal(a[0], b[0])):
+            raise AssertionError(f"fused_topk_pairs {name} {tuple(v.shape)} disagrees")
+    log(f"phase 2 kernels: fused_topk_pairs {len(cases)} edge cases (16-level ties, +0/-0, "
+        f"NaN/+-inf/MASKED, empty rows, M < k, M = 1, ragged M, k = 1/100/256, [256,16384], "
+        f"[8,200000] past shared memory): ids and values equal to the plain version")
 
 
 def _bm25_operands(torch, rng, b, s, t, c):
@@ -1695,6 +1960,9 @@ def main() -> int:
                     help="corpus rows (default: the 1M of Performance768D1M)")
     ap.add_argument("--hybrid-docs", type=int, default=FIQA_DOCS,
                     help="phase 7's documents (default: FiQA-2018's 57,638)")
+    ap.add_argument("--topk-times", action="store_true",
+                    help="only build the kernels and time fused_topk_scan and "
+                    "fused_topk_pairs at the drain shapes (no checks, no result line)")
     args = ap.parse_args()
     import torch
 
@@ -1709,7 +1977,20 @@ def main() -> int:
 
     t0 = time.perf_counter()
     device = phase_card(torch)
-    phase_build()
+    phase_build(K)
+    if args.topk_times:
+        X = scan_corpus(torch, args.seed)
+        rng = np.random.default_rng([args.seed, 2])
+        vmask = torch.from_numpy(rng.random(X.shape[0]) > 0.01).to("cuda")
+        qs = torch.from_numpy(near_queries(args.seed, rng.integers(0, ROWS, BATCH), lambda r: X[
+            torch.from_numpy(r).to("cuda")].cpu().numpy())).to("cuda")
+        for part in topk_times(torch, K, X, vmask, qs, Timer(torch)):
+            log(f"topk times: {part}")
+        if hasattr(K, "kernel_residency"):  # the product-only build is this design's
+            for part in scan_breakdown(torch, K, X, qs, Timer(torch)):
+                log(f"topk times: {part}")
+        log(f"card after (SM clock, max SM clock, power, temperature): {card_clocks()}")
+        return 0
     numbers, counts2 = phase_kernels(torch, K, args.seed)
     log(f"card after phase 2 (SM clock, max SM clock, power, temperature): {card_clocks()}")
     phase_index(torch, args.seed, args.rows)

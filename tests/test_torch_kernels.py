@@ -183,7 +183,7 @@ def test_wrappers_reject_bad_operands(rng):
 def test_scan_slices_cover_corpus():
     for n, b in [(1, 1), (50, 5), (8192, 256), (1 << 20, 256), (3000, 1)]:
         rows, slices = K.scan_slices(n, b)
-        assert rows % 128 == 0 and rows <= 8192
+        assert rows % 128 == 0 and rows <= 65408
         assert (slices - 1) * rows < n <= slices * rows
 
 

@@ -174,81 +174,4 @@ __device__ __forceinline__ bool allow_bit(const uint32_t* __restrict__ bits, int
   return (bits[(size_t)m * words + w] >> (lane >> 4)) & 1u;
 }
 
-// ---- exact top-k lists kept by one warp in shared memory ----------------
-//
-// A list holds k entries (value, key) sorted ascending by the pair, keys
-// breaking ties (lower key first, as lax.top_k's lower index does).
-// Unfilled entries are (MASKED, INT_MAX), so a real candidate (value <
-// MASKED) always ranks before them and a value >= MASKED never enters.
-// Entry i lives at index i; lane l handles indices l, l + 32, ...
-
-__device__ __forceinline__ bool lex_less(float a, int ak, float b, int bk) {
-  return a < b || (a == b && ak < bk);
-}
-
-__device__ __forceinline__ void list_init(float* ld, int* lk, int kc) {
-  for (int i = threadIdx.x % 32; i < kc; i += 32) {
-    ld[i] = MASKED;
-    lk[i] = 0x7fffffff;
-  }
-}
-
-// Insert (m, key), m < MASKED, if it ranks before the k-th entry; all 32
-// lanes call with the same arguments. Returns with the list updated and
-// visible to the whole warp.
-__device__ __forceinline__ void list_insert(float* ld, int* lk, int k, float m, int key) {
-  const int lane = threadIdx.x % 32;
-  int cnt = 0;
-  for (int i = lane; i < k; i += 32) cnt += lex_less(ld[i], lk[i], m, key) ? 1 : 0;
-  const int pos = __reduce_add_sync(0xffffffffu, cnt);
-  if (pos >= k) return;  // uniform across the warp
-  // entry i of the new list: old[i] below pos, (m, key) at pos, old[i-1]
-  // above. Segments of 32 are rewritten from the top down, so each one
-  // reads only entries that no lane has overwritten yet.
-  for (int base = ((k - 1) / 32) * 32; base >= (pos / 32) * 32; base -= 32) {
-    const int i = base + lane;
-    const bool w = (i < k) && (i >= pos);
-    float nd = m;
-    int nk = key;
-    if (w && i > pos) {
-      nd = ld[i - 1];
-      nk = lk[i - 1];
-    }
-    __syncwarp();
-    if (w) {
-      ld[i] = nd;
-      lk[i] = nk;
-    }
-    __syncwarp();
-  }
-}
-
-// Fold ``count`` candidates vals[i] into the list, keyed keys[i] or, when
-// ``keys`` is null, key0 + i. Candidates are visited in index order; each
-// is compared with the current k-th entry at the moment it is visited,
-// and values >= MASKED (dead, disallowed, unfilled) never enter.
-__device__ __forceinline__ void list_fold(float* ld, int* lk, int k, const float* vals,
-                                          const int* keys, int count, int key0) {
-  const int lane = threadIdx.x % 32;
-  for (int base = 0; base < count; base += 32) {
-    const int i = base + lane;
-    const float v = (i < count) ? vals[i] : MASKED;
-    const int vk = (i < count && keys != nullptr) ? keys[i] : key0 + i;
-    float td = ld[k - 1];
-    int tk = lk[k - 1];
-    unsigned bal = __ballot_sync(0xffffffffu, v < MASKED && lex_less(v, vk, td, tk));
-    while (bal) {
-      const int s = __ffs(bal) - 1;
-      bal &= bal - 1;
-      const float m = __shfl_sync(0xffffffffu, v, s);
-      const int key = __shfl_sync(0xffffffffu, vk, s);
-      if (lex_less(m, key, td, tk)) {
-        list_insert(ld, lk, k, m, key);
-        td = ld[k - 1];
-        tk = lk[k - 1];
-      }
-    }
-  }
-}
-
 }  // namespace wtt

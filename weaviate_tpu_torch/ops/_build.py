@@ -57,6 +57,13 @@ SIGNATURES = {
     "pq4_recon_block": ("wtt_pq4_recon_block",
                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]),
 }
+# Residency queries of the two selection kernels: (shape arguments...,
+# int* dynamic shared memory bytes) -> CTAs per SM
+# (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+RESIDENCY = {
+    "fused_topk_scan": ("wtt_fused_topk_scan_residency", [_I, _I, _I, ctypes.POINTER(_I)]),
+    "fused_topk_pairs": ("wtt_fused_topk_pairs_residency", [_I, ctypes.POINTER(_I)]),
+}
 
 _lock = threading.Lock()
 _funcs: dict[str, object] = {}
@@ -115,7 +122,33 @@ def _build_all_locked() -> None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _funcs[name] = fn
+    for name, (sym, argtypes) in RESIDENCY.items():
+        fn = getattr(ctypes.CDLL(_lib_path(name)), sym)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _funcs[f"{name}.residency"] = fn
     build_seconds = time.perf_counter() - t0
+
+
+def build_variant(name: str, defines: tuple[str, ...]):
+    """Build ``csrc/<name>.cu`` once more with extra ``-D`` macros (a
+    diagnostic build, such as the scan's product alone) and return its
+    entry point. Serving never calls this."""
+    _nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tag = hashlib.sha1(" ".join(defines).encode()).hexdigest()[:8]
+    so = _lib_path(name)[:-3] + f"-{tag}.so"
+    if not os.path.exists(so):
+        flags = [f"-D{d}" for d in defines]
+        with open(so[:-3] + ".log", "wb") as log:
+            subprocess.run([_nvcc(), *NVCC_FLAGS, *flags, "-o", so,
+                            os.path.join(CSRC, f"{name}.cu")],
+                           stdout=log, stderr=subprocess.STDOUT, cwd=CSRC, check=True)
+    sym, argtypes = SIGNATURES[name]
+    fn = getattr(ctypes.CDLL(so), sym)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def build_all() -> float:

@@ -297,6 +297,19 @@ def distance_block(q: torch.Tensor, x: torch.Tensor, metric: str = "l2-squared",
 
 # -- fused_topk_pairs ----------------------------------------------------------
 
+def kernel_residency(name: str, *shape) -> tuple[int, int]:
+    """(CTAs per SM, dynamic shared memory bytes per CTA) of a selection
+    kernel on the current card: ``fused_topk_scan`` takes (k, bf16, B),
+    ``fused_topk_pairs`` (M,). Builds the kernels on first use."""
+    import ctypes
+
+    from weaviate_tpu_torch.ops import _build
+
+    smem = ctypes.c_int(0)
+    ctas = _build.kernel(f"{name}.residency")(*(int(a) for a in shape), ctypes.byref(smem))
+    return ctas, smem.value
+
+
 def fused_topk_pairs_plain(vals: torch.Tensor, ids: torch.Tensor, k: int):
     """Plain version of ``fused_topk_pairs``: entries below
     MASKED_DISTANCE, stably sorted (ties to the earlier position), first
@@ -368,13 +381,24 @@ def fused_topk_scan_plain(q, x, k, metric="l2-squared", valid=None,
     return fused_topk_pairs_plain(d, rows.expand_as(d), k)
 
 
+def scan_query_tile(b: int) -> int:
+    """Queries per CTA of the CUDA scan: 16 for drains of <= 32 queries
+    (a full 64-query tile would multiply mostly zero rows), else 64. The
+    kernel makes the same choice (``small_tile`` in
+    csrc/fused_topk_scan.cu, which also needs 16-byte aligned rows); here
+    it only sizes the slices."""
+    return 16 if b <= 32 else 64
+
+
 def scan_slices(n: int, b: int) -> tuple[int, int]:
-    """(rows_per_slice, n_slices) of the CUDA scan: enough (slice, query
-    block) CTAs for about two waves on 132 SMs, and at most 8192 rows a
-    slice so the partial lists stay short."""
+    """(rows_per_slice, n_slices) of the CUDA scan: about one wave of
+    (query block, slice) CTAs at two per SM on 132 SMs, in slices of
+    whole 128-row tiles. A slice holds at most 511 tiles (65,408 rows):
+    the kernel keys its lists by 16-bit offsets in the slice. Fewer,
+    longer slices mean fewer values passing each slice's k-th best."""
     tiles = max(1, -(-n // 128))
-    qblocks = -(-b // 64)
-    per = max(1, min(64, -(-tiles * qblocks // 264)))
+    qblocks = -(-b // scan_query_tile(b))
+    per = max(1, min(511, -(-tiles * qblocks // 264)))
     return per * 128, -(-tiles // per)
 
 
