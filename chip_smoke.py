@@ -5,6 +5,8 @@ NVIDIA card.
 Run from the repository root:
     python3 chip_smoke.py [--seed N] [--rows N] [--hybrid-docs N]
     python3 chip_smoke.py --topk-times   # phases 0-1 and the selection timings only
+    python3 chip_smoke.py --dist-times   # phases 0-1, distance_block, pq4_scan_reduce
+                                         # and one approx batch, timed only
 
 It drives the port's flat nearVector path at VectorDBBench's
 Performance768D1M case (Cohere wiki-22-12: 1,000,000 x 768, cosine,
@@ -23,7 +25,11 @@ is downloaded), in phases:
    it returns; fused_topk_pairs equal to its plain version on ties,
    +0.0 / -0.0, NaN / inf / MASKED entries, empty rows, M < k, k = 1 to
    256 and a row too wide for shared memory; both timed at the drain
-   shapes (B = 1, 8, 64, 256; topk_times). The four
+   shapes (B = 1, 8, 64, 256; topk_times). distance_block also timed at
+   the approx loop's group shape [256, 65536] beside addmm, and the
+   grouped approx loop held bit for bit to the per-chunk loop on the card
+   (filters, k past the live rows, NaN). pq4_scan_reduce also at m = 1024
+   and ragged m past 896 segments. The four
    block kernels (bq_hamming_block, bq_mxu_block, pq4_lut_block,
    pq4_recon_block) at ragged shapes, then at 256 queries x the 1M-row
    corpus's sign words and 4-bit PQ codes with ~10% dead rows, then
@@ -33,7 +39,7 @@ is downloaded), in phases:
    this section's own window;
 3. index: FlatIndex on the card, 1M rows, 1,024 queries through the
    async batch entry point for selection "approx" (distance_block per
-   8192-row chunk) and "fused" (fused_topk_scan + fused_topk_pairs),
+   group of 8192-row chunks, fused_topk_pairs per group) and "fused" (fused_topk_scan + fused_topk_pairs),
    held to an exact plain recomputation (recall@10 / @100 must be 1.0),
    plus per-query filters (bitmask path) and a shared 0.5% filter
    (gathered path);
@@ -337,6 +343,118 @@ def scan_breakdown(torch, K, X, qs, timer) -> list[str]:
     return parts
 
 
+def group_rows(K) -> int:
+    """Rows of one distance launch in the approx loop at a 256-query drain
+    over the 1M-row store (ops/topk.scan_group_chunks). A tree from before
+    the grouped loop (``--dist-times`` on a parent) launched 8192-row
+    chunks; it is timed at 8 chunks, the group the budget gives."""
+    from weaviate_tpu_torch.ops import topk
+
+    if not hasattr(topk, "scan_group_chunks"):
+        return 8 * CHUNK
+    return topk.scan_group_chunks(BATCH, CHUNK, (1 << 20) // CHUNK, TOP_K, False) * CHUNK
+
+
+def distance_times(torch, K, q, x, valid, timer, plain: bool = False) -> dict:
+    """distance_block (cosine, valid mask) at q [B, d] x x [N, d] beside one
+    cuBLAS addmm of the same product (1 - q.x) and its FP32 bound: q, x,
+    valid read once and [B, N] f32 written, against 2*B*N*d FFMA. ``ms``
+    is the kernel launched with its query prepared once, as the approx
+    loop launches it (distance_block_prepared); ``wrapper_ms`` the whole
+    wrapper call, which also normalizes the query in f64 on every call
+    (at one 8192-row chunk its Python and small ops take longer than the
+    kernel). A tree from before the prepared launch times the wrapper."""
+    b, n = q.shape[0], x.shape[0]
+    reps = max(10, min(50, (50 * CHUNK) // n))
+    one = torch.ones((), device=x.device)
+    qn = torch.nn.functional.normalize(q, dim=1)
+    b_ms, b_by = bound_ms(q.numel() * 4 + x.numel() * x.element_size() + n + b * n * 4,
+                          2.0 * b * n * q.shape[1], FP32_FLOPS)
+    wrapper_ms = timer(lambda: K.distance_block(q, x, METRIC, valid=valid), reps=reps)
+    o = dict(ms=wrapper_ms)
+    if hasattr(K, "distance_query"):
+        prep = K.distance_query(q, METRIC)
+        o = dict(ms=timer(lambda: K.distance_block_prepared(prep, x, METRIC, valid=valid),
+                          reps=reps), wrapper_ms=wrapper_ms)
+    if plain:
+        o["plain_ms"] = timer(lambda: K.distance_block_plain(q, x, METRIC, valid=valid),
+                              reps=reps)
+    o.update(library_ms=timer(lambda: torch.addmm(one, qn, x.T, alpha=-1.0), reps=reps),
+             bound_ms=b_ms, bound_by=b_by)
+    return o
+
+
+def _distance_text(o: dict) -> str:
+    plain = f"plain {o['plain_ms']:.4f} ms, " if "plain_ms" in o else ""
+    wrapper = f" (wrapper call {o['wrapper_ms']:.4f} ms)" if "wrapper_ms" in o else ""
+    return (f"kernel {o['ms']:.4f} ms{wrapper}, {plain}addmm {o['library_ms']:.4f} ms "
+            f"(kernel / addmm {o['ms'] / o['library_ms']:.2f}), {_bound_text(o)}")
+
+
+def _per_chunk_topk(torch, K, q, x, k, valid=None, allow_bits=None, metric=METRIC):
+    """The approx loop as it ran before the grouped one: per 8192-row chunk
+    distance_block, the filter, and the exact top-k of [running k | chunk]
+    by int64 keys (ties to the lower position). The grouped loop must
+    return its answer bit for bit."""
+    from weaviate_tpu_torch.ops.distances import MASKED_DISTANCE
+    from weaviate_tpu_torch.ops.topk import topk_smallest
+
+    n, b = x.shape[0], q.shape[0]
+    allow = None if allow_bits is None else K.unpack_allow_bitmask(allow_bits, n)
+    best_d = torch.full((b, k), MASKED_DISTANCE, device=x.device)
+    best_i = torch.full((b, k), -1, dtype=torch.int32, device=x.device)
+    iota = torch.arange(CHUNK, dtype=torch.int32, device=x.device)
+    for lo in range(0, n, CHUNK):
+        d = K.distance_block(q, x[lo:lo + CHUNK], metric,
+                             valid=None if valid is None else valid[lo:lo + CHUNK])
+        if allow is not None:
+            d = torch.where(allow[:, lo:lo + CHUNK], d, torch.full_like(d, MASKED_DISTANCE))
+        best_d, best_i = topk_smallest(torch.cat([best_d, d], 1),
+                                       torch.cat([best_i, (iota + lo).expand(b, CHUNK)], 1), k)
+    return best_d, best_i
+
+
+def _approx_loop_check(torch, K, seed: int) -> None:
+    """The grouped approx loop (chunked_topk_distances: distance_block per
+    group, fused_topk_pairs per group and per merge, the NaN guard) against
+    the per-chunk loop on the card, bit for bit in distances and ids
+    (MASKED slots' ids included): 256 queries x 2.5 groups of rows with 5%
+    dead rows at k = 10 / 100, with per-query 10% allow bits, with k past
+    the live rows, and under the dot metric with NaN rows and a NaN query
+    (a negated NaN product sorts first) without a valid mask, and with one
+    (the loop then trusts the card's canonical NaN, which is positive)."""
+    from weaviate_tpu_torch.ops.topk import chunked_topk_distances
+
+    rng = np.random.default_rng([seed, 9])
+    n = group_rows(K) * 5 // 2 // CHUNK * CHUNK
+    x = torch.nn.functional.normalize(
+        torch.from_numpy(clustered(seed, 4 * 10**9, n, centers(seed))).to("cuda"), dim=1)
+    q = torch.from_numpy(clustered(seed, 5 * 10**9, BATCH, centers(seed))).to("cuda")
+    valid = torch.from_numpy(rng.random(n) > 0.05).to("cuda")
+    bits = K.pack_allow_bitmask_t(torch.from_numpy(rng.random((BATCH, n)) < 0.1).to("cuda"))
+    few = torch.zeros(n, dtype=torch.bool, device="cuda")
+    few[::n // 7] = True
+    xnan, qnan = x.clone(), q.clone()
+    xnan[[5, n // 2, n - 1]] = float("nan")
+    qnan[3] = float("nan")
+    cases = [("valid k=10", q, x, 10, valid, None, METRIC),
+             ("valid k=100", q, x, TOP_K, valid, None, METRIC),
+             ("allow bits k=100", q, x, TOP_K, valid, bits, METRIC),
+             ("k past the live rows", q, x, 16, few, None, METRIC),
+             ("dot with NaN", qnan, xnan, 16, None, None, "dot"),
+             ("dot with NaN and valid", qnan, xnan, 16, valid, None, "dot")]
+    for name, qq, xx, k, v, ab, metric in cases:
+        got = chunked_topk_distances(qq, xx, k, CHUNK, metric, valid=v, use_pallas=True,
+                                     selection="approx", allow_bits=ab)
+        want = _per_chunk_topk(torch, K, qq, xx, k, v, ab, metric)
+        if not (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+                and torch.equal(got[1], want[1])):
+            raise AssertionError(f"approx loop {name}: grouped answer != per-chunk answer")
+    log(f"phase 2 kernels: approx loop, {BATCH} queries x [{n},{DIM}] in groups of "
+        f"{group_rows(K)} rows ({', '.join(c[0] for c in cases)}): distances and ids equal "
+        f"to the per-chunk loop's bit for bit")
+
+
 def residency_text(K) -> str:
     """CTAs per SM and dynamic shared memory of the two selection kernels
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor) at the k and widths
@@ -385,6 +503,56 @@ def topk_times(torch, K, X, vmask, qs, timer) -> list[str]:
         bm, by = _pairs_bound(b, m, k)
         parts.append(f"pairs [{b},{m}] k={k}: {ms:.4f} ms, torch.topk {lib:.4f} ms, "
                      f"bound {bm:.5f} ms ({by}, {bm / ms:.1%})")
+    return parts
+
+
+def dist_times(torch, K, seed: int, timer) -> list[str]:
+    """The kernels and the loop this slice redesigned, timed so that two
+    trees can be compared in one call (``--dist-times``): distance_block
+    at [256, 8192] and at the approx loop's group shape beside cuBLAS
+    addmm; pq4_scan_reduce at lut [256, 192, 16] x codes [1,048,576, 192]
+    (random codes and tables: the time does not follow the values);
+    then one 256-query approx batch over the 1M-row corpus through
+    chunked_topk_distances (k = 100, 1% dead rows), unfiltered and with
+    per-query 10% allow bits, host clock around a synchronised call,
+    median of 5. Returns one text part per measurement."""
+    from weaviate_tpu_torch.ops.topk import chunked_topk_distances
+
+    X = scan_corpus(torch, seed)
+    n = X.shape[0]
+    rng = np.random.default_rng([seed, 2])
+    vmask = torch.from_numpy(rng.random(n) > 0.01).to("cuda")
+    qs = torch.from_numpy(near_queries(seed, rng.integers(0, ROWS, BATCH), lambda r: X[
+        torch.from_numpy(r).to("cuda")].cpu().numpy())).to("cuda")
+    parts = []
+    for rows in (CHUNK, group_rows(K)):
+        o = distance_times(torch, K, qs, X[:rows], vmask[:rows], timer)
+        parts.append(f"distance_block [{BATCH},{DIM}] x [{rows},{DIM}]: {_distance_text(o)}")
+    m = 192
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    codes = torch.randint(0, 16, (n, m), device="cuda", dtype=torch.uint8, generator=gen)
+    lut = torch.randn((BATCH, m, 16), device="cuda", generator=gen)
+    o = dict(ms=timer(lambda: K.pq4_scan_reduce(lut, codes, vmask, 64), reps=10))
+    o["bound_ms"], o["bound_by"] = bound_ms(lut.numel() * 4 + codes.numel() + n
+                                            + BATCH * (n // 64) * 8,
+                                            2.0 * BATCH * n * 16 * m, INT8_OPS)
+    parts.append(f"pq4_scan_reduce lut [{BATCH},{m},16] x codes [{n},{m}] reduce_l 64: "
+                 f"kernel {o['ms']:.4f} ms, {_bound_text(o)}")
+    del codes, lut
+    bits = K.pack_allow_bitmask_t(torch.from_numpy(rng.random((BATCH, n)) < 0.1).to("cuda"))
+    for name, ab in (("unfiltered", None), ("per-query 10% allow bits", bits)):
+        times = []
+        for rep in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            chunked_topk_distances(qs, X, TOP_K, CHUNK, METRIC, valid=vmask, use_pallas=True,
+                                   selection="approx", allow_bits=ab)
+            torch.cuda.synchronize()
+            if rep:  # the first call warms up
+                times.append((time.perf_counter() - t0) * 1e3)
+        parts.append(f"approx batch {BATCH} x [{n},{DIM}] k={TOP_K} {name}: "
+                     f"{np.median(times):.2f} ms (median of {len(times)}, host clock; "
+                     f"all {', '.join(f'{t:.2f}' for t in times)})")
     return parts
 
 
@@ -466,26 +634,29 @@ def phase_kernels(torch, K, seed: int) -> tuple[dict, dict]:
     # batch invariance: a query's distances must not move with the rows
     # batched beside it (the batcher pads drains to 1, 2, 4, 8, ... rows)
     full = K.distance_block(q, xn, METRIC)
-    for b in (1, 2, 4, 8, 64):
+    for b in (1, 2, 4, 8, 16, 32, 33, 64):
         if not torch.equal(K.distance_block(q[:b], xn, METRIC), full[:b]):
             raise AssertionError(f"distance_block rows at B={b} differ from B={BATCH}")
-    one = torch.ones((), device=dev)
-    qn = torch.nn.functional.normalize(q, dim=1)
-    b_ms, b_by = bound_ms(q.numel() * 4 + xn.numel() * 4 + CHUNK + BATCH * CHUNK * 4,
-                          2.0 * BATCH * CHUNK * DIM, FP32_FLOPS)
-    out["distance_block"] = dict(
-        max_abs_err=err,
-        ms=timer(lambda: K.distance_block(q, xn, METRIC, valid=valid), reps=50),
-        plain_ms=timer(lambda: K.distance_block_plain(q, xn, METRIC, valid=valid), reps=50),
-        library_ms=timer(lambda: torch.addmm(one, qn, xn.T, alpha=-1.0), reps=50),
-        bound_ms=b_ms, bound_by=b_by)
+    at_chunk = distance_times(torch, K, q, xn, valid, timer, plain=True)
+    # the wrapper's time is logged below; the kernels line keeps its keys
+    out["distance_block"] = dict(max_abs_err=err,
+                                 **{k: v for k, v in at_chunk.items() if k != "wrapper_ms"})
+    group = group_rows(K)
+    xg = torch.nn.functional.normalize(
+        to_dev(clustered(seed, 3 * 10**9, group, cent)), dim=1).contiguous()
+    vg = to_dev(rng.random(group) > 0.05)
+    a = K.distance_block(q, xg, METRIC, valid=vg)
+    if not torch.allclose(a, K.distance_block_plain(q, xg, METRIC, valid=vg), rtol=RTOL,
+                          atol=ATOL):
+        raise AssertionError(f"distance_block at the group shape [{BATCH},{group}] disagrees")
+    at_group = distance_times(torch, K, q, xg, vg, timer)
+    del a, xg, vg
     log(f"phase 2 kernels: distance_block q[{BATCH},{DIM}] x [{CHUNK},{DIM}] "
-        f"l2/dot/cosine x f32/bf16 with valid mask: max_abs_err {err:.3g} "
-        f"(rtol {RTOL}, atol {ATOL}), rows equal at B = 1..{BATCH} (batch-invariant); "
-        f"kernel {out['distance_block']['ms']:.4f} ms, "
-        f"plain {out['distance_block']['plain_ms']:.4f} ms, "
-        f"addmm {out['distance_block']['library_ms']:.4f} ms, "
-        f"{_bound_text(out['distance_block'])}")
+        f"l2/dot/cosine x f32/bf16 with valid mask, and cosine at the approx loop's group "
+        f"shape [{group},{DIM}]: max_abs_err {err:.3g} (rtol {RTOL}, atol {ATOL}), rows "
+        f"equal at B = 1..{BATCH} (batch-invariant); {_distance_text(at_chunk)}; "
+        f"at [{BATCH}] x [{group}]: {_distance_text(at_group)}")
+    _approx_loop_check(torch, K, seed)
 
     # fused_topk_scan at the full capacity of the 1M-row store
     X = scan_corpus(torch, seed)
@@ -839,7 +1010,7 @@ def _scan_reduce_kernels(torch, K, X, qs, vmask, bits, rng, timer) -> dict:
         return K.pack_allow_bitmask_t(torch.from_numpy(rng.random((b, rows)) < 0.5).to(dev))
 
     # ragged: B, N and W / m off every tile size, both layouts, masks
-    ragged = 0
+    ragged = pq_ragged = 0
     for b, rows, w, L, tp, masked in [(1, 1, 1, 4, False, False), (7, 130, 3, 4, False, False),
                                       (33, 2001, 4, 8, True, False), (40, 9001, 24, 64, False, True),
                                       (70, 3000, 4, 2, True, True), (5, 5000, 25, 16, False, True)]:
@@ -855,7 +1026,14 @@ def _scan_reduce_kernels(torch, K, X, qs, vmask, bits, rng, timer) -> dict:
                                           (17, 2001, 12, 16, 8, True, True),
                                           (20, 9001, 24, 16, 64, False, True),
                                           (33, 5000, 33, 16, 16, False, False),
-                                          (5, 4000, 192, 9, 32, True, False)]:
+                                          (5, 4000, 192, 9, 32, True, False),
+                                          # past the 896 segments the first kernel
+                                          # refused: m = 1024 and ragged m
+                                          (70, 9001, 1024, 16, 16, False, True),
+                                          (70, 9001, 1024, 16, 16, True, True),
+                                          (33, 5000, 901, 16, 8, False, True),
+                                          (33, 5000, 901, 11, 8, True, True),
+                                          (65, 3000, 1000, 16, 64, False, False)]:
         lut = torch.from_numpy((rng.standard_normal((b, m, kc)) * 3).astype(np.float32)).to(dev)
         codes = rng.integers(0, kc, (rows, m)).astype(np.uint8)
         c = torch.from_numpy(np.ascontiguousarray(codes.T) if tp else codes).to(dev)
@@ -864,7 +1042,7 @@ def _scan_reduce_kernels(torch, K, X, qs, vmask, bits, rng, timer) -> dict:
         _same_scan(torch, K.pq4_scan_reduce(lut, c, valid, L, tp, allow_bits=ab),
                    K.pq4_scan_reduce_plain(lut, c, valid, L, tp, allow_bits=ab),
                    f"pq4_scan_reduce ragged b={b} n={rows} m={m} kc={kc} transposed={tp}")
-        ragged += 1
+        pq_ragged += 1
 
     # the main path's shapes: [256, 24 words] x 1,048,576 rows, reduce_l 64
     L = bq_ops._auto_reduce_l(n)
@@ -893,7 +1071,7 @@ def _scan_reduce_kernels(torch, K, X, qs, vmask, bits, rng, timer) -> dict:
         plain_ms=timer(lambda: K.bq_scan_reduce_plain(qw, xw, vmask, L), reps=1, warmup=1),
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
     o = out["bq_scan_reduce"]
-    log(f"phase 2 kernels: bq_scan_reduce {ragged // 2} ragged shapes, then "
+    log(f"phase 2 kernels: bq_scan_reduce {ragged} ragged shapes, then "
         f"[{BATCH},{w} words] x [{n},{w}] reduce_l {L} with and without per-query "
         f"allow_bits, and the transposed prefix [4,{n}]: equal to the plain version "
         f"(max_abs_err {err:.3g}); kernel {o['ms']:.3f} ms (prefix {prefix_ms:.3f} ms), "
@@ -920,10 +1098,12 @@ def _scan_reduce_kernels(torch, K, X, qs, vmask, bits, rng, timer) -> dict:
         plain_ms=timer(lambda: K.pq4_scan_reduce_plain(lut, codes, vmask, L), reps=1, warmup=1),
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
     o = out["pq4_scan_reduce"]
-    log(f"phase 2 kernels: pq4_scan_reduce {ragged - ragged // 2} ragged shapes, then "
+    log(f"phase 2 kernels: pq4_scan_reduce {pq_ragged} ragged shapes (m = 1024 and 901 / "
+        f"1000 among them, row-major and transposed, with allow words), then "
         f"lut [{BATCH},{m},16] x codes [{n},{m}] reduce_l {L} with and without per-query "
         f"allow_bits: equal to the plain version (max_abs_err {err:.3g}); kernel "
-        f"{o['ms']:.3f} ms (int8 LUT quantization included), plain {o['plain_ms']:.3f} ms, "
+        f"{o['ms']:.3f} ms (the int8 table's quantization and blocked layout included), plain "
+        f"{o['plain_ms']:.3f} ms, "
         f"library {NO_LIBRARY}, {_bound_text(o)}")
     return out, dict(qw=qw, xw=xw, codes=codes, lut=lut, centroids=book.centroids)
 
@@ -1963,6 +2143,9 @@ def main() -> int:
     ap.add_argument("--topk-times", action="store_true",
                     help="only build the kernels and time fused_topk_scan and "
                     "fused_topk_pairs at the drain shapes (no checks, no result line)")
+    ap.add_argument("--dist-times", action="store_true",
+                    help="only build the kernels and time distance_block, "
+                    "pq4_scan_reduce and one approx batch (no checks, no result line)")
     args = ap.parse_args()
     import torch
 
@@ -1989,6 +2172,11 @@ def main() -> int:
         if hasattr(K, "kernel_residency"):  # the product-only build is this design's
             for part in scan_breakdown(torch, K, X, qs, Timer(torch)):
                 log(f"topk times: {part}")
+        log(f"card after (SM clock, max SM clock, power, temperature): {card_clocks()}")
+        return 0
+    if args.dist_times:
+        for part in dist_times(torch, K, args.seed, Timer(torch)):
+            log(f"dist times: {part}")
         log(f"card after (SM clock, max SM clock, power, temperature): {card_clocks()}")
         return 0
     numbers, counts2 = phase_kernels(torch, K, args.seed)

@@ -150,17 +150,6 @@ def test_scan_wrappers_reject_bad_operands(rng):
         K.pq4_scan_reduce(torch.zeros((2, 4, 17)), torch.zeros((10, 4), dtype=torch.uint8))
 
 
-def test_pq4_kernel_segment_limit():
-    """The CUDA kernel's shared-memory table (m padded to 16 x 16 codes x
-    16 queries bytes) fits 896 segments in 227 KB; more raise by name."""
-    assert K.PQ4_MAX_SEGMENTS == 896
-    assert 896 * 16 * K.PQ4_QBLOCK <= K.PQ4_SMEM_BYTES < 912 * 16 * K.PQ4_QBLOCK
-    K.pq4_check_segments(192)
-    K.pq4_check_segments(896)
-    with pytest.raises(ValueError, match="at most 896 segments"):
-        K.pq4_check_segments(1024)
-
-
 def test_scan_geometry_matches_reference_rules():
     """out_w, supertile and the padded row count for the shapes the main
     path uses (the ids depend on out_w)."""

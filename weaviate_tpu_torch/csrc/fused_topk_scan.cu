@@ -28,15 +28,13 @@
 // up to four times.
 //
 // Design:
-//  - Product: a CTA of 128 threads computes 64 queries x 128 rows a tile
-//    (16 x 128 for drains of <= 32 queries, where 64 would multiply mostly
-//    zero rows), each thread 8 (or 2) x 8 outputs: rows ty + 8i, columns
-//    tx + 16j. K runs in slices of 16 through a 3-stage (4 for the small
-//    tile) cp.async ring: 16 LDS.128 for every 256 FFMA. Each output is one
-//    fmaf chain over k = 0 .. d-1 from 0.0f, as in tile_common.cuh's
-//    gemm_tile, so every distance equals distance_block's bit for bit (no
-//    TF32, no split-K, nothing that depends on B). Rows past B / N / d
-//    read 0; rows that are not 16-byte aligned take plain loads.
+//  - Product: ffma_tile.cuh's product_tile, shared with distance_block.cu:
+//    a CTA of 128 threads computes 64 queries x 128 rows a tile (16 x 128
+//    for drains of <= 32 queries), each thread 8 (or 2) x 8 outputs, K in
+//    slices of 16 through a 3-stage (4 for the small tile) cp.async ring:
+//    16 LDS.128 for every 256 FFMA. Each output is one fmaf chain over k =
+//    0 .. d-1 from 0.0f, so every distance equals distance_block's bit for
+//    bit (no TF32, no split-K, nothing that depends on B).
 //  - Selection: after a tile's last slice its dot products are parked over
 //    the ring, and each warp filters its own query rows. The metric, the
 //    valid mask and the allow bit are applied, and a row's 128 values are
@@ -56,7 +54,7 @@
 // Dead and disallowed rows never pass tau (their value is MASKED), so
 // unfilled slots come out as (MASKED, -1).
 
-#include "tile_common.cuh"
+#include "ffma_tile.cuh"
 
 // 0 builds the product alone (tiles parked, nothing selected): the
 // breakdown build of ``chip_smoke.py --topk-times``, never a serving one
@@ -65,14 +63,10 @@
 #endif
 
 using namespace wtt;
+using namespace wtt::ffma;
 
 namespace {
 
-constexpr int TN = 8;         // corpus rows per thread
-constexpr int SBN = 16 * TN;  // corpus rows per tile
-constexpr int SBK = 16;       // K slice
-constexpr int STH = 128;      // threads
-constexpr int QS = SBK + 4;   // f32 row stride of the q slice: 16-byte rows, no bank conflicts
 constexpr int QC = 48;        // queue slots per query row
 constexpr int FLUSH = QC - 32;  // a row's queue merges once it holds more (a chunk adds <= 32)
 constexpr int DT = SBN + 1;   // row stride of the parked dot-product tile (floats)
@@ -80,80 +74,26 @@ constexpr int NIL = 0xffff;   // local key of an unfilled list entry
 constexpr int WARPS = STH / 32;
 constexpr int LIST_PER_LANE = 4;  // list entries per lane in a merge: k <= 128
 
-// TM query rows per thread: 8 (64-query CTAs) or, for drains of <= 32
-// queries, 2 (16-query CTAs, a deeper ring)
-template <int TM> struct Tile {
-  static constexpr int SBM = 8 * TM;
-  static constexpr int STAGES = TM == 8 ? 3 : 4;
-};
-
-// shared-memory row stride (elements) of the corpus slice
-template <typename T> struct XStride { static constexpr int v = SBK + 16 / (int)sizeof(T); };
-
-template <typename T, int TM>
-__host__ __device__ constexpr int stage_bytes() {
-  return Tile<TM>::SBM * QS * 4 + SBN * XStride<T>::v * (int)sizeof(T);
-}
-
 __host__ __device__ constexpr int list_stride(int k) { return (k + 7) / 8 * 8; }
+
+// the product's ring: K slices of 16, 3 stages (4 for the 16-query tile),
+// small enough that two CTAs with their lists share an SM
+template <typename T, int TM> using ScanRing = Ring<T, TM, 16, TM == 8 ? 3 : 4>;
 
 // ring | list values | queue values | tau values | queue counts | tau keys |
 // list keys (u16) | queue keys (u16)
 template <typename T, int TM>
 __host__ __device__ constexpr int scan_smem_bytes(int k) {
-  return Tile<TM>::STAGES * stage_bytes<T, TM>() +
-         Tile<TM>::SBM * (list_stride(k) * 6 + QC * 6 + 12);
+  return ScanRing<T, TM>::BYTES + 8 * TM * (list_stride(k) * 6 + QC * 6 + 12);
 }
 
 template <typename T, int TM>
 constexpr bool ring_holds_tile() {
-  return Tile<TM>::STAGES * stage_bytes<T, TM>() >= Tile<TM>::SBM * DT * 4;
+  return ScanRing<T, TM>::BYTES >= 8 * TM * DT * 4;
 }
 static_assert(ring_holds_tile<float, 8>() && ring_holds_tile<uint16_t, 8>() &&
               ring_holds_tile<float, 2>() && ring_holds_tile<uint16_t, 2>(),
               "the ring holds the parked tile");
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-// Stage K slice [k0, k0 + SBK) of the q rows [m0, m0 + SBM) and corpus rows
-// [n0, n0 + SBN). Rows past B / N and columns past d read 0.
-template <typename T, bool ASYNC, int TM>
-__device__ __forceinline__ void stage(const float* __restrict__ q, const T* __restrict__ x, int B,
-                                      int N, int d, int m0, int n0, int k0, float* qs, T* xs) {
-  constexpr int XS = XStride<T>::v;
-  constexpr int EPC = 16 / (int)sizeof(T);  // elements per 16-byte chunk
-  constexpr int QCPR = SBK / 4;             // q chunks per row
-  constexpr int XCPR = SBK / EPC;           // corpus chunks per row
-  const int t = threadIdx.x;
-#pragma unroll
-  for (int id = t; id < Tile<TM>::SBM * QCPR; id += STH) {
-    const int r = id / QCPR, c = id % QCPR;
-    const int m = m0 + r, k = k0 + c * 4;
-    float* dst = qs + r * QS + c * 4;
-    if (ASYNC) {
-      const bool ok = (m < B) && (k < d);
-      cp_async16(dst, ok ? (const void*)(q + (size_t)m * d + k) : (const void*)q, ok);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dst[e] = (m < B && k + e < d) ? q[(size_t)m * d + k + e] : 0.f;
-    }
-  }
-#pragma unroll
-  for (int id = t; id < SBN * XCPR; id += STH) {
-    const int r = id / XCPR, c = id % XCPR;
-    const int n = n0 + r, k = k0 + c * EPC;
-    T* dst = xs + r * XS + c * EPC;
-    if (ASYNC) {
-      const bool ok = (n < N) && (k < d);
-      cp_async16(dst, ok ? (const void*)(x + (size_t)n * d + k) : (const void*)x, ok);
-    } else {
-#pragma unroll
-      for (int e = 0; e < EPC; ++e)
-        dst[e] = (n < N && k + e < d) ? x[(size_t)n * d + k + e] : (T)0;
-    }
-  }
-}
 
 __device__ __forceinline__ bool lex_less16(float a, int ak, float b, int bk) {
   return a < b || (a == b && ak < bk);
@@ -262,12 +202,10 @@ fused_topk_scan_kernel(const float* __restrict__ q, const float* __restrict__ qn
                        const uint8_t* __restrict__ valid, const uint32_t* __restrict__ bits,
                        int words, int B, int N, int d, int k, int rows_per_slice,
                        int n_slices, float* __restrict__ out_d, int* __restrict__ out_i) {
-  constexpr int SBM = Tile<TM>::SBM;
-  constexpr int STAGES = Tile<TM>::STAGES;
-  constexpr int XS = XStride<T>::v;
+  constexpr int SBM = 8 * TM;
   extern __shared__ __align__(16) unsigned char smem[];
   const int kc = list_stride(k);
-  float* ld = reinterpret_cast<float*>(smem + STAGES * stage_bytes<T, TM>());
+  float* ld = reinterpret_cast<float*>(smem + ScanRing<T, TM>::BYTES);
   float* qd = ld + SBM * kc;
   float* td = qd + SBM * QC;
   int* qcnt = reinterpret_cast<int*>(td + SBM);
@@ -299,53 +237,11 @@ fused_topk_scan_kernel(const float* __restrict__ q, const float* __restrict__ qn
     }
   }
 
-  const int kt_n = (d + SBK - 1) / SBK;
   float* dtile = reinterpret_cast<float*>(smem);  // a tile's dot products, parked over the ring
   for (int n0 = row_begin; n0 < row_end; n0 += SBN) {
-    auto load = [&](int kt) {
-      unsigned char* st = smem + (kt % STAGES) * stage_bytes<T, TM>();
-      stage<T, ASYNC, TM>(q, x, B, N, d, m0, n0, kt * SBK, reinterpret_cast<float*>(st),
-                          reinterpret_cast<T*>(st + SBM * QS * 4));
-    };
-#pragma unroll
-    for (int kt = 0; kt < STAGES - 1; ++kt) {
-      if (kt < kt_n) load(kt);
-      if (ASYNC) cp_async_commit();
-    }
     float acc[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-    for (int kt = 0; kt < kt_n; ++kt) {
-      if (ASYNC) cp_async_wait<STAGES - 2>();  // slice kt has landed
-      __syncthreads();  // ... for every thread, and slice kt-1's buffer is free
-      if (kt + STAGES - 1 < kt_n) load(kt + STAGES - 1);
-      if (ASYNC) cp_async_commit();
-      const unsigned char* st = smem + (kt % STAGES) * stage_bytes<T, TM>();
-      const float* qb = reinterpret_cast<const float*>(st);
-      const T* xb = reinterpret_cast<const T*>(st + SBM * QS * 4);
-#pragma unroll
-      for (int kk = 0; kk < SBK; kk += 4) {
-        float4 a[TM];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) a[i] = load4(qb + (ty + 8 * i) * QS + kk);
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          const float4 b = load4(xb + (tx + 16 * j) * XS + kk);
-#pragma unroll
-          for (int i = 0; i < TM; ++i) {
-            acc[i][j] = fmaf(a[i].x, b.x, acc[i][j]);
-            acc[i][j] = fmaf(a[i].y, b.y, acc[i][j]);
-            acc[i][j] = fmaf(a[i].z, b.z, acc[i][j]);
-            acc[i][j] = fmaf(a[i].w, b.w, acc[i][j]);
-          }
-        }
-      }
-    }
+    product_tile<T, ASYNC, ScanRing<T, TM>>(q, x, B, N, d, m0, n0, smem, acc);
     // park the dot products over the ring: every slice of the tile is read
-    if (ASYNC) cp_async_wait<0>();
-    __syncthreads();
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -406,15 +302,12 @@ static void launch(const float* q, const float* qn, const void* x, const float* 
                    int k, int rows_per_slice, int n_slices, float* od, int* oi,
                    cudaStream_t stream) {
   const int smem = scan_smem_bytes<T, TM>(k);
-  const int grid = ((B + Tile<TM>::SBM - 1) / Tile<TM>::SBM) * n_slices;
+  const int grid = ((B + 8 * TM - 1) / (8 * TM)) * n_slices;
   auto kern = fused_topk_scan_kernel<T, METRIC, ASYNC, TM>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   kern<<<grid, STH, smem, stream>>>(q, qn, static_cast<const T*>(x), xn, valid, bits, words, B,
                                     N, d, k, rows_per_slice, n_slices, od, oi);
 }
-
-// the query tile: 16 rows for drains of <= 32 queries (cp.async path only)
-inline bool small_tile(int B, bool async_ok) { return async_ok && B <= 32; }
 
 template <typename T, int METRIC>
 static void launch_tile(bool async_ok, const float* q, const float* qn, const void* x,

@@ -1,6 +1,9 @@
-// Shared device code for the distance and fused top-k kernels.
+// Shared device code of the FFMA kernels: the constants, cp.async and
+// widening loads, the metric epilogue and the allow-bit lookup that
+// ffma_tile.cuh (distance_block, fused_topk_scan) builds on, and
+// gemm_tile, pq4_recon_block's product.
 //
-// One CTA of 256 threads computes a 64 x 128 tile of q . x^T in exact
+// gemm_tile: one CTA of 256 threads computes a 64 x 128 tile of q . x^T in exact
 // FP32 (FFMA, never TF32): q is [B, d] f32, x is [N, d] in the storage
 // type T (float, or bf16 carried as its raw uint16 bits and widened to f32
 // on read, which is exact). Each thread owns a 4 x 8 block of the tile:

@@ -45,7 +45,7 @@ SIGNATURES = {
                        [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _I, _I, _P, _P, _P]),
     "pq4_scan_reduce": ("wtt_pq4_scan_reduce",
-                        [_P, _P, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I,
+                        [_P, _P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _I, _I, _P, _P, _P]),
     "bm25_block": ("wtt_bm25_block",
                    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -140,8 +140,9 @@ def unpack_allow_bitmask(bits: torch.Tensor, n_cols: int | None = None) -> torch
     """Inverse of the packer: [B, W] words -> [B, n_cols] bool."""
     b, w_total = bits.shape
     total = w_total * 32
-    a = bits.to(torch.int64).reshape(b, total // MASK_BLOCK, 1, _MASK_WORDS)
-    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    # int32 words: the arithmetic shift keeps bit 31 readable as ``& 1``
+    a = bits.to(torch.int32).reshape(b, total // MASK_BLOCK, 1, _MASK_WORDS)
+    shifts = torch.arange(32, dtype=torch.int32, device=bits.device)
     cols = ((a >> shifts[None, None, :, None]) & 1).reshape(b, total)
     out = cols.bool()
     if n_cols is not None and n_cols != total:
@@ -243,20 +244,33 @@ def _check_kernel_operands(q, x, metric, valid, x_sq_norms):
         raise ValueError("x_sq_norms must be a [N] tensor on the corpus device")
 
 
-def _kernel_args(q, x, metric, valid, x_sq_norms):
-    """Device operands shared by the scan kernels: f32 query rows (unit
-    length for cosine), their squared norms and the corpus norms (l2
-    only), and whether every row is 16-byte aligned for cp.async."""
-    q = _kernel_query(q, metric)
-    qn = xn = None
+def distance_query(q: torch.Tensor, metric: str):
+    """The scan kernels' query operands for q [B, d]: (f32 rows, unit
+    length for cosine; their squared norms for l2, else None). A loop
+    that launches ``distance_block`` on many corpus blocks with one query
+    batch prepares them once (``distance_block_prepared``)."""
+    qk = _kernel_query(q, metric)
+    return qk, ((qk * qk).sum(dim=1).contiguous() if metric == "l2-squared" else None)
+
+
+def _corpus_args(qk, x, metric, valid, x_sq_norms):
+    """The corpus operands: its squared norms (l2 only), the valid mask,
+    and whether every row is 16-byte aligned for cp.async."""
+    xn = None
     if metric == "l2-squared":
-        qn = (q * q).sum(dim=1).contiguous()
         xn = (sq_norms(x) if x_sq_norms is None else x_sq_norms.float()).contiguous()
     valid = None if valid is None else valid.contiguous()
     d = x.shape[1]
     async_ok = (d % 4 == 0 and (d * x.element_size()) % 16 == 0
-                and q.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0)
-    return q, qn, xn, valid, async_ok
+                and qk.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0)
+    return xn, valid, async_ok
+
+
+def _kernel_args(q, x, metric, valid, x_sq_norms):
+    """Device operands shared by the scan kernels: ``distance_query``'s
+    and ``_corpus_args``'."""
+    qk, qn = distance_query(q, metric)
+    return (qk, qn, *_corpus_args(qk, x, metric, valid, x_sq_norms))
 
 
 def _ptr(t):
@@ -281,9 +295,21 @@ def distance_block(q: torch.Tensor, x: torch.Tensor, metric: str = "l2-squared",
     _check_kernel_operands(q, x, metric, valid, x_sq_norms)
     if x.device.type == "cpu":
         return distance_block_plain(q, x, metric, valid, x_sq_norms)
+    return distance_block_prepared(distance_query(q, metric), x, metric, valid, x_sq_norms)
+
+
+def distance_block_prepared(query, x: torch.Tensor, metric: str = "l2-squared",
+                            valid: torch.Tensor | None = None,
+                            x_sq_norms: torch.Tensor | None = None) -> torch.Tensor:
+    """``distance_block`` with its query operands from ``distance_query``:
+    the same launch and the same bits, without preparing the query again.
+    CUDA tensors only."""
+    if metric not in KERNEL_METRICS or x.device.type != "cuda":
+        raise ValueError("distance_block_prepared takes a kernel metric and CUDA tensors")
     from weaviate_tpu_torch.ops import _build
 
-    qk, qn, xn, valid, async_ok = _kernel_args(q, x, metric, valid, x_sq_norms)
+    qk, qn = query
+    xn, valid, async_ok = _corpus_args(qk, x, metric, valid, x_sq_norms)
     b, n = qk.shape[0], x.shape[0]
     out = torch.empty((b, n), dtype=torch.float32, device=x.device)
     rc = _build.kernel("distance_block")(
@@ -694,22 +720,8 @@ def bq_scan_reduce(q_bits: torch.Tensor, x_bits: torch.Tensor,
 
 # -- pq4_scan_reduce -----------------------------------------------------------
 
-PQ4_QBLOCK = 16  # queries per CTA (csrc/pq4_scan_reduce.cu)
-# The kernel holds its 16 queries' tables for every segment in shared
-# memory: m padded to 16 segments x 16 codes x 16 queries bytes, within
-# the 227 KB a CTA may opt into on sm_90. So m <= 896 segments (3584 dims
-# at the default m = d/4).
-PQ4_SMEM_BYTES = 227 * 1024
-PQ4_MAX_SEGMENTS = PQ4_SMEM_BYTES // (16 * PQ4_QBLOCK) // 16 * 16
-
-
-def pq4_check_segments(m: int) -> None:
-    """Raise when the CUDA kernel's shared-memory table cannot hold ``m``
-    segments."""
-    if m > PQ4_MAX_SEGMENTS:
-        raise ValueError(
-            f"pq4_scan_reduce on CUDA holds at most {PQ4_MAX_SEGMENTS} segments "
-            f"(a {PQ4_SMEM_BYTES}-byte shared-memory table), got m = {m}")
+PQ4_QBLOCK = 64  # queries per CTA (csrc/pq4_scan_reduce.cu)
+PQ4_SLICE_SEGMENTS = 32  # segments per K slice of the kernel's table ring
 
 
 def pq4_geometry(n, m, b, reduce_l=64, transposed=False, sub_rows=None,
@@ -742,6 +754,22 @@ def pq4_lut8(lut: torch.Tensor):
     lut = torch.nn.functional.pad(lut.float(), (0, 16 - kc, 0, pm - m))
     lut8, scale = quantize_lut_int8(lut)
     return lut8.contiguous(), scale.contiguous(), pm
+
+
+def pq4_lut_blocks(lut8: torch.Tensor, pm: int, b_pad: int):
+    """The CUDA kernel's table: ``pq4_lut8``'s code-major [B, 16*pm] (entry
+    of code c, segment s at c*pm + s) reordered into the blocks the
+    kernel's bulk copies fetch: [b_pad / 8 query groups][ks / 32 slices]
+    [32 segments][8 queries][16 codes], zero past B and past pm, ks = pm
+    rounded up to ``PQ4_SLICE_SEGMENTS``. One block (a query group's
+    slice) is 4 KB, in the tensor cores' core-matrix order. Returns (the
+    flat int8 table, ks)."""
+    b = lut8.shape[0]
+    ks = _pad_to(max(pm, 1), PQ4_SLICE_SEGMENTS)
+    seg = lut8.reshape(b, 16, pm).transpose(1, 2)  # [B, pm, 16]: entry (s, c)
+    seg = torch.nn.functional.pad(seg, (0, 0, 0, ks - pm, 0, b_pad - b))
+    blocks = seg.reshape(b_pad // 8, 8, ks // PQ4_SLICE_SEGMENTS, PQ4_SLICE_SEGMENTS, 16)
+    return blocks.permute(0, 2, 3, 1, 4).contiguous().reshape(-1), ks
 
 
 def pq4_scan_reduce_plain(lut, codes, valid=None, reduce_l=64, transposed=False,
@@ -800,15 +828,15 @@ def pq4_scan_reduce(lut: torch.Tensor, codes: torch.Tensor,
     if codes.device.type == "cpu":
         return pq4_scan_reduce_plain(lut, codes, valid, reduce_l, transposed,
                                      sub_rows, allow_bits)
-    pq4_check_segments(m)
     g = pq4_geometry(n, m, b, reduce_l, transposed, sub_rows, allow_bits is not None)
     lut8, scale, pm = pq4_lut8(lut)
+    table, ks = pq4_lut_blocks(lut8, pm, _pad_to(b, PQ4_QBLOCK))
     vec16 = int(not transposed and m % 16 == 0 and codes.data_ptr() % 16 == 0)
     valid = None if valid is None else valid.contiguous()
     bits = None if allow_bits is None else allow_bits.contiguous()
     return _launch_scan(
         "pq4_scan_reduce", g, b, PQ4_QBLOCK, codes.device,
-        lut8.data_ptr(), scale.data_ptr(), pm, codes.data_ptr(), int(transposed),
+        table.data_ptr(), scale.data_ptr(), pm, ks, codes.data_ptr(), int(transposed),
         vec16, _ptr(valid), _ptr(bits), 0 if bits is None else bits.shape[1], b, n, m)
 
 
@@ -908,7 +936,8 @@ def bm25_block(seg_tf: torch.Tensor, seg_len: torch.Tensor, seg_term: torch.Tens
 # pq4_lut_block holds a block of queries' bf16 tables, widened to f32, in
 # shared memory: 16 codes x 4 bytes = 64 bytes a segment a query. One
 # query's table must fit the 227 KB a CTA may opt into on sm_90.
-PQ4_LUT_MAX_SEGMENTS = PQ4_SMEM_BYTES // 64
+PQ4_LUT_SMEM_BYTES = 227 * 1024
+PQ4_LUT_MAX_SEGMENTS = PQ4_LUT_SMEM_BYTES // 64
 
 
 def _check_words(name: str, what: str, t, w: int | None = None) -> None:
@@ -1161,7 +1190,7 @@ def pq4_lut_block(lut: torch.Tensor, codes: torch.Tensor,
     if m > PQ4_LUT_MAX_SEGMENTS:
         raise ValueError(
             f"pq4_lut_block on CUDA holds at most {PQ4_LUT_MAX_SEGMENTS} segments "
-            f"(one query's table in {PQ4_SMEM_BYTES} bytes of shared memory), got m = {m}")
+            f"(one query's table in {PQ4_LUT_SMEM_BYTES} bytes of shared memory), got m = {m}")
     from weaviate_tpu_torch.ops import _build
 
     table = _pq4_lut_table(lut).contiguous()
