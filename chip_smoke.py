@@ -7,6 +7,8 @@ Run from the repository root:
     python3 chip_smoke.py --topk-times   # phases 0-1 and the selection timings only
     python3 chip_smoke.py --dist-times   # phases 0-1, distance_block, pq4_scan_reduce
                                          # and one approx batch, timed only
+    python3 chip_smoke.py --bq-times     # phases 0-1, bq_scan_reduce at B = 1 / 8 /
+                                         # 64 / 256, the prefix, the single-bit probe
 
 It drives the port's flat nearVector path at VectorDBBench's
 Performance768D1M case (Cohere wiki-22-12: 1,000,000 x 768, cosine,
@@ -29,7 +31,12 @@ is downloaded), in phases:
    the approx loop's group shape [256, 65536] beside addmm, and the
    grouped approx loop held bit for bit to the per-chunk loop on the card
    (filters, k past the live rows, NaN). pq4_scan_reduce also at m = 1024
-   and ragged m past 896 segments. The four
+   and ragged m past 896 segments. bq_scan_reduce at 17 ragged shapes (B
+   past one query block, W = 1, 3, 25, 33 and 200, N = 1 and 9001, both
+   layouts, with and without allow words and valid rows; W = 200 takes
+   the popcount body it keeps), at the drains' B = 1, 8, 64 on the 1M-row
+   words, and timed at B = 1, 8, 64, 256 and on the prefix beside the
+   torch._int_mm product yardstick (bq_times). The four
    block kernels (bq_hamming_block, bq_mxu_block, pq4_lut_block,
    pq4_recon_block) at ragged shapes, then at 256 queries x the 1M-row
    corpus's sign words and 4-bit PQ codes with ~10% dead rows, then
@@ -55,7 +62,10 @@ is downloaded), in phases:
    per-query 10% filters; every returned id must carry its exact
    distance, deleted and disallowed ids never surface, recall@10 against
    the exact recomputation must reach the floor in RECALL_FLOOR (it also
-   prints what rescore_limit 1 reads, a path without oversampling);
+   prints what rescore_limit 1 reads, a path without oversampling, and
+   one batch's exact host rescore split into gather, distance and
+   selection, as the reference arranges it and as the store does, whose
+   answers must be equal bit for bit);
 6. quantized end to end: ``Database.update_collection`` turns PQ on for
    phase 4's live collection and 8 client threads query it near its rows;
    then a second collection is created with BQ in its schema, loaded
@@ -139,6 +149,11 @@ HBM_BYTES_S = 3.35e12
 RTOL, ATOL = 2e-4, 2e-3  # the reference's kernel tolerance (f32)
 TIE_TOL = 1e-5           # distances closer than this are a tie
 INT8_OPS = 1979e12
+# single-bit products (wgmma .b1 AND-popc, bq_scan_reduce): the guide's
+# table has no such rate; one m64nNk256 b1 MMA issues at the rate of one
+# m64nNk32 int8 MMA and covers 8 times its K (csrc/probes/wgmma_b1.cu,
+# ``--bq-times``, NVIDIA H100 80GB HBM3 at 700 W), so 8 x the int8 peak
+B1_OPS = 8 * INT8_OPS
 KERNEL_SOURCES = {
     "distance_block": ("weaviate_tpu_torch/csrc/distance_block.cu",
                        "weaviate_tpu/ops/pallas_kernels.py:281"),
@@ -556,6 +571,115 @@ def dist_times(torch, K, seed: int, timer) -> list[str]:
     return parts
 
 
+def _bq_bound(qw, xw, L) -> dict:
+    """bq_scan_reduce's bound: words, valid and both outputs once against
+    the reference kernel's cost estimate (2*B*N*32W, the +-1 product) at
+    the single-bit rate B1_OPS the kernel's MMAs run at. ``xw`` is [N, W]
+    or, transposed, [W, N]."""
+    b, w = qw.shape
+    n = xw.numel() // w
+    ms, by = bound_ms(qw.numel() * 4 + xw.numel() * 4 + n + b * (n // L) * 8,
+                      2.0 * b * n * 32 * w, B1_OPS)
+    return dict(bound_ms=ms, bound_by=by)
+
+
+def bq_times(torch, K, qw, xw, vmask, timer) -> list[str]:
+    """bq_scan_reduce timed at the drains' B = 1, 8, 64 and 256 on the
+    [N, 24 words] corpus, each beside its bound; the transposed 128-bit
+    prefix [4, N] at B = 256; and the product alone
+    as a yardstick: torch._int_mm on the unpacked operands, [256, 768] int8
+    (+-1) x [768, N] int8 (0/1), no reduction (not library_ms: no single
+    PyTorch call computes the function). Returns one text part each."""
+    from weaviate_tpu_torch.ops import bq as bq_ops
+
+    n, w = xw.shape
+    L = bq_ops._auto_reduce_l(n)
+    parts = []
+    for b in (1, 8, 64, 256):
+        q = qw[:b].contiguous()
+        o = dict(ms=timer(lambda: K.bq_scan_reduce(q, xw, vmask, L), reps=20),
+                 **_bq_bound(q, xw, L))
+        parts.append(f"B={b}: {o['ms']:.4f} ms, {_bound_text(o)}")
+    qp, pt = qw[:, :4].contiguous(), xw[:, :4].T.contiguous()
+    o = dict(ms=timer(lambda: K.bq_scan_reduce(qp, pt, vmask, L, transposed=True), reps=20),
+             **_bq_bound(qp, pt, L))
+    parts.append(f"prefix [{qp.shape[0]},4] x [4,{n}] transposed: {o['ms']:.4f} ms, "
+                 f"{_bound_text(o)}")
+    del pt
+    if not hasattr(K, "bq_queries_to_pm1"):  # a tree before this yardstick
+        return parts
+    try:
+        shifts = torch.arange(32, device=xw.device)
+        pm1 = K.bq_queries_to_pm1(qw, w)  # [B, 32W] +-1 in bit-plane order j*W + word
+        x01 = torch.empty((n, 32 * w), dtype=torch.int8, device=xw.device)
+        for s in range(0, n, ADD_BATCH):
+            x01[s:s + ADD_BATCH] = ((xw[s:s + ADD_BATCH].long()[:, None, :]
+                                     >> shifts[None, :, None]) & 1).reshape(-1, 32 * w)
+        ms = timer(lambda: torch._int_mm(pm1, x01.t()), reps=5)
+        parts.append(f"yardstick torch._int_mm [{qw.shape[0]},{32 * w}] x [{32 * w},{n}] "
+                     f"int8 (the product alone): {ms:.4f} ms")
+        del x01
+    except RuntimeError as e:  # a yardstick only: the run goes on without it
+        parts.append(f"yardstick torch._int_mm failed: {str(e).splitlines()[0]}")
+    return parts
+
+
+def bq_probe(torch) -> list[str]:
+    """The single-bit wgmma probe (weaviate_tpu_torch/csrc/probes/
+    wgmma_b1.cu): whether nvcc takes it for sm_90a, the tensor-core
+    instructions its SASS holds, and the time of one m64n128k256 b1 MMA
+    against one m64n128k32 s8 MMA (528 CTAs of one warpgroup, 4096 x 4
+    MMAs each, chained on one accumulator)."""
+    import ctypes
+    import os
+
+    from weaviate_tpu_torch.ops import _build
+
+    src = os.path.join(_build.CSRC, "probes", "wgmma_b1.cu")
+    if not os.path.exists(src):
+        return ["probe: not in this tree"]
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    so = os.path.join(_build.BUILD_DIR, "probe_wgmma_b1.so")
+    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, src],
+                       capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        err = [ln for ln in (r.stdout + r.stderr).splitlines() if "rror" in ln]
+        return [f"probe: nvcc refused the b1 MMA for sm_90a: {' | '.join(err[:3])}"]
+    parts = [f"probe: built ({_sass_summary(so)})"]
+    fn = ctypes.CDLL(so).wtt_probe_mma_loop
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    blocks, iters = 528, 4096
+    out = torch.empty(blocks * 128, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    timer = Timer(torch)
+    ms = {}
+    for b1 in (0, 1, 0, 1):
+        rc = []
+        t = timer(lambda: rc.append(fn(b1, blocks, iters, out.data_ptr(), stream)), reps=3)
+        if any(rc):
+            return parts + [f"probe: launch failed, cudaError {max(rc)}"]
+        ms.setdefault(b1, []).append(t)
+    per = {b1: min(v) * 1e6 / (blocks * iters * 4) for b1, v in ms.items()}  # ns per MMA, all SMs
+    parts.append(f"probe: {blocks} x {iters * 4} MMAs: s8 m64n128k32 {min(ms[0]):.3f} ms, "
+                 f"b1 m64n128k256 {min(ms[1]):.3f} ms; one b1 MMA takes "
+                 f"{per[1] / per[0]:.2f}x one s8 MMA and covers 8x its K bits")
+    return parts
+
+
+def _sass_summary(so: str) -> str:
+    """Tensor-core instructions in a built library's SASS (cuobjdump
+    -sass): each opcode with a GMMA or MMA in its name, and its count."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    r = subprocess.run([cuobjdump, "-sass", so], capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        return f"cuobjdump failed: {r.stderr.strip()[:200]}"
+    ops: dict = {}
+    for op in re.findall(r"\b([A-Z0-9]*MMA[A-Z0-9_.x]*)", r.stdout):
+        ops[op] = ops.get(op, 0) + 1
+    return ", ".join(f"{op} x{c}" for op, c in sorted(ops.items())) or "no MMA instruction"
+
+
 # -- phases -------------------------------------------------------------------
 
 def card_clocks() -> str:
@@ -598,6 +722,8 @@ def phase_build(K) -> None:
         f"(nvcc sm_90a, in parallel); {'; '.join(regs)}")
     if hasattr(K, "kernel_residency"):  # absent from builds before the radix select
         log(f"phase 1 build: {residency_text(K)}")
+    for name in ("bq_scan_reduce", "pq4_scan_reduce"):
+        log(f"phase 1 build: {name} SASS: {_sass_summary(_build._lib_path(name))}")
 
 
 def phase_kernels(torch, K, seed: int) -> tuple[dict, dict]:
@@ -986,6 +1112,42 @@ def _same_scan(torch, a, b, what) -> float:
     return (av - bv).abs().max().item()
 
 
+def bq_ragged_checks(torch, K, rng, dev) -> int:
+    """bq_scan_reduce against its plain version, bit for bit, at ragged
+    shapes; returns the number of shapes."""
+    def words(shape):
+        return torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, shape, dtype=np.int64)
+                                .astype(np.int32)).to(dev)
+
+    def allow_of(b, rows):
+        return K.pack_allow_bitmask_t(torch.from_numpy(rng.random((b, rows)) < 0.5).to(dev))
+
+    # B, N and W off every tile size, both layouts, masks: B past one
+    # query block of the tensor-core body (65, 129, 257, 300), W = 1, 3,
+    # 25, 33 and 200 (too wide for it: the popcount body), N = 1 and 9001,
+    # with and without valid rows
+    ragged = 0
+    for b, rows, w, L, tp, masked, has_valid in [
+            (1, 1, 1, 4, False, False, True), (7, 130, 3, 4, False, False, True),
+            (33, 2001, 4, 8, True, False, True), (40, 9001, 24, 64, False, True, True),
+            (70, 3000, 4, 2, True, True, True), (5, 5000, 25, 16, False, True, True),
+            (65, 9001, 25, 16, False, True, True), (65, 1, 33, 2, True, False, False),
+            (129, 1, 1, 4, False, True, True), (129, 9001, 24, 64, True, False, False),
+            (257, 9001, 33, 64, False, False, True), (257, 2001, 1, 32, True, True, False),
+            (300, 5000, 3, 8, False, True, False), (300, 9001, 25, 64, True, True, True),
+            (1, 9001, 24, 64, False, True, False), (8, 9001, 33, 16, True, False, True),
+            (17, 3000, 200, 8, False, True, True)]:
+        q, x = words((b, w)), words((w, rows) if tp else (rows, w))
+        valid = torch.from_numpy(rng.random(rows) > 0.3).to(dev) if has_valid else None
+        ab = allow_of(b, rows) if masked else None
+        _same_scan(torch, K.bq_scan_reduce(q, x, valid, L, tp, allow_bits=ab),
+                   K.bq_scan_reduce_plain(q, x, valid, L, tp, allow_bits=ab),
+                   f"bq_scan_reduce ragged b={b} n={rows} w={w} transposed={tp} "
+                   f"allow={masked} valid={has_valid}")
+        ragged += 1
+    return ragged
+
+
 def _scan_reduce_kernels(torch, K, X, qs, vmask, bits, rng, timer) -> dict:
     """bq_scan_reduce and pq4_scan_reduce against their plain versions on
     the card: ragged shapes first, then the main path's (the 1M-row
@@ -1002,25 +1164,11 @@ def _scan_reduce_kernels(torch, K, X, qs, vmask, bits, rng, timer) -> dict:
     n = X.shape[0]
     out = {}
 
-    def words(shape):
-        return torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, shape, dtype=np.int64)
-                                .astype(np.int32)).to(dev)
-
     def allow_of(b, rows):
         return K.pack_allow_bitmask_t(torch.from_numpy(rng.random((b, rows)) < 0.5).to(dev))
 
-    # ragged: B, N and W / m off every tile size, both layouts, masks
-    ragged = pq_ragged = 0
-    for b, rows, w, L, tp, masked in [(1, 1, 1, 4, False, False), (7, 130, 3, 4, False, False),
-                                      (33, 2001, 4, 8, True, False), (40, 9001, 24, 64, False, True),
-                                      (70, 3000, 4, 2, True, True), (5, 5000, 25, 16, False, True)]:
-        q, x = words((b, w)), words((w, rows) if tp else (rows, w))
-        valid = torch.from_numpy(rng.random(rows) > 0.3).to(dev)
-        ab = allow_of(b, rows) if masked else None
-        _same_scan(torch, K.bq_scan_reduce(q, x, valid, L, tp, allow_bits=ab),
-                   K.bq_scan_reduce_plain(q, x, valid, L, tp, allow_bits=ab),
-                   f"bq_scan_reduce ragged b={b} n={rows} w={w} transposed={tp}")
-        ragged += 1
+    # ragged: B, N and m off every tile size, both layouts, masks
+    ragged, pq_ragged = bq_ragged_checks(torch, K, rng, dev), 0
     for b, rows, m, kc, L, tp, masked in [(1, 1, 1, 16, 4, False, False),
                                           (7, 130, 8, 12, 4, False, False),
                                           (17, 2001, 12, 16, 8, True, True),
@@ -1045,6 +1193,7 @@ def _scan_reduce_kernels(torch, K, X, qs, vmask, bits, rng, timer) -> dict:
         pq_ragged += 1
 
     # the main path's shapes: [256, 24 words] x 1,048,576 rows, reduce_l 64
+    # (and the drains' B = 1, 8, 64)
     L = bq_ops._auto_reduce_l(n)
     xw = torch.cat([bq_ops.bq_encode(X[s:s + ADD_BATCH]) for s in range(0, n, ADD_BATCH)])
     qw = bq_ops.bq_encode(qs)
@@ -1053,6 +1202,10 @@ def _scan_reduce_kernels(torch, K, X, qs, vmask, bits, rng, timer) -> dict:
         err = max(err, _same_scan(torch, K.bq_scan_reduce(qw, xw, vmask, L, allow_bits=ab),
                                   K.bq_scan_reduce_plain(qw, xw, vmask, L, allow_bits=ab),
                                   f"bq_scan_reduce [{BATCH},{qw.shape[1]}] x [{n}]"))
+    for b in (1, 8, 64):
+        _same_scan(torch, K.bq_scan_reduce(qw[:b], xw, vmask, L),
+                   K.bq_scan_reduce_plain(qw[:b], xw, vmask, L),
+                   f"bq_scan_reduce [{b},{qw.shape[1]}] x [{n}]")
     qp, pt = qw[:, :4].contiguous(), xw[:, :4].T.contiguous()  # the 128-bit prefix
     for ab in (None, bits):
         err = max(err, _same_scan(
@@ -1060,22 +1213,19 @@ def _scan_reduce_kernels(torch, K, X, qs, vmask, bits, rng, timer) -> dict:
             K.bq_scan_reduce_plain(qp, pt, vmask, L, transposed=True, allow_bits=ab),
             f"bq_scan_reduce prefix [4,{n}]"))
     w = qw.shape[1]
-    # bytes: words, valid and both outputs once; operations: the reference
-    # kernel's cost estimate (the +-1 int8 product, 2*B*N*32W)
-    b_ms, b_by = bound_ms(qw.numel() * 4 + xw.numel() * 4 + n + BATCH * (n // L) * 8,
-                          2.0 * BATCH * n * 32 * w, INT8_OPS)
-    prefix_ms = timer(lambda: K.bq_scan_reduce(qp, pt, vmask, L, transposed=True), reps=10)
     out["bq_scan_reduce"] = dict(
         max_abs_err=err,
         ms=timer(lambda: K.bq_scan_reduce(qw, xw, vmask, L), reps=10),
         plain_ms=timer(lambda: K.bq_scan_reduce_plain(qw, xw, vmask, L), reps=1, warmup=1),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        library_ms=None, **_bq_bound(qw, xw, L))
     o = out["bq_scan_reduce"]
     log(f"phase 2 kernels: bq_scan_reduce {ragged} ragged shapes, then "
         f"[{BATCH},{w} words] x [{n},{w}] reduce_l {L} with and without per-query "
-        f"allow_bits, and the transposed prefix [4,{n}]: equal to the plain version "
-        f"(max_abs_err {err:.3g}); kernel {o['ms']:.3f} ms (prefix {prefix_ms:.3f} ms), "
-        f"plain {o['plain_ms']:.3f} ms, library {NO_LIBRARY}, {_bound_text(o)}")
+        f"allow_bits, B = 1, 8, 64, and the transposed prefix [4,{n}]: equal to the plain "
+        f"version (max_abs_err {err:.3g}); kernel {o['ms']:.4f} ms, plain "
+        f"{o['plain_ms']:.3f} ms, library {NO_LIBRARY}, {_bound_text(o)}")
+    for part in bq_times(torch, K, qw, xw, vmask, timer):
+        log(f"phase 2 kernels: bq times: {part}")
     del pt
 
     # [256, m = 192] 4-bit codes of the same corpus, codebook trained here
@@ -1659,8 +1809,15 @@ def phase_quantized_index(torch, K, seed: int, rows: int) -> dict:
                 raise AssertionError(f"{name} {selection}: recall@10 {r:.4f} below the "
                                      f"floor {RECALL_FLOOR[name]}")
             t_med, s_med = float(np.median(times)), float(np.median(scans))
+            split = ""
+            if selection == "approx":
+                before = dict(K.launch_counts)
+                split = "; " + _rescore_split(torch, idx, queries[:BATCH], k)
+                for kn, c in K.launch_counts.items():  # a measurement, not the path
+                    timing_launches[kn] += c - before[kn]
             runs.append(f"{selection} k={k}: recall@{k} {r:.4f}, {t_med:.1f} ms per "
-                        f"{BATCH}-query batch, scan {s_med:.1f} ms ({s_med / t_med:.0%})")
+                        f"{BATCH}-query batch, scan {s_med:.1f} ms ({s_med / t_med:.0%})"
+                        + split)
         st.selection = "approx"
         # what a path that has lost its oversampling reads: rescore_limit 1
         # hands the exact rescore only the scan's best k candidates
@@ -1689,6 +1846,70 @@ def phase_quantized_index(torch, K, seed: int, rows: int) -> dict:
         + " | ".join(parts) + f"; launches {counts}")
     _require_launched(counts, 5)
     return counts
+
+
+def _reference_rescore(hv, q, cand, k: int, metric: str, cap: int):
+    """The exact host rescore as the reference writes it (the JAX
+    package's ``QuantizedVectorStore._host_rescore``): one gather of every
+    candidate row, one einsum, the mask, argpartition and a stable
+    argsort. Returns ((out_d, out_i), [gather, distance, select] seconds)."""
+    b, kc = cand.shape
+    t0 = time.perf_counter()
+    rows = hv[np.clip(cand, 0, cap - 1).reshape(-1)].reshape(b, kc, -1)
+    t1 = time.perf_counter()
+    if metric == "dot":
+        dd = -np.einsum("bd,bkd->bk", q, rows)
+    elif metric in ("cosine", "cosine-dot"):
+        dd = 1.0 - np.einsum("bd,bkd->bk", q, rows)
+    else:
+        diff = q[:, None, :] - rows
+        dd = np.einsum("bkd,bkd->bk", diff, diff)
+    dd = np.where(cand >= 0, dd, np.float32(3.0e38))
+    t2 = time.perf_counter()
+    k_eff = min(k, kc)
+    part = np.argpartition(dd, k_eff - 1, axis=1)[:, :k_eff]
+    sel = np.take_along_axis(part, np.argsort(np.take_along_axis(dd, part, axis=1), axis=1,
+                                              kind="stable"), axis=1)
+    out_d = np.take_along_axis(dd, sel, axis=1).astype(np.float32)
+    out_i = np.where(out_d >= np.float32(3.0e38), -1, np.take_along_axis(cand, sel, axis=1))
+    return (out_d, out_i), [t1 - t0, t2 - t1, time.perf_counter() - t2]
+
+
+def _rescore_split(torch, idx, qb, k: int) -> str:
+    """One batch's exact host rescore before and after this slice's
+    threads, on the same candidates (the store's own scan of the batch):
+    the reference's arrangement, timed here (_reference_rescore), against
+    the store's, read from its spans under a forced trace
+    (``store.host_rescore.rows`` with the threads' summed gather and
+    distance times, ``store.host_rescore.select``); host clock, median of
+    3 each. The answers must be equal bit for bit."""
+    from weaviate_tpu_torch.runtime import tracing
+
+    st = idx.store
+    q = st._maybe_norm(np.asarray(qb, dtype=np.float32))
+    k_cand = min(max(k * st.rescore_limit, k), st.capacity)
+    cand = st._scan(torch.from_numpy(q).to(st.device), k_cand, st.valid)[1]
+    cand = cand.cpu().numpy().astype(np.int64)
+    before, after = [], []
+    for _ in range(3):
+        want, secs = _reference_rescore(st._host_vectors, q, cand, k, st.metric, st.capacity)
+        before.append([t * 1e3 for t in secs])
+        with tracing.trace("chip_smoke.rescore", force=True):
+            tr = tracing.capture()[0]
+            got = st._host_rescore(q, cand, k)
+        spans = {sp["name"]: sp for sp in tr.to_dict()["spans"]}
+        rows = spans["store.host_rescore.rows"]
+        after.append([rows["duration_ms"], spans["store.host_rescore.select"]["duration_ms"],
+                      rows["attrs"]["gather_ms"], rows["attrs"]["distance_ms"],
+                      rows["attrs"]["blocks"]])
+        if not all(np.array_equal(a, b) for a, b in zip(want, got)):
+            raise AssertionError("the host rescore differs from the reference's arithmetic")
+    bm, am = np.median(before, axis=0), np.median(after, axis=0)
+    return (f"host rescore of {cand.shape[1]} candidates a query: reference arrangement "
+            f"{bm.sum():.1f} ms (gather {bm[0]:.1f}, distance {bm[1]:.1f}, select "
+            f"{bm[2]:.1f}), the store {am[0] + am[1]:.1f} ms (gather + distance "
+            f"{am[0]:.1f} in {am[4]:.0f} blocks on host threads, whose summed gather is "
+            f"{am[2]:.1f} and distance {am[3]:.1f}; select {am[1]:.1f}), equal bit for bit")
 
 
 def _quantized_clients(torch, col, ref, live, views_t, queries, where, what: str) -> str:
@@ -2143,6 +2364,11 @@ def main() -> int:
     ap.add_argument("--topk-times", action="store_true",
                     help="only build the kernels and time fused_topk_scan and "
                     "fused_topk_pairs at the drain shapes (no checks, no result line)")
+    ap.add_argument("--bq-times", action="store_true",
+                    help="only build the kernels, hold bq_scan_reduce to its plain version "
+                    "(ragged shapes, the 1M-row shape, the prefix), time it at B = 1, 8, 64, "
+                    "256 and on the prefix beside the _int_mm yardstick, and run the "
+                    "single-bit wgmma probe (no result line)")
     ap.add_argument("--dist-times", action="store_true",
                     help="only build the kernels and time distance_block, "
                     "pq4_scan_reduce and one approx batch (no checks, no result line)")
@@ -2172,6 +2398,29 @@ def main() -> int:
         if hasattr(K, "kernel_residency"):  # the product-only build is this design's
             for part in scan_breakdown(torch, K, X, qs, Timer(torch)):
                 log(f"topk times: {part}")
+        log(f"card after (SM clock, max SM clock, power, temperature): {card_clocks()}")
+        return 0
+    if args.bq_times:
+        # random words: the kernel's time does not follow the values
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        xw = torch.randint(-2 ** 31, 2 ** 31 - 1, (1 << 20, 24), dtype=torch.int32,
+                           device="cuda", generator=gen)
+        qw = torch.randint(-2 ** 31, 2 ** 31 - 1, (BATCH, 24), dtype=torch.int32,
+                           device="cuda", generator=gen)
+        vmask = torch.rand(1 << 20, device="cuda", generator=gen) > 0.01
+        rng = np.random.default_rng([args.seed, 2])
+        L = 64
+        _same_scan(torch, K.bq_scan_reduce(qw, xw, vmask, L), K.bq_scan_reduce_plain(qw, xw, vmask, L),
+                   "bq_scan_reduce main shape")
+        pt = xw[:, :4].T.contiguous()
+        _same_scan(torch, K.bq_scan_reduce(qw[:, :4].contiguous(), pt, vmask, L, transposed=True),
+                   K.bq_scan_reduce_plain(qw[:, :4].contiguous(), pt, vmask, L, transposed=True),
+                   "bq_scan_reduce prefix")
+        del pt
+        log(f"bq times: equal to the plain version at {bq_ragged_checks(torch, K, rng, 'cuda')} "
+            "ragged shapes, the main shape and the prefix")
+        for part in bq_times(torch, K, qw, xw, vmask, Timer(torch)) + bq_probe(torch):
+            log(f"bq times: {part}")
         log(f"card after (SM clock, max SM clock, power, temperature): {card_clocks()}")
         return 0
     if args.dist_times:

@@ -108,6 +108,13 @@ def _bq_case(rng, b, n, d):
     (3, 2600, 768, 64, False, True),
     # B > 8 and N off every supertile multiple
     (13, 5000, 256, 128, False, False),
+    # past one query block of the CUDA kernel's tensor-core body (64 / 128
+    # queries), and d = 800: W = 25 words, no multiple of 4 or 8
+    (65, 1500, 128, 16, False, False),
+    (130, 1200, 256, 8, True, True),
+    (5, 2500, 800, 32, False, False),
+    (9, 1700, 800, 16, False, True),
+    (6, 900, 800, 8, True, False),
 ])
 def test_bq_scan_reduce_plain_matches_pallas(rng, b, n, d, L, tp, masked):
     xw, qw = _bq_case(rng, b, n, d)

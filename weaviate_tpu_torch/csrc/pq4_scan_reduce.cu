@@ -59,11 +59,13 @@
 //    are 16-byte aligned take cp.async; a transposed or unaligned corpus is
 //    loaded byte by byte into the same ring.
 
-#include <cuda_runtime.h>
 #include <limits.h>
-#include <stdint.h>
+
+#include "wgmma_common.cuh"
 
 namespace {
+
+using namespace wtt_wgmma;
 
 constexpr float MASKED = 3.0e38f;  // MASKED_DISTANCE of ops/distances.py
 constexpr int THREADS = 256;       // two warpgroups
@@ -83,73 +85,6 @@ constexpr int SMEM = STAGES * STAGE_BYTES + QB * BS * 4 + STAGES * 8;
 constexpr int LBO = 128;           // bytes between core matrices along K
 constexpr int SBO = (KS / 16) * 128;  // bytes between core matrices along the queries
 constexpr int KG = 1;              // K steps per group of MMAs (one one-hot register set)
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
-  int n = pred ? 16 : 0;  // 0 source bytes: the 16 destination bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-// the table slice arrives by bulk copies that complete on an mbarrier
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"((uint32_t)__cvta_generic_to_shared(bar)));
-}
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   (uint32_t)__cvta_generic_to_shared(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-          (uint32_t)__cvta_generic_to_shared(dst)),
-      "l"(src), "r"(bytes), "r"((uint32_t)__cvta_generic_to_shared(bar))
-      : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred done;\nwait_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra wait_%=;\n}\n" ::"r"((uint32_t)__cvta_generic_to_shared(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// shared-memory matrix descriptor: K-major, no swizzle
-__device__ __forceinline__ uint64_t desc_of(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(LBO >> 4) << 16) |
-         ((uint64_t)(SBO >> 4) << 32);
-}
-
-// d[64 rows x 64 queries] += a (this warp's 16 rows x 32, registers) . B (descriptor)
-__device__ __forceinline__ void wgmma_s8(int (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
-        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
-        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
-        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-// keeps the compiler from moving reads of an accumulator across a wait
-__device__ __forceinline__ void fence_operand(int& r) { asm volatile("" : "+r"(r)::"memory"); }
 
 // 1 << x, and 0 for x >= 32 (shl.b32 clamps its shift)
 __device__ __forceinline__ uint32_t shl1(uint32_t x) {
@@ -320,9 +255,9 @@ pq4_scan_reduce_kernel(const int8_t* __restrict__ lut, const float* __restrict__
         wgmma_fence();
 #pragma unroll
         for (int hh = 0; hh < KG; ++hh) {
-          const uint64_t desc = desc_of(lut_s + (2 * u + grp * KG + hh) * 2 * LBO);
+          const uint64_t desc = desc_of(lut_s + (2 * u + grp * KG + hh) * 2 * LBO, LBO, SBO);
 #pragma unroll
-          for (int j = 0; j < SPP; ++j) wgmma_s8(acc[j], a[set][hh][j], desc);
+          for (int j = 0; j < SPP; ++j) wgmma_s8(acc[j], a[set][hh][j], desc, 1);
         }
         wgmma_commit();
       }

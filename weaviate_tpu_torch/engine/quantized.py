@@ -25,8 +25,11 @@ The mesh (row-sharded) form is ROADMAP Queue 1 item 13, the epoch store's
 
 from __future__ import annotations
 
+import os
 import threading
+import time
 import weakref
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -43,6 +46,35 @@ from weaviate_tpu_torch.runtime import hbm_ledger, tracing
 from weaviate_tpu_torch.runtime.transfer import DeviceResultHandle
 
 _DEFAULT_CHUNK = 8192
+
+# The exact host rescore's work cutting: blocks of queries on up to
+# RESCORE_THREADS host threads (each block at least RESCORE_BLOCK_ELEMS
+# f32 values of candidate rows, so a one-query drain stays on the caller's
+# thread), each block gathered and scored RESCORE_CHUNK_BYTES of rows at a
+# time, so that the rows are scored while they are in cache.
+RESCORE_THREADS = max(1, min(8, len(os.sched_getaffinity(0))))
+RESCORE_BLOCK_ELEMS = 1 << 20
+RESCORE_CHUNK_BYTES = 1 << 21
+_rescore_pool: ThreadPoolExecutor | None = None
+_rescore_pool_lock = threading.Lock()
+
+
+def _row_blocks(n: int, parts: int) -> list[tuple[int, int]]:
+    """[lo, hi) blocks cutting range(n) into at most ``parts`` pieces."""
+    step = max(1, -(-n // max(1, parts)))
+    return [(lo, min(n, lo + step)) for lo in range(0, n, step)] or [(0, 0)]
+
+
+def _run_blocks(fn, blocks: list[tuple[int, int]]) -> list:
+    """``fn(lo, hi)`` for every block, on the rescore pool when there are
+    several; results in block order."""
+    global _rescore_pool
+    if len(blocks) == 1:
+        return [fn(*blocks[0])]
+    with _rescore_pool_lock:
+        if _rescore_pool is None:
+            _rescore_pool = ThreadPoolExecutor(8, thread_name_prefix="host-rescore")
+    return list(_rescore_pool.map(lambda blk: fn(*blk), blocks))
 
 
 def _as_i32(codes: np.ndarray) -> np.ndarray:
@@ -498,8 +530,7 @@ class QuantizedVectorStore:
                 with tracing.span("store.host_rescore",
                                   candidates=int(i_np.shape[1])):
                     d_np, i_np = self._host_rescore(
-                        _queries, i_np, _k, capacity=_cap,
-                        vectors_for=lambda s: self._tier_vectors(*_tiers, s))
+                        _queries, i_np, _k, capacity=_cap, tiers=_tiers)
             out_d = d_np[:, :_k].astype(np.float32)
             out_i = i_np[:, :_k]
             if _squeeze:
@@ -512,36 +543,80 @@ class QuantizedVectorStore:
                    "quantization": self.quantization})
 
     def _host_rescore(self, queries: np.ndarray, cand_ids: np.ndarray,
-                      k: int, capacity: int | None = None,
-                      vectors_for=None):
-        """Vectorized exact rescore: one gather + one batched distance over
-        [B, k_cand, d] (no per-query Python loop). ``capacity`` /
-        ``vectors_for`` pin the row layout the candidate ids were scanned
-        against (the async finish step passes its dispatch-time
-        snapshot); defaults read the live store."""
+                      k: int, capacity: int | None = None, tiers=None):
+        """Vectorized exact rescore: a gather + a batched distance over
+        [B, k_cand, d] (no per-query Python loop), then the top k.
+        ``capacity`` / ``tiers`` (host rows, device bf16 rows) pin the row
+        layout the candidate ids were scanned against (the async finish
+        step passes its dispatch-time snapshot); defaults read the live
+        store.
+
+        The reference's arithmetic on the same rows: the same ``einsum``
+        per metric, the ``cand_ids >= 0`` mask, ``argpartition`` and the
+        stable ``argsort``, -1 ids past the live candidates. Only how the
+        work is cut changes: the host tier's rows are gathered and scored
+        in blocks of queries on up to RESCORE_THREADS host threads, a
+        chunk of RESCORE_CHUNK_BYTES at a time into a scratch buffer that
+        stays in cache. No (b, k) sum and no row's selection depends on
+        the block it falls in, so the answer is the reference's bit for
+        bit (tests/test_torch_bq_scan.py holds the two equal). The spans
+        ``store.host_rescore.rows`` (gather and distance, with the threads'
+        summed ``gather_ms`` / ``distance_ms``) and
+        ``store.host_rescore.select`` time the stages."""
         b, kc = cand_ids.shape
         cap = self.capacity if capacity is None else capacity
+        host_vectors, rescore_rows = (self._host_vectors, self.rescore_rows) \
+            if tiers is None else tiers
         safe = np.clip(cand_ids, 0, cap - 1)
-        # the tier pick (host rows -> device bf16 rows)
-        cand = ((vectors_for or self._vectors_for)(
-            safe.reshape(-1))).reshape(b, kc, self.dim)
         metric = "cosine" if self.metric in ("cosine", "cosine-dot") else self.metric
-        if metric == "dot":
-            dd = -np.einsum("bd,bkd->bk", queries, cand)
-        elif metric == "cosine":
-            dd = 1.0 - np.einsum("bd,bkd->bk", queries, cand)
-        else:
-            diff = queries[:, None, :] - cand
-            dd = np.einsum("bkd,bkd->bk", diff, diff)
-        dd = np.where(cand_ids >= 0, dd, np.float32(3.0e38))
-        k_eff = min(k, kc)
-        part = np.argpartition(dd, k_eff - 1, axis=1)[:, :k_eff]
-        pd = np.take_along_axis(dd, part, axis=1)
-        order = np.argsort(pd, axis=1, kind="stable")
-        sel = np.take_along_axis(part, order, axis=1)
-        out_d = np.take_along_axis(dd, sel, axis=1).astype(np.float32)
-        out_i = np.take_along_axis(cand_ids, sel, axis=1)
-        out_i = np.where(out_d >= np.float32(3.0e38), -1, out_i)
+
+        def distance(lo, hi, cand):  # queries [lo, hi) against their rows
+            q = queries[lo:hi]
+            if metric == "dot":
+                dd = -np.einsum("bd,bkd->bk", q, cand)
+            elif metric == "cosine":
+                dd = 1.0 - np.einsum("bd,bkd->bk", q, cand)
+            else:
+                diff = q[:, None, :] - cand
+                dd = np.einsum("bkd,bkd->bk", diff, diff)
+            return np.where(cand_ids[lo:hi] >= 0, dd, np.float32(3.0e38))
+
+        def block(lo, hi):  # gather and score queries [lo, hi), chunk by chunk
+            per = max(1, RESCORE_CHUNK_BYTES // max(1, kc * self.dim * 4))
+            scratch = np.empty((min(per, hi - lo) * kc, self.dim), dtype=host_vectors.dtype)
+            parts, t_gather, t_dist = [], 0.0, 0.0
+            for s0 in range(lo, hi, per):
+                s1 = min(hi, s0 + per)
+                rows = scratch[:(s1 - s0) * kc]
+                t0 = time.perf_counter()
+                # ids are in range: mode "clip" copies them as indexing does,
+                # without the temporary that mode "raise" makes for ``out``
+                np.take(host_vectors, safe[s0:s1].reshape(-1), axis=0, out=rows, mode="clip")
+                t1 = time.perf_counter()
+                parts.append(distance(s0, s1, rows.reshape(s1 - s0, kc, self.dim)))
+                t_gather, t_dist = t_gather + t1 - t0, t_dist + time.perf_counter() - t1
+            return parts, t_gather, t_dist
+
+        with tracing.span("store.host_rescore.rows", rows=b * kc) as sp:
+            if host_vectors is not None:
+                n_blocks = min(RESCORE_THREADS, -(-b * kc * self.dim // RESCORE_BLOCK_ELEMS))
+                done = _run_blocks(block, _row_blocks(b, n_blocks))
+                dd = np.concatenate([p for parts, _, _ in done for p in parts] or
+                                    [np.empty((0, kc), np.float32)])
+                sp.set(blocks=len(done), gather_ms=sum(d[1] for d in done) * 1e3,
+                       distance_ms=sum(d[2] for d in done) * 1e3)
+            else:  # the device bf16 tier: one fetch, one block
+                dd = distance(0, b, self._tier_vectors(host_vectors, rescore_rows,
+                                                       safe.reshape(-1)).reshape(b, kc, self.dim))
+        with tracing.span("store.host_rescore.select", k=min(k, kc)):
+            k_eff = min(k, kc)
+            part = np.argpartition(dd, k_eff - 1, axis=1)[:, :k_eff]
+            pd = np.take_along_axis(dd, part, axis=1)
+            order = np.argsort(pd, axis=1, kind="stable")
+            sel = np.take_along_axis(part, order, axis=1)
+            out_d = np.take_along_axis(dd, sel, axis=1).astype(np.float32)
+            out_i = np.take_along_axis(cand_ids, sel, axis=1)
+            out_i = np.where(out_d >= np.float32(3.0e38), -1, out_i)
         return out_d, out_i
 
     def search_by_distance(self, query: np.ndarray, max_distance: float,

@@ -39,6 +39,7 @@ Also here: the block-strided per-query allow bitmask of the reference
 
 from __future__ import annotations
 
+import functools
 import threading
 
 import numpy as np
@@ -646,7 +647,72 @@ def _launch_scan(name, g, b, qblock, device, *args):
 
 # -- bq_scan_reduce ------------------------------------------------------------
 
-BQ_QBLOCK = 32  # queries per CTA (csrc/bq_scan_reduce.cu)
+BQ_QBLOCK = 32  # queries per CTA of the popcount body (csrc/bq_scan_reduce.cu)
+BQ_TC_QBLOCKS = (8, 16, 32, 64, 128)  # queries per CTA of the tensor-core body
+_BQ_TC_STAGES, _BQ_TC_TILE, _BQ_TC_COLS = 4, 64, 128  # ring depth, MMA rows, columns a CTA
+_SMEM_MAX = 232448  # dynamic shared memory a block can use on an H100
+
+
+def bq_tc_smem(qn: int, w: int) -> int:
+    """Shared memory of the tensor-core body (csrc ``tc_smem``): the query
+    block's words and its all-ones rows, the two warpgroups' row rings,
+    the popcounts, the mbarrier."""
+    w8 = _pad_to(w, 8)
+    return (qn + 16) * w8 * 4 + 2 * _BQ_TC_STAGES * _BQ_TC_TILE * w8 * 4 + qn * 4 + 16
+
+
+def bq_qblock(b: int, w: int, out_w: int) -> int:
+    """The body the wrapper launches for ``b`` queries of ``w`` words: the
+    tensor-core body's query block (the smallest of BQ_TC_QBLOCKS that
+    holds B, at most 128, halved while its shared memory exceeds the
+    card's), or 0 for the popcount body, where even 8 queries do not fit
+    (W past ~100 words) or ``out_w`` is no multiple of 128."""
+    if out_w % _BQ_TC_COLS:
+        return 0
+    qn = next((n for n in BQ_TC_QBLOCKS if n >= b), BQ_TC_QBLOCKS[-1])
+    while qn >= BQ_TC_QBLOCKS[0] and bq_tc_smem(qn, w) > _SMEM_MAX:
+        qn //= 2
+    return qn if qn >= BQ_TC_QBLOCKS[0] else 0
+
+
+def bq_queries_to_pm1(q_bits: torch.Tensor, w: int, scale: int = 1) -> torch.Tensor:
+    """Packed query words [B, W] (int32 holding the uint32 bits) -> +-scale
+    int8 [B, 32W] in bit-plane order (column j*W + word): +scale where the
+    bit is 0, -scale where it is 1, so pm1 . x_bits = scale * sum x_d
+    (1 - 2 q_d) (reference ``pallas_kernels.bq_queries_to_pm1``; the
+    operand of the int8 product that chip_smoke.py times beside the
+    kernel)."""
+    shifts = torch.arange(32, dtype=torch.int64, device=q_bits.device)
+    q01 = ((_u32(q_bits)[:, None, :] >> shifts[None, :, None]) & 1).reshape(-1, 32 * w)
+    return (scale - 2 * scale * q01).to(torch.int8)
+
+
+@functools.lru_cache(maxsize=32)
+def _bq_ones(w: int, device) -> torch.Tensor:
+    """16 rows of W all-ones words, zero-padded to a multiple of 8 words."""
+    ones = torch.zeros((16, _pad_to(max(w, 1), 8)), dtype=torch.int32, device=device)
+    ones[:, :w] = -1  # all 32 bits set
+    return ones
+
+
+def bq_query_blocks(q_bits: torch.Tensor, qn: int) -> torch.Tensor:
+    """The CUDA kernel's query operand: ``q_bits`` [B, W] (int32 holding
+    the uint32 words) cut into blocks of ``qn`` queries, each followed by
+    16 all-ones rows (whose products give popc(x); wgmma's N = qn + 16
+    past 32 must be a multiple of 16), W zero-padded to a multiple of 8
+    words (one single-bit K step), and laid out as the tensor cores read
+    it from shared memory: [blocks][qn / 8 + 2 groups of
+    8 rows][W8 / 4 chunks of 16 bytes][8 rows][4 words], K-major core
+    matrices, zero past B. Returns the flat int32 tensor; one group
+    (32 * W8 bytes) is one bulk copy."""
+    b, w = q_bits.shape
+    w8 = _pad_to(max(w, 1), 8)
+    n_qb = -(-b // qn)
+    words = torch.nn.functional.pad(q_bits, (0, w8 - w, 0, n_qb * qn - b))
+    rows = torch.cat([words.reshape(n_qb, qn, w8),
+                      _bq_ones(w, q_bits.device).expand(n_qb, 16, w8)], dim=1)
+    return rows.reshape(n_qb, qn // 8 + 2, 8, w8 // 4, 4).permute(0, 1, 3, 2, 4) \
+        .contiguous().reshape(-1)
 
 
 def bq_geometry(n, w, b, reduce_l=128, transposed=False, sub_rows=None,
@@ -694,7 +760,8 @@ def bq_scan_reduce(q_bits: torch.Tensor, x_bits: torch.Tensor,
 
     Returns (vals [B, pn/L] f32 true hamming distances, dead and
     disallowed slots at MASKED_DISTANCE; ids [B, pn/L] int32 global rows).
-    CUDA tensors launch csrc/bq_scan_reduce.cu; CPU tensors take
+    CUDA tensors launch csrc/bq_scan_reduce.cu (its tensor-core body, or
+    the popcount body where ``bq_qblock`` says so); CPU tensors take
     ``bq_scan_reduce_plain``."""
     if q_bits.ndim != 2 or q_bits.dtype != torch.int32:
         raise ValueError(f"bq_scan_reduce: q_bits must be [B, W] int32, got "
@@ -708,14 +775,16 @@ def bq_scan_reduce(q_bits: torch.Tensor, x_bits: torch.Tensor,
         return bq_scan_reduce_plain(q_bits, x_bits, valid, reduce_l, transposed,
                                     sub_rows, allow_bits)
     g = bq_geometry(n, w, b, reduce_l, transposed, sub_rows, allow_bits is not None)
+    qn = bq_qblock(b, w, g.out_w)
     q_bits = q_bits.contiguous()
-    vec4 = int(not transposed and w % 4 == 0 and x_bits.data_ptr() % 16 == 0)
+    qm = None if qn == 0 else bq_query_blocks(q_bits, qn)
+    vec = int(not transposed and w % 4 == 0 and x_bits.data_ptr() % 16 == 0)
     valid = None if valid is None else valid.contiguous()
     bits = None if allow_bits is None else allow_bits.contiguous()
     return _launch_scan(
-        "bq_scan_reduce", g, b, BQ_QBLOCK, x_bits.device,
-        q_bits.data_ptr(), x_bits.data_ptr(), int(transposed), vec4,
-        _ptr(valid), _ptr(bits), 0 if bits is None else bits.shape[1], b, n, w)
+        "bq_scan_reduce", g, b, qn or BQ_QBLOCK, x_bits.device,
+        _ptr(qm), q_bits.data_ptr(), x_bits.data_ptr(), int(transposed), vec,
+        _ptr(valid), _ptr(bits), 0 if bits is None else bits.shape[1], b, n, w, qn)
 
 
 # -- pq4_scan_reduce -----------------------------------------------------------
