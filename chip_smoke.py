@@ -9,6 +9,8 @@ Run from the repository root:
                                          # and one approx batch, timed only
     python3 chip_smoke.py --bq-times     # phases 0-1, bq_scan_reduce at B = 1 / 8 /
                                          # 64 / 256, the prefix, the single-bit probe
+    python3 chip_smoke.py --block-times  # phases 0-1, pq4_lut_block and bm25_block
+                                         # checked and timed, the hybrid dispatch split
 
 It drives the port's flat nearVector path at VectorDBBench's
 Performance768D1M case (Cohere wiki-22-12: 1,000,000 x 768, cosine,
@@ -41,9 +43,14 @@ is downloaded), in phases:
    pq4_recon_block) at ragged shapes, then at 256 queries x the 1M-row
    corpus's sign words and 4-bit PQ codes with ~10% dead rows, then
    bq_mxu_block at the two shapes of tools/probe_r4.py; bq_mxu_block is
-   also held to bf16(exact hamming) at 768 dims. No path of the repo runs
-   bq_hamming_block or pq4_recon_block: their launches are counted in
-   this section's own window;
+   also held to bf16(exact hamming) at 768 dims; pq4_lut_block also at
+   LUT_CHECKS (ragged m up to 4,100, past the first design's cap, codes
+   past 15, subnormal, -0.0 and infinite entries, dead rows). bm25_block
+   at BM25_CHECKS (every term tile, T past one tile, terms outside [0,
+   T), the 8-row dispatch's shape as padded to ops/bm25.GRAPH_SHAPE),
+   timed from a CUDA graph. No path of the repo runs bq_hamming_block or
+   pq4_recon_block: their launches are counted in this section's own
+   window;
 3. index: FlatIndex on the card, 1M rows, 1,024 queries through the
    async batch entry point for selection "approx" (distance_block per
    group of 8192-row chunks, fused_topk_pairs per group) and "fused" (fused_topk_scan + fused_topk_pairs),
@@ -91,7 +98,11 @@ is downloaded), in phases:
    Every query of (b), (c) and (d) must take the device path (counted per
    query); every device answer is held to the host reference path
    (device_hybrid off), and every host-served query of (a) must exceed
-   the budget.
+   the budget. Then where a fused dispatch of 8 (b) rows goes
+   (hybrid_split): the dense scan, the stacking, the upload and program
+   on the host clock and CUDA events, and the card's memory after the
+   phase (``--block-times`` sets the first design's program and the
+   program's stages beside it).
 8. conformance: ``kernel_conformance(device="cuda")``
    (weaviate_tpu_torch/ops/conformance.py, bench.py's sec_conformance) at
    bench's 128 dims must return "ok", and must launch every kernel in
@@ -110,6 +121,7 @@ non-zero without that line. Without CUDA it exits 2 at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import shutil
@@ -143,6 +155,9 @@ DELETES, REQUERIES = 1000, 32
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 FP32_FLOPS = 67e12
+# f32 additions a second: an FADD takes the issue slot of an FMA, which
+# the FP32 rate counts as two operations
+FP32_ADDS = FP32_FLOPS / 2
 BF16_FLOPS = 989e12
 HBM_BYTES_S = 3.35e12
 
@@ -722,7 +737,7 @@ def phase_build(K) -> None:
         f"(nvcc sm_90a, in parallel); {'; '.join(regs)}")
     if hasattr(K, "kernel_residency"):  # absent from builds before the radix select
         log(f"phase 1 build: {residency_text(K)}")
-    for name in ("bq_scan_reduce", "pq4_scan_reduce"):
+    for name in ("bq_scan_reduce", "pq4_scan_reduce", "pq4_lut_block"):
         log(f"phase 1 build: {name} SASS: {_sass_summary(_build._lib_path(name))}")
 
 
@@ -1035,22 +1050,26 @@ def _pairs_checks(torch, K) -> None:
         f"[8,200000] past shared memory): ids and values equal to the plain version")
 
 
-def _bm25_operands(torch, rng, b, s, t, c):
+def _bm25_operands(torch, rng, b, s, t, c, wild=False, dev="cuda"):
     """Random operands of bm25_block on the card: integer term
     frequencies (60% zero), property lengths, boosts including 0, real
-    term indexes (every segment names a term below T) and idf, per-row
-    k1 / b with the host-rounded 1 - b, and ~90% live candidates."""
+    term indexes (every segment names a term below T, or with ``wild``
+    ~15% of them a term outside [0, T) and the terms out of order) and
+    idf, per-row k1 / b with the host-rounded 1 - b, and ~90% live
+    candidates."""
     from weaviate_tpu_torch.ops import kernels as K
 
-    dev = "cuda"
     tf = rng.integers(1, 6, (b, s, c)).astype(np.float32)
     tf[rng.random((b, s, c)) < 0.6] = 0.0
     k1 = rng.uniform(0.5, 2.0, b).astype(np.float32)
     bb = rng.uniform(0.0, 1.0, b).astype(np.float32)
+    term = rng.integers(0, t, (b, s)).astype(np.int32)
+    if wild:
+        odd = rng.random((b, s)) < 0.15
+        term[odd] = rng.choice(np.int32([-1, -7, t, t + 5, 2 ** 30]), int(odd.sum()))
     host = dict(
         seg_tf=tf, seg_len=rng.integers(1, 400, (b, s, c)).astype(np.float32),
-        seg_term=rng.integers(0, t, (b, s)).astype(np.int32),
-        seg_boost=rng.choice(np.float32([0.0, 0.5, 1.0, 2.0]), (b, s)),
+        seg_term=term, seg_boost=rng.choice(np.float32([0.0, 0.5, 1.0, 2.0]), (b, s)),
         seg_avg=rng.uniform(20.0, 200.0, (b, s)).astype(np.float32),
         idf=rng.uniform(0.0, 8.0, (b, t)).astype(np.float32), k1=k1, b=bb,
         omb=(np.float32(1.0) - bb).astype(np.float32))
@@ -1063,41 +1082,182 @@ def _bm25_operands(torch, rng, b, s, t, c):
 BM25_ARGS = ("seg_tf", "seg_len", "seg_term", "seg_boost", "seg_avg", "idf", "k1", "b",
              "omb", "cand_bits")
 BM25_SHAPE = (64, 16, 8, 4096)  # B, S, T, C of the hybrid path at its 4096 budget
+# one fused hybrid dispatch of 8 rows as the card runs it: its operands
+# padded up to ops/bm25.GRAPH_SHAPE (phase 7's split prints the padded
+# shape of its own dispatches)
+BM25_DISPATCH_SHAPE = (8, 64, 32, 4096)
+# (B, S, T, C, wild terms): ragged shapes, every term tile of the kernel
+# (8, 16, 32, 64 terms), T past one 64-term tile (T = 320 ending in a
+# partial tile, T = 512), terms out of order and outside [0, T), and an
+# 8-row dispatch's own pow2 shape before the padding
+BM25_CHECKS = ((1, 1, 1, 512, False), (3, 5, 3, 1024, False), (7, 13, 6, 1536, False),
+               (16, 32, 16, 2048, False), (2, 64, 64, 512, False), (33, 8, 8, 512, False),
+               (2, 640, 320, 512, False), (3, 1024, 512, 1024, False),
+               (4, 24, 24, 1024, True), (5, 40, 40, 512, True), (9, 300, 70, 1024, True),
+               (6, 12, 12, 1536, True), (8, 32, 16, 4096, False), BM25_DISPATCH_SHAPE + (False,),
+               BM25_SHAPE + (False,))
+
+
+def bm25_checks(torch, K, rng, dev="cuda") -> int:
+    """bm25_block against its plain version, bit for bit, at BM25_CHECKS:
+    both evaluate the host scorer's f32 operations in its order, so
+    equality is exact. Returns the number of shapes."""
+    for b, s, t, c, wild in BM25_CHECKS:
+        ops = _bm25_operands(torch, rng, b, s, t, c, wild, dev)
+        a = K.bm25_block(*(ops[n] for n in BM25_ARGS))
+        p = K.bm25_block_plain(*(ops[n] for n in BM25_ARGS))
+        if not torch.equal(a.view(torch.int32), p.view(torch.int32)):
+            bad = int((a != p).sum().item())
+            raise AssertionError(f"bm25_block [{b},{s},{t},{c}]{' wild' if wild else ''}: "
+                                 f"{bad} values differ from the plain version")
+    return len(BM25_CHECKS)
+
+
+def graph_ms(torch, K, fns, reps: int = 24) -> float:
+    """Mean ms of one call on the card without the host's cost of
+    launching it: ``reps`` calls, cycling through ``fns`` (operand sets
+    that together overflow the 50 MB L2, so each call reads its operands
+    from device memory), captured in one CUDA graph (the capture counts
+    no launch) and replayed between CUDA events."""
+    for fn in fns:  # warm-up, outside the graph
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with getattr(K, "recording_launches", contextlib.nullcontext)():
+        with torch.cuda.graph(g):
+            for i in range(reps):
+                fns[i % len(fns)]()
+    g.replay()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    g.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def bm25_time(torch, K, rng, timer, shape, plain: bool = True) -> dict:
+    """bm25_block timed at ``shape`` (B, S, T, C) beside its bound: both
+    planes and the scalars read once, the output written once; operations,
+    the reference kernel's cost estimate B*C*(4S + T(S+3)) at the FP32
+    rate. ``ms`` is the kernel on the card (graph_ms, operands from device
+    memory); ``call_ms`` the wrapper called from Python back to back, which
+    the host's launch path bounds at these sizes."""
+    b, s, t, c = shape
+    nbytes = 2 * b * s * c * 4 + 3 * b * s * 4 + b * t * 4 + 3 * b * 4 + b * c // 8 \
+        + b * c * 4
+    sets = [[o[n] for n in BM25_ARGS] for o in (
+        _bm25_operands(torch, rng, b, s, t, c) for _ in range(max(2, -(-120_000_000 // nbytes))))]
+    args = sets[0]
+    b_ms, b_by = bound_ms(nbytes, b * c * (4 * s + t * (s + 3)), FP32_FLOPS)
+    return dict(max_abs_err=0.0,
+                ms=graph_ms(torch, K, [lambda a=a: K.bm25_block(*a) for a in sets]),
+                call_ms=timer(lambda: K.bm25_block(*args), reps=50),
+                plain_ms=timer(lambda: K.bm25_block_plain(*args), reps=5) if plain else None,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
 def _bm25_kernel(torch, K, rng, timer) -> dict:
-    """bm25_block against its plain version on the card, bit for bit, at
-    ragged shapes and at the hybrid path's (64 rows x 16 segments x 8
-    terms x 4096 candidates): both evaluate the host scorer's f32
-    operations in its order, so equality is exact. Two shapes hold more
-    terms than one of the kernel's 64-term tiles, T = 320 ending in a
-    partial tile and T = 512."""
-    shapes = [(1, 1, 1, 512), (3, 5, 3, 1024), (7, 13, 6, 1536), (16, 32, 16, 2048),
-              (2, 64, 64, 512), (33, 8, 8, 512), (2, 640, 320, 512), (3, 1024, 512, 1024),
-              BM25_SHAPE]
-    for b, s, t, c in shapes:
-        ops = _bm25_operands(torch, rng, b, s, t, c)
-        a = K.bm25_block(*(ops[n] for n in BM25_ARGS))
-        p = K.bm25_block_plain(*(ops[n] for n in BM25_ARGS))
-        if not torch.equal(a, p):
-            bad = int((a != p).sum().item())
-            raise AssertionError(f"bm25_block [{b},{s},{t},{c}]: {bad} values differ "
-                                 "from the plain version")
-    b, s, t, c = BM25_SHAPE
-    args = [ops[n] for n in BM25_ARGS]
-    # bytes: both planes and the scalars read once, the output written once;
-    # operations: the reference kernel's cost estimate, B*C*(4S + T(S+3))
-    nbytes = 2 * b * s * c * 4 + 3 * b * s * 4 + b * t * 4 + 3 * b * 4 + b * c // 8 \
-        + b * c * 4
-    b_ms, b_by = bound_ms(nbytes, b * c * (4 * s + t * (s + 3)), FP32_FLOPS)
-    o = dict(max_abs_err=0.0, ms=timer(lambda: K.bm25_block(*args), reps=50),
-             plain_ms=timer(lambda: K.bm25_block_plain(*args), reps=5),
-             library_ms=None, bound_ms=b_ms, bound_by=b_by)
-    log(f"phase 2 kernels: bm25_block {len(shapes) - 1} ragged shapes and the hybrid "
-        f"path's [{b},{s},{t},{c}] (B, S, T, C): equal to the plain version bit for bit; "
-        f"kernel {o['ms']:.4f} ms, plain {o['plain_ms']:.4f} ms, library {NO_LIBRARY}, "
-        f"{_bound_text(o)}")
+    """bm25_block against its plain version on the card, bit for bit
+    (bm25_checks), then timed at the hybrid path's [64, 16, 8, 4096] and at
+    one 8-row dispatch's BM25_DISPATCH_SHAPE."""
+    from weaviate_tpu_torch.ops import bm25 as B
+
+    if getattr(B, "GRAPH_SHAPE", BM25_DISPATCH_SHAPE[1:]) != BM25_DISPATCH_SHAPE[1:]:
+        raise AssertionError(f"BM25_DISPATCH_SHAPE {BM25_DISPATCH_SHAPE} is not 8 rows at "
+                             f"ops/bm25.GRAPH_SHAPE {B.GRAPH_SHAPE}")
+    n = bm25_checks(torch, K, rng)
+    o = bm25_time(torch, K, rng, timer, BM25_SHAPE)
+    od = bm25_time(torch, K, rng, timer, BM25_DISPATCH_SHAPE, plain=False)
+    call_ms = o.pop("call_ms")
+    log(f"phase 2 kernels: bm25_block {n} shapes (ragged, every term tile, T past one tile, "
+        f"terms outside [0, T), the dispatch's {list(BM25_DISPATCH_SHAPE)} and the hybrid "
+        f"path's {list(BM25_SHAPE)} (B, S, T, C)): equal to the plain version bit for bit; "
+        f"at {list(BM25_SHAPE)} kernel {o['ms']:.4f} ms (CUDA graph of launches, operands "
+        f"from device memory; the wrapper called back to back {call_ms:.4f} ms), plain "
+        f"{o['plain_ms']:.4f} ms, library {NO_LIBRARY}, {_bound_text(o)}; at "
+        f"{list(BM25_DISPATCH_SHAPE)} kernel {od['ms']:.4f} ms (called {od['call_ms']:.4f}), "
+        f"{_bound_text(od)}")
     return o
+
+
+# pq4_lut_block beyond the main shape: (B, N, m, k, table, valid). Ragged m
+# (1, 3, 17, 33) and m past the first design's 3,632-segment cap, B off the
+# 64-query block, codes past k and past 15 (codes run to 17), tables of
+# bf16 subnormals, -0.0 and zeros ("tiny"), infinite entries ("inf": NaN
+# wherever the one-hot product meets 0 * inf), all-dead and partly dead rows
+LUT_CHECKS = ((1, 257, 1, 16, "normal", None), (3, 1000, 3, 12, "normal", "dead10"),
+              (65, 513, 17, 16, "tiny", "alldead"), (130, 2050, 33, 16, "tiny", "dead10"),
+              (5, 4099, 192, 16, "normal", "dead10"), (64, 777, 48, 16, "inf", None),
+              (70, 600, 40, 16, "inf", "dead10"), (7, 3001, 3700, 16, "normal", "dead10"),
+              (2, 1536, 4100, 9, "tiny", None))
+
+
+def _lut_table(rng, b, m, kc, kind) -> np.ndarray:
+    lut = (rng.standard_normal((b, m, kc)) * 3).astype(np.float32)
+    if kind == "tiny":  # bf16 subnormals j * 2**-133, -0.0 and zeros among small normals
+        sub = (rng.integers(-127, 128, (b, m, kc)) * 2.0 ** -133).astype(np.float32)
+        pick = rng.random((b, m, kc))
+        lut = np.where(pick < 0.6, sub, lut * np.float32(2.0 ** -120)).astype(np.float32)
+        lut[pick > 0.95] = -0.0
+    elif kind == "inf":
+        pick = rng.random((b, m, kc))
+        lut[pick < 0.002] = np.inf
+        lut[pick > 0.999] = -np.inf
+    return lut
+
+
+def _same_bits(torch, a, b, what) -> None:
+    """Equal bit for bit, NaN payloads aside: NaN in the same places, every
+    other entry the same bits."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        raise AssertionError(f"{what}: {a.dtype} {tuple(a.shape)} against the plain "
+                             f"version's {b.dtype} {tuple(b.shape)}")
+    an, bn = a.isnan(), b.isnan()
+    if not torch.equal(an, bn):
+        raise AssertionError(f"{what}: NaN at {int((an != bn).sum())} other places")
+    ia, ib = a[~an].view(torch.int16), b[~bn].view(torch.int16)
+    if not torch.equal(ia, ib):
+        raise AssertionError(f"{what}: {int((ia != ib).sum())} values differ from the "
+                             "plain version")
+
+
+def lut_checks(torch, K, rng, dev="cuda") -> int:
+    """pq4_lut_block against its plain version at LUT_CHECKS, bit for bit
+    (NaN payloads aside). Returns the number of cases run; a tree whose
+    kernel refuses m past its cap skips those."""
+    ran = 0
+    for b, n, m, kc, kind, vmode in LUT_CHECKS:
+        if m > getattr(K, "PQ4_LUT_MAX_SEGMENTS", m):
+            continue
+        lut = torch.from_numpy(_lut_table(rng, b, m, kc, kind)).to(dev)
+        codes = torch.from_numpy(rng.integers(0, 18, (n, m)).astype(np.uint8)).to(dev)
+        valid = None if vmode is None else torch.from_numpy(
+            rng.random(n) > (1.1 if vmode == "alldead" else 0.1)).to(dev)
+        _same_bits(torch, K.pq4_lut_block(lut, codes, valid),
+                   K.pq4_lut_block_plain(lut, codes, valid),
+                   f"pq4_lut_block [{b},{m},{kc}] x [{n},{m}] {kind} valid {vmode}")
+        ran += 1
+    return ran
+
+
+def lut_time(torch, K, lut, codes, valid, timer, plain: bool = True) -> dict:
+    """pq4_lut_block timed beside its bound: the f32 LUT, the codes and
+    valid read once, the bf16 output written once; operations, the
+    function's B*N*m f32 additions (the sum in segment order), each an
+    FADD at the FP32 issue rate. ``onehot_ms``: a design figure, the
+    one-hot product's 2*B*N*16m at the bf16 rate (the TPU kernel's MXU
+    product; the kernel issues it besides the additions)."""
+    b, m, _ = lut.shape
+    n = codes.shape[0]
+    b_ms, b_by = bound_ms(lut.numel() * 4 + codes.numel() + n + b * n * 2,
+                          float(b * n * m), FP32_ADDS)
+    return dict(max_abs_err=0.0, ms=timer(lambda: K.pq4_lut_block(lut, codes, valid), reps=5),
+                plain_ms=timer(lambda: K.pq4_lut_block_plain(lut, codes, valid), reps=1,
+                               warmup=0) if plain else None,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                onehot_ms=2.0 * b * n * 16 * m / BF16_FLOPS * 1e3)
 
 
 def _same_scan(torch, a, b, what) -> float:
@@ -1337,6 +1497,7 @@ def _block_kernels(torch, K, ops, qs, rng, timer) -> tuple[dict, dict]:
                         f"pq4_recon_block ragged {metric} [{b},{m * ds}] x [{n},{m}] ds {ds}",
                         tol=PQ_TOL)
         ragged += 1
+    lut_cases = lut_checks(torch, K, rng, dev)
 
     # the main path's shapes: 256 queries x 1,048,576 rows, 768 dims
     qw, xw = ops["qw"], ops["xw"]
@@ -1395,12 +1556,9 @@ def _block_kernels(torch, K, ops, qs, rng, timer) -> tuple[dict, dict]:
             torch, K.pq4_recon_block(qn, codes, cent, metric, valid),
             K.pq4_recon_block_plain(qn, codes, cent, metric, valid),
             f"pq4_recon_block {metric} [{b},{DIM}] x [{n},{m}]", tol=PQ_TOL))
-    b_ms, b_by = bound_ms(lut.numel() * 4 + codes.numel() + n + b * n * 2,
-                          2.0 * b * n * 16 * m, BF16_FLOPS)
-    out["pq4_lut_block"] = dict(
-        max_abs_err=0.0, ms=timer(lambda: K.pq4_lut_block(lut, codes, valid), reps=5),
-        plain_ms=timer(lambda: K.pq4_lut_block_plain(lut, codes, valid), reps=1, warmup=0),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    lt = lut_time(torch, K, lut, codes, valid, timer)
+    onehot = lt.pop("onehot_ms")
+    out["pq4_lut_block"] = lt
     # operations: the distance product only; the reconstruction is a gather
     b_ms, b_by = bound_ms(qn.numel() * 4 + codes.numel() + cent.numel() * 4 + n + b * n * 2,
                           2.0 * b * n * DIM, BF16_FLOPS)
@@ -1424,9 +1582,13 @@ def _block_kernels(torch, K, ops, qs, rng, timer) -> tuple[dict, dict]:
         f"{o['bq_mxu_block']['ms']:.3f} ms, plain {o['bq_mxu_block']['plain_ms']:.3f} ms, "
         f"{_bound_text(o['bq_mxu_block'])}; at the probe shapes {', '.join(probe)}")
     log(f"phase 2 kernels: lut [{b},{m},16] x codes [{n},{m}] with ~10% dead rows: "
-        f"pq4_lut_block equal to the plain version, kernel "
+        f"pq4_lut_block equal to the plain version there and at {lut_cases} more cases "
+        f"(LUT_CHECKS: ragged m up to 4100, codes past 15, subnormal / -0.0 / infinite "
+        f"entries, dead rows), kernel "
         f"{o['pq4_lut_block']['ms']:.3f} ms, plain {o['pq4_lut_block']['plain_ms']:.3f} ms, "
-        f"{_bound_text(o['pq4_lut_block'])}; pq4_recon_block l2/dot/cosine within "
+        f"{_bound_text(o['pq4_lut_block'])} (the exact sum's FADDs), the one-hot "
+        f"product at the bf16 rate {onehot:.3f} ms; "
+        f"pq4_recon_block l2/dot/cosine within "
         f"{PQ_TOL} x max(1, max|ref|) (max_abs_err {err:.3g}), {METRIC} kernel "
         f"{o['pq4_recon_block']['ms']:.3f} ms, plain {o['pq4_recon_block']['plain_ms']:.3f} ms, "
         f"{_bound_text(o['pq4_recon_block'])}; library {NO_LIBRARY}; launches in this window "
@@ -2305,6 +2467,8 @@ def phase_hybrid(torch, K, seed: int, db, n_docs: int) -> dict:
                                          None, None))
         plan_ms.append((time.perf_counter() - t2) * 1e3)
     fused_ms, dense_ms = [], []
+    batches = [(qvecs["b"][8 * r:8 * r + 8], ops[8 * r:8 * r + 8]) for r in range(8)]
+    split = hybrid_split(torch, idx, batches)
     for r in range(8):
         rows = qvecs["b"][8 * r:8 * r + 8]
         t2 = time.perf_counter()
@@ -2327,11 +2491,293 @@ def phase_hybrid(torch, K, seed: int, db, n_docs: int) -> dict:
         f"per device-served query: BM25 planning on the host "
         f"p50 {np.median(plan_ms):.2f} ms; a fused dispatch of 8 rows p50 "
         f"{np.median(fused_ms):.2f} ms against the dense scan alone (k 128) "
-        f"{np.median(dense_ms):.2f} ms")
+        f"{np.median(dense_ms):.2f} ms; the dispatch's split (one page-locked buffer with "
+        f"compact planes, one non-blocking copy, a CUDA graph of the program): {split}; "
+        f"device memory after the phase: {_memory_text(torch)}")
     for kn in ("bm25_block", "distance_block"):
         if counts[kn] <= 0:
             raise AssertionError(f"{kn} was not launched on the hybrid path")
     return counts
+
+
+# -- where a fused hybrid dispatch's time goes ----------------------------------
+
+# (module attribute, label, on the device): the stages of
+# FlatIndex.hybrid_batch_async and ops/bm25.hybrid_topk that the split
+# times, each wrapped while it runs
+SPLIT_STAGES = (("search_async", "dense scan", True),
+                ("stack_sparse_operands", "stack", False),
+                ("stack_dispatch_operands", "stack", False),
+                ("pack_to_device", "upload", True),
+                ("hybrid_program", "upload + program", True),
+                ("bm25_neg_scores", "bm25_block", True),
+                ("masked_candidate_topk", "sparse top-k", True), ("fuse_topk", "fusion", True))
+
+
+def _upload_per_array(pack: dict, device) -> dict:
+    """The first design's upload, kept to compare with: one pageable
+    ``.to(device)`` per stacked array (each waits for the stream)."""
+    import torch
+
+    from weaviate_tpu_torch.ops.kernels import as_bits_tensor
+
+    out = {}
+    for name, arr in pack.items():
+        if not isinstance(arr, np.ndarray):
+            continue
+        if name == "cand_bits":
+            out[name] = as_bits_tensor(np.array(arr), device)
+        else:
+            out[name] = torch.from_numpy(np.array(arr)).to(device)
+    return out
+
+
+def _memory_text(torch) -> str:
+    """The card's memory as PyTorch holds it, and the bytes the cached
+    hybrid CUDA graphs hold by their own estimate (ops/bm25.graph_bytes)."""
+    from weaviate_tpu_torch.ops import bm25 as B
+
+    gib = 1 << 30
+    text = (f"reserved {torch.cuda.memory_reserved() / gib:.3f} GiB, allocated "
+            f"{torch.cuda.memory_allocated() / gib:.3f} GiB")
+    if hasattr(B, "hybrid_graph_bytes"):
+        text += f", hybrid graphs {B.hybrid_graph_bytes() / gib:.3f} GiB (estimate)"
+    return text
+
+
+def _stacked_shape(pack) -> tuple:
+    """(B, S, T, C) that a stacking stage returned: the padded shape of
+    ``stack_dispatch_operands``, or the arrays' of ``stack_sparse_operands``."""
+    if "shape" in pack:
+        return tuple(int(x) for x in pack["shape"])
+    b, s, c = pack["seg_tf"].shape
+    return b, s, pack["idf"].shape[1], c
+
+
+def hybrid_split(torch, idx, batches, k: int = 16, first_design: bool = False) -> str:
+    """Where one fused hybrid dispatch goes: ``idx.hybrid_batch_async(rows,
+    k, None, ops).result()`` for each (rows, ops) of ``batches`` (the first
+    one warms up), with each stage of SPLIT_STAGES wrapped: its host time
+    (the enqueue; an upload that waits for the stream waits here) and, for
+    the device stages, CUDA events around it (the device's span of the
+    stage, gaps included where the host is slower than the device); then
+    the handle's ``.result()`` (the wait for the device and the copy back)
+    on the host clock. Medians in ms. ``first_design``: the program as
+    the first design ran it, to compare with: one pageable copy per
+    stacked array (``_upload_per_array``), then hybrid_topk's launches one
+    by one, no CUDA graph."""
+    from weaviate_tpu_torch.ops import bm25 as B
+
+    rec: dict = {}
+    stacked: set = set()
+    nest = threading.local()  # the stacking runs on another thread
+
+    def timed(label, fn, device):
+        def wrapper(*a, **kw):
+            if getattr(nest, "depth", 0):  # a stage inside another (fuse_topk's top-k)
+                return fn(*a, **kw)
+            nest.depth = 1
+            try:
+                e0 = torch.cuda.Event(enable_timing=True) if device else None
+                if e0 is not None:
+                    e0.record()
+                t0 = time.perf_counter()
+                r = fn(*a, **kw)
+                host = (time.perf_counter() - t0) * 1e3
+                if label == "stack":
+                    stacked.add(_stacked_shape(r))
+                e1 = torch.cuda.Event(enable_timing=True) if device else None
+                if e1 is not None:
+                    e1.record()
+                rec.setdefault(label, []).append((host, e0, e1))
+                return r
+            finally:
+                nest.depth = 0
+        return wrapper
+
+    saved = []
+    for attr, label, device in SPLIT_STAGES:
+        owner = idx.store if attr == "search_async" else B
+        fn = getattr(owner, attr, None)
+        if fn is None:  # a tree without this stage
+            continue
+        saved.append((owner, attr, owner.__dict__.get(attr)))
+        if first_design and attr == "stack_dispatch_operands":
+            # the first design's padded planes (B.stack_sparse_operands, timed
+            # as "stack" above)
+            setattr(owner, attr, lambda ops, b_pad, **_kw: {
+                "padded": B.stack_sparse_operands(ops, b_pad)})
+            continue
+        if first_design and attr == "hybrid_program":
+            setattr(owner, attr, lambda dn_d, dn_i, pack, kk: B.hybrid_topk(
+                dn_d, dn_i, B.pack_to_device(pack["padded"], dn_d.device), kk))
+            continue
+        if first_design and attr == "pack_to_device":
+            fn = _upload_per_array
+        setattr(owner, attr, timed(label, fn, device))
+    rows_of = []
+    walls, results = [], []
+    try:
+        for i, (rows, ops) in enumerate(batches):
+            rec_before = {lb: len(v) for lb, v in rec.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            h = idx.hybrid_batch_async(rows, k, None, ops)
+            t1 = time.perf_counter()
+            h.result()
+            t2 = time.perf_counter()
+            if i == 0:  # warm-up: drop its records
+                for lb in rec:
+                    del rec[lb][rec_before.get(lb, 0):]
+                continue
+            walls.append((t2 - t0) * 1e3)
+            results.append((t2 - t1) * 1e3)
+            live = [op for op in ops if op is not None]
+            rows_of.append((len(ops), max(op.seg_tf.shape[0] for op in live),
+                            max(len(op.idf) for op in live), max(len(op.slots) for op in live)))
+    finally:
+        for owner, attr, orig in saved:
+            if orig is None:
+                delattr(owner, attr)
+            else:
+                setattr(owner, attr, orig)
+    torch.cuda.synchronize()
+    parts = [f"wall p50 {np.median(walls):.3f} ms"]
+    for label, device in dict((lb, dv) for _a, lb, dv in SPLIT_STAGES).items():
+        got = rec.get(label, [])
+        if not got:
+            continue
+        text = f"{label} host {np.median([h for h, _e0, _e1 in got]):.3f}"
+        if device:
+            text += f" / device {np.median([e0.elapsed_time(e1) for _h, e0, e1 in got]):.3f}"
+        parts.append(text)
+    parts.append(f"result() wait + copy host {np.median(results):.3f}")
+    b, s_, t_, c_ = np.max(np.asarray(rows_of), axis=0)
+    shapes = " / ".join(str(list(sh)) for sh in sorted(stacked))
+    return (f"{len(walls)} dispatches of {b} rows (unpadded S <= {s_}, T <= {t_}, C <= {c_}; "
+            f"stacked and launched at (B, S, T, C) {shapes}): " + ", ".join(parts) + " ms")
+
+
+def hybrid_stages(torch, idx, rows, ops, k: int = 16) -> str:
+    """One dispatch's program stage by stage, each alone on an idle card
+    (synchronized before and after, CUDA events around it, so a stage's
+    time is the device's span of it, host gaps between its launches
+    included): the upload of the stacked operands, bm25_block, the sparse
+    top-k, the fusion and the copy back, launched as ``hybrid_topk``
+    launches them; then the whole program as a dispatch runs it
+    (``hybrid_program``: a CUDA graph's replay, where the tree has one).
+    Medians of 5 after a warm-up, in ms."""
+    from weaviate_tpu_torch.ops import bm25 as B
+    from weaviate_tpu_torch.ops.candidates import masked_candidate_topk
+
+    fetch = max([k] + [int(op.fetch) for op in ops if op is not None])
+    f_depth = 1 << max(0, fetch - 1).bit_length()
+    dn_d, dn_i = idx.store.search_async(rows, f_depth, None, keep_rows=True).arrays
+    pack = B.stack_sparse_operands(ops, len(rows))
+    times: dict = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        r = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.setdefault(name, []).append(e0.elapsed_time(e1))
+        return r
+
+    for _rep in range(6):
+        dev = stage("upload", lambda: B.pack_to_device(pack, dn_d.device))
+        neg = stage("bm25_block", lambda: B.bm25_neg_scores(*(dev[n] for n in BM25_ARGS)))
+        fs = min(neg.shape[1], dn_d.shape[1])
+        sp = stage("sparse top-k", lambda: masked_candidate_topk(neg, dev["slots"], fs))
+        fu = stage("fusion", lambda: B.fuse_topk(sp[0], sp[1], dn_d, dn_i, dev["alpha"],
+                                                 dev["kind"], dev["fetch"], k))
+        stage("copy back", lambda: (fu[0][:, :k].cpu(), fu[1][:, :k].cpu()))
+        if hasattr(B, "hybrid_program"):
+            packed = B.stack_dispatch_operands(ops, len(rows), shape=B.GRAPH_SHAPE,
+                                               pin=dn_d.is_cuda)
+            stage("whole program (one upload, graph replay)",
+                  lambda: B.hybrid_program(dn_d, dn_i, packed, k))
+    return ", ".join(f"{name} {np.median(v[1:]):.3f}" for name, v in times.items()) + " ms"
+
+
+def synthetic_hybrid(torch, seed: int, n_docs: int = FIQA_DOCS, dispatches: int = 9,
+                     dev: str = "cuda"):
+    """A flat cosine index of ``n_docs`` random 768-d rows on the card and
+    ``dispatches`` batches of 8 hybrid rows with random FiQA-like sparse
+    operands (8 query terms over two properties, 1,000-4,000 candidates),
+    for timing the fused dispatch without phase 7's text import."""
+    from weaviate_tpu_torch.engine.flat import FlatIndex
+    from weaviate_tpu_torch.ops.bm25 import SparseOperand, fusion_kind
+
+    rng = np.random.default_rng([seed, 11])
+    cent = centers(seed)
+    idx = FlatIndex(DIM, METRIC, capacity=1 << 16, device=dev)
+    for s in range(0, n_docs, 16384):
+        n = min(16384, n_docs - s)
+        idx.add_batch(np.arange(s, s + n), clustered(seed + 3, s, n, cent))
+    batches = []
+    for d in range(dispatches):
+        ops = []
+        for r in range(8):
+            t = 8
+            c = int(rng.integers(1000, HYBRID_BUDGET + 1))
+            docs = np.sort(rng.choice(n_docs, c, replace=False)).astype(np.int64)
+            tf = rng.integers(1, 4, (2 * t, c)).astype(np.float32)
+            tf[rng.random((2 * t, c)) < 0.8] = 0.0
+            fusion, alpha = HYBRID_SETTINGS[(8 * d + r) % 3]
+            ops.append(SparseOperand(
+                docs, idx.slots_for_doc_ids(docs), tf,
+                rng.integers(1, 300, (2 * t, c)).astype(np.float32),
+                np.repeat(np.arange(t, dtype=np.int32), 2),
+                np.tile(np.float32([1.0, 1.0]), t), np.tile(np.float32([6.0, 132.0]), t),
+                rng.uniform(0.5, 8.0, t).astype(np.float32), 1.2, 0.75,
+                float(np.float32(1.0) - np.float32(0.75)), alpha, fusion_kind(fusion),
+                max(HYBRID_K * 10, 100)))
+        rows = clustered(seed + 5, 8 * d, 8, cent)
+        batches.append((rows, ops))
+    return idx, batches
+
+
+def block_times(torch, K, seed: int, timer) -> list[str]:
+    """``--block-times``: pq4_lut_block and bm25_block held to their plain
+    versions (LUT_CHECKS, the 1M-row shape; BM25_CHECKS) and timed at the
+    main and dispatch shapes, then the fused hybrid dispatch's split on a
+    synthetic FiQA-sized index. Returns one text part each."""
+    from weaviate_tpu_torch.ops import bm25 as B
+
+    rng = np.random.default_rng([seed, 2])
+    dev = "cuda"
+    parts = [f"pq4_lut_block equal to the plain version at {lut_checks(torch, K, rng)} "
+             f"LUT_CHECKS cases"]
+    n, m = 1 << 20, DIM // 4
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    codes = torch.randint(0, 16, (n, m), dtype=torch.uint8, device=dev, generator=gen)
+    lut = torch.randn((BATCH, m, 16), device=dev, generator=gen) * 3
+    valid = torch.rand(n, device=dev, generator=gen) > 0.1
+    _same_bits(torch, K.pq4_lut_block(lut, codes, valid), K.pq4_lut_block_plain(lut, codes, valid),
+               f"pq4_lut_block [{BATCH},{m},16] x [{n},{m}]")
+    o = lut_time(torch, K, lut, codes, valid, timer, plain=False)
+    parts.append(f"pq4_lut_block [{BATCH},{m},16] x [{n},{m}] equal to the plain version; "
+                 f"kernel {o['ms']:.3f} ms, {_bound_text(o)} (the exact sum's FADDs), the "
+                 f"one-hot product at the bf16 rate {o['onehot_ms']:.3f} ms")
+    del codes, lut, valid
+    parts.append(f"bm25_block equal to the plain version at {bm25_checks(torch, K, rng)} "
+                 "BM25_CHECKS shapes")
+    for shape in (BM25_SHAPE, BM25_DISPATCH_SHAPE):
+        o = bm25_time(torch, K, rng, timer, shape, plain=False)
+        parts.append(f"bm25_block {list(shape)}: {o['ms']:.4f} ms (CUDA graph of launches; "
+                     f"the wrapper called back to back {o['call_ms']:.4f}), {_bound_text(o)}")
+    idx, batches = synthetic_hybrid(torch, seed)
+    parts.append("fused dispatch split, synthetic FiQA-sized index: "
+                 + hybrid_split(torch, idx, batches))
+    if hasattr(B, "hybrid_program"):
+        parts.append("the first design's program on the same index (padded planes, "
+                     "per-array pageable uploads, launches one by one): "
+                     + hybrid_split(torch, idx, batches, first_design=True))
+    parts.append("the program's stages alone: " + hybrid_stages(torch, idx, *batches[1]))
+    return parts
 
 
 def phase_conformance(K) -> dict:
@@ -2369,6 +2815,10 @@ def main() -> int:
                     "(ragged shapes, the 1M-row shape, the prefix), time it at B = 1, 8, 64, "
                     "256 and on the prefix beside the _int_mm yardstick, and run the "
                     "single-bit wgmma probe (no result line)")
+    ap.add_argument("--block-times", action="store_true",
+                    help="only build the kernels, hold pq4_lut_block and bm25_block to their "
+                    "plain versions, time them at the main and dispatch shapes and print "
+                    "the fused hybrid dispatch's split on a synthetic index (no result line)")
     ap.add_argument("--dist-times", action="store_true",
                     help="only build the kernels and time distance_block, "
                     "pq4_scan_reduce and one approx batch (no checks, no result line)")
@@ -2421,6 +2871,11 @@ def main() -> int:
             "ragged shapes, the main shape and the prefix")
         for part in bq_times(torch, K, qw, xw, vmask, Timer(torch)) + bq_probe(torch):
             log(f"bq times: {part}")
+        log(f"card after (SM clock, max SM clock, power, temperature): {card_clocks()}")
+        return 0
+    if args.block_times:
+        for part in block_times(torch, K, args.seed, Timer(torch)):
+            log(f"block times: {part}")
         log(f"card after (SM clock, max SM clock, power, temperature): {card_clocks()}")
         return 0
     if args.dist_times:

@@ -1,9 +1,9 @@
 // Hopper building blocks shared by the kernels that run on the tensor
-// cores' integer paths (pq4_scan_reduce.cu, bq_scan_reduce.cu): cp.async
-// and bulk copies completing on an mbarrier, and the warpgroup MMAs
-// wgmma.mma_async.m64n64k32.s32.s8.s8 (A from registers, B from shared
-// memory) and m64nNk256.s32.b1.b1.and.popc (both from shared memory).
-// sm_90a only.
+// cores (pq4_scan_reduce.cu, bq_scan_reduce.cu, pq4_lut_block.cu):
+// cp.async and bulk copies completing on an mbarrier, and the warpgroup
+// MMAs wgmma.mma_async.m64n64k32.s32.s8.s8 and m64n64k16.f32.bf16.bf16
+// (A from registers, B from shared memory) and
+// m64nNk256.s32.b1.b1.and.popc (both from shared memory). sm_90a only.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -68,8 +68,11 @@ __device__ __forceinline__ uint64_t desc_of(uint32_t saddr, uint32_t lbo, uint32
          ((uint64_t)(sbo >> 4) << 32);
 }
 
-// keeps the compiler from moving reads of an accumulator across a wait
+// keeps the compiler from moving reads of an accumulator across a wait,
+// and an MMA's register operand live until the wait that retires it
 __device__ __forceinline__ void fence_operand(int& r) { asm volatile("" : "+r"(r)::"memory"); }
+__device__ __forceinline__ void fence_operand(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
+__device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
 
 // d[64 rows x 64] (+)= a (this warp's 16 rows x 32, registers) . B
 // (descriptor); ``acc`` 0 overwrites d. A thread of warp w holds rows
@@ -88,6 +91,26 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[32], const uint32_t (&a)[4], u
         "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
         "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
         "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+}
+
+// d[64 rows x 64] (+)= a (this warp's 16 rows x 16, bf16 pairs in
+// registers) . B (descriptor, bf16, K-major), f32; ``acc`` 0 overwrites d
+// (scale-d), and the product is then the MMA's own sum of 16 products. A
+// thread of warp w holds rows 16w + g and 16w + g + 8 (g = lane / 4) in
+// a[0] / a[1] (k = 2t, 2t + 1, t = lane % 4, the lower k in the low half)
+// and a[2] / a[3] (k = 8 + 2t, 9 + 2t); d is laid out as for wgmma_s8.
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
+                                           int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
 }
 

@@ -274,15 +274,16 @@ class FlatIndex:
         program (``ops/bm25.py::hybrid_topk``) — one dispatch chain, one
         device->host copy through the returned handle. ``sparse_ops`` is
         a per-row list of ``SparseOperand`` (None = pure-vector row
-        riding the same batch). Returns None when the device hybrid path
-        can't take the request (unsupported store) — callers fall back to
-        the host hybrid path.
+        riding the same batch); ``ops/bm25.hybrid_program`` runs the
+        program (a CUDA graph per batch size on the card). Returns
+        None when the device hybrid path can't take the request
+        (unsupported store) — callers fall back to the host hybrid path.
 
         A filter always takes the store's bitmask path, even a shared one
         or a batch of one: the gathered path's finish step remaps slots
         on the HOST, which would break the on-device fusion."""
-        from weaviate_tpu_torch.ops.bm25 import (hybrid_topk, pack_to_device,
-                                                 stack_sparse_operands)
+        from weaviate_tpu_torch.ops.bm25 import (GRAPH_SHAPE, hybrid_program,
+                                                 stack_dispatch_operands)
 
         if not self.supports_device_hybrid:
             return None
@@ -307,10 +308,13 @@ class FlatIndex:
                 handle = self.store.search_async(queries, f_depth,
                                                  allow_mask, keep_rows=True)
                 dn_d, dn_i = handle.arrays
-                pack = pack_to_device(
-                    stack_sparse_operands(sparse_ops, len(queries)),
-                    dn_d.device)
-                d, i = hybrid_topk(dn_d, dn_i, pack, k)
+                # one page-locked buffer, sent with one non-blocking copy
+                # (no wait on the dense scan just dispatched), then the
+                # program's CUDA graph
+                pack = stack_dispatch_operands(
+                    sparse_ops, len(queries),
+                    shape=GRAPH_SHAPE if dn_d.is_cuda else None, pin=dn_d.is_cuda)
+                d, i = hybrid_program(dn_d, dn_i, pack, k)
                 table = self._slot_to_id  # replaced wholesale by compact
 
         def _resolve(d_np, i_np, _table=table):

@@ -11,7 +11,10 @@ kernel scores them (``ops/kernels.py``; its plain version on the CPU),
 the sparse top-k rides the shared candidate plane
 (``ops/candidates.masked_candidate_topk``), and fusion with the dense leg
 is a device merge (``fuse_topk``) that mirrors ``text/hybrid.py`` — the
-host implementations are the parity oracle.
+host implementations are the parity oracle. A dispatch stacks its
+operands into one host buffer, sends it with one copy and, on the card,
+replays the plane expansion, scoring, top-k and fusion as a CUDA graph
+(``hybrid_program``).
 
 Layout (the ``pack_allow_bitmask`` MASK_BLOCK discipline):
 
@@ -35,13 +38,19 @@ plain XLA in the JAX package.
 
 from __future__ import annotations
 
+import math
+import threading
+from collections import OrderedDict
+from types import SimpleNamespace
+
 import numpy as np
 import torch
 
 from weaviate_tpu_torch.ops.candidates import masked_candidate_topk
 from weaviate_tpu_torch.ops.distances import MASKED_DISTANCE
 from weaviate_tpu_torch.ops.kernels import (MASK_BLOCK, as_bits_tensor, bm25_block,
-                                            pack_allow_bitmask)
+                                            count_launches, pack_allow_bitmask,
+                                            recording_launches)
 
 #: fusion kinds, matching text/hybrid.py's two reference implementations
 FUSION_RANKED = 0
@@ -94,18 +103,22 @@ def _bucket(n: int, lo: int) -> int:
     return p
 
 
+def _padded_shape(ops, b_pad: int):
+    """(B, S, T, C) of a stacked batch: the rows, segments and terms
+    bucket to pow2, the candidates to MASK_BLOCK multiples."""
+    live = [op for op in ops if op is not None]
+    c_pad = _bucket(max((len(op.slots) for op in live), default=1), MASK_BLOCK)
+    s_pad = _bucket(max((op.seg_tf.shape[0] for op in live), default=1), 8)
+    t_pad = _bucket(max((len(op.idf) for op in live), default=1), 8)
+    return max(b_pad, len(ops)), s_pad, t_pad, c_pad
+
+
 def stack_sparse_operands(ops, b_pad: int) -> dict:
     """Stack per-row operands (entries may be None — pure-vector rows)
     into one padded batch dict of host arrays. Shapes bucket to pow2, the
     candidate axis pads to MASK_BLOCK multiples and liveness packs
     block-strided for the kernel."""
-    live = [op for op in ops if op is not None]
-    c_pad = _bucket(max((len(op.slots) for op in live), default=1),
-                    MASK_BLOCK)
-    s_pad = _bucket(max((op.seg_tf.shape[0] for op in live), default=1), 8)
-    t_pad = _bucket(max((len(op.idf) for op in live), default=1), 8)
-    b_pad = max(b_pad, len(ops))
-
+    b_pad, s_pad, t_pad, c_pad = _padded_shape(ops, b_pad)
     slots = np.full((b_pad, c_pad), -1, np.int32)
     seg_tf = np.zeros((b_pad, s_pad, c_pad), np.float32)
     seg_len = np.zeros((b_pad, s_pad, c_pad), np.float32)
@@ -275,3 +288,268 @@ def hybrid_topk(dn_d, dn_i, pack: dict, k: int):
     out_d = torch.where(hyb, f_d[:, :k], dn_d[:, :k])
     out_i = torch.where(hyb, f_i[:, :k], dn_i[:, :k].to(f_i.dtype))
     return out_d, out_i
+
+
+# -- the dispatch's operands: one page-locked buffer, the planes compact -----
+#
+# A dispatch sends the batch in ONE copy: the small operands at their
+# padded shapes, then each row's [S_i, C_i] tf and len blocks back to back
+# (no padding: the planes are most of the bytes, and most of the padded
+# planes are zero). The device expands the planes to [B, S, C].
+
+#: the shape (segments, terms, candidates) a dispatch on the card is padded
+#: up to when its operands fit in it, so that a few CUDA graphs (one per
+#: batch size, dense depth and k) serve every dispatch that fits; any
+#: other runs eagerly. Padding more adds exactly nothing: a segment with
+#: tf 0 adds +0.0, a term with idf 0 adds +0.0, a dead candidate column
+#: never surfaces.
+GRAPH_SHAPE = (64, 32, 4096)
+
+_TORCH_DTYPES = {np.dtype(np.float32): torch.float32, np.dtype(np.int32): torch.int32,
+                 np.dtype(np.uint32): torch.int32, np.dtype(np.int64): torch.int64,
+                 np.dtype(np.bool_): torch.bool}
+
+
+def _dispatch_layout(b_pad: int, s_pad: int, t_pad: int, c_pad: int, n: int):
+    """(name, dtype, shape, fill, byte offset) of each operand in the one
+    buffer, 16-byte aligned, and the buffer's bytes. ``rows`` holds each
+    row's (S_i, C_i, offset of its blocks), ``planes`` the tf blocks then
+    the len blocks (n elements each)."""
+    f32, i32 = np.float32, np.int32
+    fields = (
+        ("slots", i32, (b_pad, c_pad), -1),
+        ("cand_bits", np.uint32, (b_pad, c_pad // 32), 0),
+        ("seg_term", i32, (b_pad, s_pad), 0),
+        ("seg_boost", f32, (b_pad, s_pad), 0.0),
+        ("seg_avg", f32, (b_pad, s_pad), 1.0),
+        ("idf", f32, (b_pad, t_pad), 0.0),
+        ("k1", f32, (b_pad,), 1.0),
+        ("b", f32, (b_pad,), 0.0),
+        ("omb", f32, (b_pad,), 1.0),
+        ("alpha", f32, (b_pad,), 1.0),   # pad rows: dense-only
+        ("kind", i32, (b_pad,), 0),
+        ("fetch", i32, (b_pad,), 1),
+        ("is_hybrid", np.bool_, (b_pad,), False),
+        ("rows", np.int64, (b_pad, 3), 0),
+        ("n", np.int64, (1,), 0),
+        ("planes", f32, (2 * max(n, 1),), 0.0),
+    )
+    out, off = [], 0
+    for name, dt, shape, fill in fields:
+        out.append((name, dt, shape, fill, off))
+        off += -(-math.prod(shape) * np.dtype(dt).itemsize // 16) * 16
+    return out, off
+
+
+def _views(buf, layout, numpy: bool) -> dict:
+    out = {}
+    for name, dt, shape, _fill, off in layout:
+        size = math.prod(shape) * np.dtype(dt).itemsize
+        if numpy:
+            out[name] = buf[off:off + size].view(dt).reshape(shape)
+        else:
+            out[name] = buf[off:off + size].view(_TORCH_DTYPES[np.dtype(dt)]).view(shape)
+    return out
+
+
+def stack_dispatch_operands(ops, b_pad: int, shape=None, pin: bool = False) -> dict:
+    """One dispatch's operands (entries of ``ops`` may be None — pure-vector
+    rows) in ONE uint8 host buffer (page-locked from PyTorch's caching host
+    allocator when ``pin``): the arrays of ``stack_sparse_operands`` save
+    the two planes, which go compact. ``shape`` (S, T, C), when the
+    operands fit in it, replaces their own pow2 buckets. Returns the
+    buffer, the padded (B, S, T, C) and n, the elements of each plane's
+    compact blocks."""
+    b_pad, s_pad, t_pad, c_pad = _padded_shape(ops, b_pad)
+    if shape is not None and s_pad <= shape[0] and t_pad <= shape[1] and c_pad <= shape[2]:
+        s_pad, t_pad, c_pad = shape
+    n = sum(op.seg_tf.size for op in ops if op is not None)
+    layout, nbytes = _dispatch_layout(b_pad, s_pad, t_pad, c_pad, n)
+    buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=pin)
+    out = _views(buf.numpy(), layout, numpy=True)
+    for name, _dt, _shape, fill, _off in layout:
+        if name != "planes":
+            out[name].fill(fill)
+    planes, off = out["planes"], 0
+    for row, op in enumerate(ops):
+        if op is None:
+            continue
+        s, c = op.seg_tf.shape
+        t = len(op.idf)
+        out["slots"][row, :c] = op.slots
+        out["seg_term"][row, :s] = op.seg_term
+        out["seg_boost"][row, :s] = op.seg_boost
+        out["seg_avg"][row, :s] = op.seg_avg
+        out["idf"][row, :t] = op.idf
+        out["k1"][row] = op.k1
+        out["b"][row] = op.b
+        out["omb"][row] = op.one_minus_b
+        out["alpha"][row] = op.alpha
+        out["kind"][row] = op.fusion
+        out["fetch"][row] = op.fetch
+        out["is_hybrid"][row] = True
+        out["rows"][row] = (s, c, off)
+        planes[off:off + s * c] = op.seg_tf.ravel()
+        planes[n + off:n + off + s * c] = op.seg_len.ravel()
+        off += s * c
+    out["n"][0] = n
+    # block-strided candidate liveness (MASK_BLOCK discipline)
+    out["cand_bits"][...] = pack_allow_bitmask(out["slots"] >= 0, c_pad)
+    return {"buffer": buf, "shape": (b_pad, s_pad, t_pad, c_pad), "n": n}
+
+
+def _expand_planes(planes, rows, n, s_pad: int, c_pad: int):
+    """[B, S, C] tf and len from the rows' compact blocks: row i's block
+    at its offset, zero past (S_i, C_i)."""
+    dev = planes.device
+    s = torch.arange(s_pad, device=dev)[None, :, None]
+    c = torch.arange(c_pad, device=dev)[None, None, :]
+    s_i, c_i, off = (rows[:, j, None, None] for j in range(3))
+    live = (s < s_i) & (c < c_i)
+    idx = torch.where(live, off + s * c_i + c, 0)
+    zero = torch.zeros((), dtype=planes.dtype, device=dev)
+    return torch.where(live, planes[idx], zero), torch.where(live, planes[idx + n], zero)
+
+
+def _device_operands(dev, pack: dict, n_cap: int) -> dict:
+    """The operands of ``hybrid_topk`` from the buffer's copy ``dev``
+    (whose planes region holds 2 * n_cap floats): views of it, and the
+    two planes expanded to [B, S, C]."""
+    b_pad, s_pad, t_pad, c_pad = pack["shape"]
+    layout, _ = _dispatch_layout(b_pad, s_pad, t_pad, c_pad, n_cap)
+    out = _views(dev, layout, numpy=False)
+    out["seg_tf"], out["seg_len"] = _expand_planes(out.pop("planes"), out.pop("rows"),
+                                                   out.pop("n"), s_pad, c_pad)
+    return out
+
+
+def dispatch_to_device(pack: dict, device) -> dict:
+    """``stack_dispatch_operands``' buffer on ``device`` in ONE copy
+    (non-blocking from page-locked memory, on the current stream) and the
+    operands of ``hybrid_topk`` made from it. On the CPU the views share
+    the host buffer."""
+    return _device_operands(pack["buffer"].to(device, non_blocking=True), pack, pack["n"])
+
+
+#: bytes per [B, S, C] element that a graph's private pool may hold for
+#: the plane expansion (``_expand_planes``: a bool, three int64 and four
+#: f32 intermediates), on top of its operand buffer
+_EXPAND_BYTES = 1 + 3 * 8 + 4 * 4
+
+
+def graph_bytes(shape) -> int:
+    """The device bytes a CUDA graph of ``hybrid_topk`` at the padded
+    (B, S, T, C) ``shape`` holds at most: its operand buffer (planes for
+    the full shape) and the plane expansion's intermediates. An estimate
+    from above; the [B, C]-sized rest of the program is small beside it."""
+    b_pad, s_pad, _t, c_pad = shape
+    _, nbytes = _dispatch_layout(*shape, b_pad * s_pad * c_pad)
+    return nbytes + b_pad * s_pad * c_pad * _EXPAND_BYTES
+
+
+class _HybridGraphs:
+    """``hybrid_topk`` on the card as CUDA graphs, one per (batch, dense
+    depth, k) of a dispatch padded to ``GRAPH_SHAPE``: the plane expansion,
+    the kernel, the sparse top-k and the fusion (~110 small launches)
+    replay for the host cost of a handful, and the host is what a fused
+    dispatch waits on. Any other shape runs eagerly.
+
+    A call copies its operands into the graph's own buffers, replays it
+    and clones the outputs on the caller's stream, then records an event
+    there; the next call of that graph, from any stream, makes its copies
+    wait for that event, so a replay still reading the buffers is never
+    overwritten. The first call of a key runs the program eagerly (its
+    answer), then captures it on a side stream.
+
+    The graphs together hold at most ``max_bytes`` (``graph_bytes``, an
+    estimate from above): the least recently used go first, and a key
+    whose graph alone would not fit runs eagerly."""
+
+    MAX_BYTES = 2 << 30
+
+    def __init__(self, max_bytes: int = MAX_BYTES):
+        self.max_bytes = max_bytes
+        self.bytes = 0
+        self._graphs: OrderedDict = OrderedDict()  # least recently used first
+        self._lock = threading.Lock()
+
+    def _admit(self, key, nbytes: int) -> bool:
+        """Make room for a graph of ``nbytes`` under ``key``, evicting the
+        least recently used (each after its last replay has finished);
+        False when it alone exceeds the budget."""
+        if nbytes > self.max_bytes:
+            return False
+        while self.bytes + nbytes > self.max_bytes:
+            _key, old = self._graphs.popitem(last=False)
+            old.done.synchronize()
+            self.bytes -= old.nbytes
+        return True
+
+    def __call__(self, dn_d, dn_i, pack: dict, k: int):
+        dev = dn_d.device
+        if pack["shape"][1:] != GRAPH_SHAPE:
+            return hybrid_topk(dn_d, dn_i, dispatch_to_device(pack, dev), k)
+        key = (dev.index, k, tuple(dn_d.shape), dn_d.dtype, tuple(dn_i.shape), dn_i.dtype,
+               pack["shape"])
+        cur = torch.cuda.current_stream(dev)
+        with self._lock:
+            g = self._graphs.get(key)
+            if g is not None:
+                self._graphs.move_to_end(key)
+                cur.wait_event(g.done)
+                g.dn_d.copy_(dn_d)
+                g.dn_i.copy_(dn_i)
+                g.buf[:pack["buffer"].numel()].copy_(pack["buffer"], non_blocking=True)
+                g.graph.replay()
+                count_launches(g.launches)
+                out = g.out_d.clone(), g.out_i.clone()
+                g.done.record(cur)
+                return out
+            nbytes = graph_bytes(pack["shape"])
+            if not self._admit(key, nbytes):
+                return hybrid_topk(dn_d, dn_i, dispatch_to_device(pack, dev), k)
+            b_pad, s_pad, _t, c_pad = pack["shape"]
+            n_cap = b_pad * s_pad * c_pad  # the most planes the shape can hold
+            _, buf_bytes = _dispatch_layout(*pack["shape"], n_cap)
+            g = SimpleNamespace(buf=torch.zeros(buf_bytes, dtype=torch.uint8, device=dev),
+                                dn_d=dn_d.clone(), dn_i=dn_i.clone(),
+                                graph=torch.cuda.CUDAGraph(), done=torch.cuda.Event(),
+                                nbytes=nbytes)
+            g.buf[:pack["buffer"].numel()].copy_(pack["buffer"], non_blocking=True)
+            # this call's answer, launched as usual; it also warms the ops up
+            out = hybrid_topk(g.dn_d, g.dn_i, _device_operands(g.buf, pack, n_cap), k)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side), recording_launches() as names:
+                g.graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    g.out_d, g.out_i = hybrid_topk(
+                        g.dn_d, g.dn_i, _device_operands(g.buf, pack, n_cap), k)
+                finally:
+                    g.graph.capture_end()
+            cur.wait_stream(side)
+            g.done.record(cur)
+            g.launches = tuple(names)
+            self._graphs[key] = g
+            self.bytes += nbytes
+            return out
+
+
+_GRAPHS = _HybridGraphs()
+
+
+def hybrid_graph_bytes() -> int:
+    """The device bytes the cached hybrid graphs hold (``graph_bytes``)."""
+    return _GRAPHS.bytes
+
+
+def hybrid_program(dn_d, dn_i, pack: dict, k: int):
+    """The fused hybrid program of one dispatch: ``stack_dispatch_operands``'
+    buffer sent in one copy, then ``hybrid_topk`` against the dense leg's
+    device-resident (dn_d, dn_i). On the card it replays a CUDA graph of
+    the program at ``GRAPH_SHAPE`` (``_HybridGraphs``), on the caller's
+    stream; on the CPU, and at any other shape, it runs it as is. No host
+    synchronisation."""
+    if dn_d.device.type != "cuda":
+        return hybrid_topk(dn_d, dn_i, dispatch_to_device(pack, dn_d.device), k)
+    return _GRAPHS(dn_d, dn_i, pack, k)

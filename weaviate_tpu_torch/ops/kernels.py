@@ -39,6 +39,7 @@ Also here: the block-strided per-query allow bitmask of the reference
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import threading
 
@@ -60,11 +61,35 @@ launch_counts = {"distance_block": 0, "fused_topk_scan": 0,
                  "pq4_scan_reduce": 0, "bm25_block": 0, "bq_hamming_block": 0,
                  "bq_mxu_block": 0, "pq4_lut_block": 0, "pq4_recon_block": 0}
 _count_lock = threading.Lock()
+_recording = threading.local()
 
 
 def _count(name: str) -> None:
+    names = getattr(_recording, "names", None)
+    if names is not None:  # a CUDA graph's capture: nothing is launched yet
+        names.append(name)
+        return
     with _count_lock:
         launch_counts[name] += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """While a CUDA graph is captured on this thread, the wrappers launch
+    nothing: collect the names they would count instead, for
+    ``count_launches`` at each replay of the graph."""
+    _recording.names = []
+    try:
+        yield _recording.names
+    finally:
+        _recording.names = None
+
+
+def count_launches(names) -> None:
+    """One replay of a captured graph launches each kernel in ``names``."""
+    with _count_lock:
+        for name in names:
+            launch_counts[name] += 1
 
 
 def reset_launch_counts() -> None:
@@ -1002,13 +1027,6 @@ def bm25_block(seg_tf: torch.Tensor, seg_len: torch.Tensor, seg_term: torch.Tens
 # only up to 256, so past 256 bits ``bq_mxu_block`` is the exact hamming
 # rounded to bf16.
 
-# pq4_lut_block holds a block of queries' bf16 tables, widened to f32, in
-# shared memory: 16 codes x 4 bytes = 64 bytes a segment a query. One
-# query's table must fit the 227 KB a CTA may opt into on sm_90.
-PQ4_LUT_SMEM_BYTES = 227 * 1024
-PQ4_LUT_MAX_SEGMENTS = PQ4_LUT_SMEM_BYTES // 64
-
-
 def _check_words(name: str, what: str, t, w: int | None = None) -> None:
     if not isinstance(t, torch.Tensor) or t.ndim != 2 or t.dtype != torch.int32:
         raise ValueError(f"{name}: {what} must be a 2-D int32 tensor of sign words, got "
@@ -1215,6 +1233,24 @@ def _pq4_lut_table(lut: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(lut.to(torch.bfloat16).float(), (0, 16 - kc))
 
 
+PQ4_LUT_QBLOCK = 64  # queries per CTA (csrc/pq4_lut_block.cu): the MMA's N
+
+
+def pq4_lut_block_table(lut: torch.Tensor, b_pad: int):
+    """The CUDA kernel's table: ``_pq4_lut_table(lut)`` in bf16, reordered
+    into the blocks its bulk copies fetch: [b_pad / 8 query groups]
+    [ks / 32 slices][32 segments][2 halves][8 queries][8 codes], zero past
+    B and past m, ks = m rounded up to ``PQ4_SLICE_SEGMENTS``. A block (a
+    query group's slice) is 8 KB, K-major core matrices of 8 queries x 8
+    codes: the tensor cores' B operand. Returns (the flat bf16 table,
+    ks)."""
+    b, m, kc = lut.shape
+    ks = _pad_to(max(m, 1), PQ4_SLICE_SEGMENTS)
+    tab = torch.nn.functional.pad(lut.to(torch.bfloat16), (0, 16 - kc, 0, ks - m, 0, b_pad - b))
+    blocks = tab.reshape(b_pad // 8, 8, ks // PQ4_SLICE_SEGMENTS, PQ4_SLICE_SEGMENTS, 2, 8)
+    return blocks.permute(0, 2, 3, 4, 1, 5).contiguous().reshape(-1), ks
+
+
 def _check_pq4_lut(name: str, lut, codes, valid):
     if not isinstance(lut, torch.Tensor) or lut.ndim != 3 or not lut.is_floating_point():
         raise ValueError(f"{name}: lut must be a [B, m, k] float tensor")
@@ -1226,12 +1262,28 @@ def _check_pq4_lut(name: str, lut, codes, valid):
     return b, m, n
 
 
+def _pq4_segment_table(lut: torch.Tensor) -> torch.Tensor:
+    """[B, m, 17] f32: what segment s adds for code c (column 16: a code
+    past 15), as the one-hot product computes it: the entry times 1.0 plus
+    the segment's other fifteen entries times 0.0. That is the bf16 entry
+    itself, or NaN where another entry of the segment is infinite or NaN
+    (0 * inf), as in the reference's product."""
+    tab = _pq4_lut_table(lut)
+    bad = ~torch.isfinite(tab)
+    n_bad = bad.sum(dim=2, keepdim=True)
+    nan = torch.full((), float("nan"), device=tab.device)
+    pick = torch.where(n_bad - bad.to(n_bad.dtype) > 0, nan, tab)
+    miss = torch.where(n_bad > 0, nan, torch.zeros((), device=tab.device))
+    return torch.cat([pick, miss], dim=2)
+
+
 def pq4_lut_block_plain(lut, codes, valid=None):
-    """Plain version of ``pq4_lut_block``: per row, the bf16 table entry
-    of each segment's code summed in f32 in segment order s = 0..m-1 from
-    +0.0, the mask added, rounded to bf16."""
+    """Plain version of ``pq4_lut_block``: per row, what each segment's
+    one-hot product adds (``_pq4_segment_table``: the bf16 table entry of
+    its code) summed in f32 in segment order s = 0..m-1 from +0.0, the
+    mask added, rounded to bf16."""
     b, m, n = _check_pq4_lut("pq4_lut_block", lut, codes, valid)
-    table = torch.nn.functional.pad(_pq4_lut_table(lut), (0, 1)).reshape(b, m * 17)
+    table = _pq4_segment_table(lut).reshape(b, m * 17)
     off = torch.arange(m, dtype=torch.int64, device=codes.device) * 17
     out = torch.empty((b, n), dtype=torch.bfloat16, device=codes.device)
     per = _row_chunk(b, m)
@@ -1250,26 +1302,24 @@ def pq4_lut_block(lut: torch.Tensor, codes: torch.Tensor,
     """ADC distances of 4-bit PQ codes through their LUT (reference
     ``pallas_kernels.pq4_lut_block``): lut [B, m, k<=16] f32 seg-major,
     codes [N, m] uint8 -> [B, N] bf16 ``bf16(sum_s bf16(lut[b, s,
-    codes[n, s]]) + (1 - valid) * MASKED_DISTANCE)``, the sum in f32. CUDA
-    tensors launch csrc/pq4_lut_block.cu (at most PQ4_LUT_MAX_SEGMENTS
-    segments); CPU tensors take ``pq4_lut_block_plain``."""
+    codes[n, s]]) + (1 - valid) * MASKED_DISTANCE)``, the sum in f32, any
+    m. CUDA tensors launch csrc/pq4_lut_block.cu; CPU tensors take
+    ``pq4_lut_block_plain``."""
     b, m, n = _check_pq4_lut("pq4_lut_block", lut, codes, valid)
     if codes.device.type == "cpu":
         return pq4_lut_block_plain(lut, codes, valid)
-    if m > PQ4_LUT_MAX_SEGMENTS:
-        raise ValueError(
-            f"pq4_lut_block on CUDA holds at most {PQ4_LUT_MAX_SEGMENTS} segments "
-            f"(one query's table in {PQ4_LUT_SMEM_BYTES} bytes of shared memory), got m = {m}")
     from weaviate_tpu_torch.ops import _build
 
-    table = _pq4_lut_table(lut).contiguous()
+    b_pad = _pad_to(max(b, 1), PQ4_LUT_QBLOCK)
+    table, ks = pq4_lut_block_table(lut, b_pad)
     codes = codes.contiguous()
     valid = None if valid is None else valid.contiguous()
     out = torch.empty((b, n), dtype=torch.bfloat16, device=codes.device)
     vec16 = int(m % 16 == 0 and codes.data_ptr() % 16 == 0)
+    out16 = int(n % 8 == 0 and out.data_ptr() % 16 == 0)
     rc = _build.kernel("pq4_lut_block")(
-        table.data_ptr(), codes.data_ptr(), vec16, _ptr(valid), b, n, m,
-        out.data_ptr(), _stream(codes.device))
+        table.data_ptr(), ks, codes.data_ptr(), vec16, _ptr(valid), b, n, m,
+        b_pad // PQ4_LUT_QBLOCK, out16, out.data_ptr(), _stream(codes.device))
     _check_rc("pq4_lut_block", rc)
     _count("pq4_lut_block")
     return out
