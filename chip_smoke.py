@@ -9,8 +9,9 @@ Run from the repository root:
                                          # and one approx batch, timed only
     python3 chip_smoke.py --bq-times     # phases 0-1, bq_scan_reduce at B = 1 / 8 /
                                          # 64 / 256, the prefix, the single-bit probe
-    python3 chip_smoke.py --block-times  # phases 0-1, pq4_lut_block and bm25_block
-                                         # checked and timed, the hybrid dispatch split
+    python3 chip_smoke.py --block-times  # phases 0-1, bq_mxu_block, pq4_recon_block,
+                                         # pq4_lut_block and bm25_block checked and
+                                         # timed, the hybrid dispatch split
 
 It drives the port's flat nearVector path at VectorDBBench's
 Performance768D1M case (Cohere wiki-22-12: 1,000,000 x 768, cosine,
@@ -43,7 +44,10 @@ is downloaded), in phases:
    pq4_recon_block) at ragged shapes, then at 256 queries x the 1M-row
    corpus's sign words and 4-bit PQ codes with ~10% dead rows, then
    bq_mxu_block at the two shapes of tools/probe_r4.py; bq_mxu_block is
-   also held to bf16(exact hamming) at 768 dims; pq4_lut_block also at
+   also held to bf16(exact hamming) at 768 dims and at MXU_CHECKS (W = 1,
+   8, 9 and the popcount body's 200, B = 8, 129, 1,024), pq4_recon_block
+   at RECON_CHECKS (ds = 1, 2, 3, 8, d off 16, codes past 15, the FFMA
+   body at d = 1,024); pq4_lut_block also at
    LUT_CHECKS (ragged m up to 4,100, past the first design's cap, codes
    past 15, subnormal, -0.0 and infinite entries, dead rows). bm25_block
    at BM25_CHECKS (every term tile, T past one tile, terms outside [0,
@@ -164,7 +168,7 @@ HBM_BYTES_S = 3.35e12
 RTOL, ATOL = 2e-4, 2e-3  # the reference's kernel tolerance (f32)
 TIE_TOL = 1e-5           # distances closer than this are a tie
 INT8_OPS = 1979e12
-# single-bit products (wgmma .b1 AND-popc, bq_scan_reduce): the guide's
+# single-bit products (wgmma .b1 AND-popc, bq_scan_reduce, bq_mxu_block): the guide's
 # table has no such rate; one m64nNk256 b1 MMA issues at the rate of one
 # m64nNk32 int8 MMA and covers 8 times its K (csrc/probes/wgmma_b1.cu,
 # ``--bq-times``, NVIDIA H100 80GB HBM3 at 700 W), so 8 x the int8 peak
@@ -690,7 +694,8 @@ def _sass_summary(so: str) -> str:
     if r.returncode != 0:
         return f"cuobjdump failed: {r.stderr.strip()[:200]}"
     ops: dict = {}
-    for op in re.findall(r"\b([A-Z0-9]*MMA[A-Z0-9_.x]*)", r.stdout):
+    # (not the register moves HFMA2.MMA, which issue on the MMA pipe)
+    for op in re.findall(r"(?<![.\w])([A-Z0-9]*MMA[A-Z0-9_.x]*)", r.stdout):
         ops[op] = ops.get(op, 0) + 1
     return ", ".join(f"{op} x{c}" for op, c in sorted(ops.items())) or "no MMA instruction"
 
@@ -737,7 +742,8 @@ def phase_build(K) -> None:
         f"(nvcc sm_90a, in parallel); {'; '.join(regs)}")
     if hasattr(K, "kernel_residency"):  # absent from builds before the radix select
         log(f"phase 1 build: {residency_text(K)}")
-    for name in ("bq_scan_reduce", "pq4_scan_reduce", "pq4_lut_block"):
+    for name in ("bq_scan_reduce", "pq4_scan_reduce", "pq4_lut_block", "bq_mxu_block",
+                 "pq4_recon_block"):
         log(f"phase 1 build: {name} SASS: {_sass_summary(_build._lib_path(name))}")
 
 
@@ -1440,15 +1446,72 @@ def _same_block(torch, a, b, what, tol=None) -> float:
     return err
 
 
+# bq_mxu_block beyond the main shape: (B, N, W). W = 1, 8 and 9 on the
+# single-bit body (one K step, a full one, one past it), W = 200 on the
+# popcount body it keeps (bq_mxu_qblock 0); B = 8, 129 (two query blocks of
+# 128) and 1,024 (the probe's), N off the 64-row tile
+MXU_CHECKS = ((8, 4099, 1), (129, 9001, 8), (1024, 2050, 9), (8, 3001, 200),
+              (129, 777, 200), (1024, 1001, 4))
+# pq4_recon_block beyond the main shape: (B, N, m, k, ds, top code). ds = 3
+# and 1 with d = m * ds no multiple of 16, ds = 8 and 2, codes past 15 (top
+# code past 16), B past one 64-query block; d = 1,024 takes the FFMA body
+# it keeps (pq4_recon_smem past the card's shared memory)
+RECON_CHECKS = ((5, 7001, 25, 12, 3, 20), (65, 4099, 96, 16, 8, 17),
+                (3, 999, 7, 16, 2, 18), (130, 2050, 33, 9, 1, 16), (7, 3001, 256, 16, 4, 20))
+
+
+def mxu_recon_checks(torch, K, rng, dev) -> int:
+    """bq_mxu_block (bit for bit) and pq4_recon_block (within PQ_TOL,
+    l2 / dot / cosine) against their plain versions at MXU_CHECKS and
+    RECON_CHECKS, with and without dead rows; bq_mxu_block also with a
+    cached x_pop of arbitrary values and q_planes / q_pop. Returns the
+    number of shapes run."""
+    def words(shape):
+        return torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, shape, dtype=np.int64)
+                                .astype(np.int32)).to(dev)
+
+    for b, n, w in MXU_CHECKS:
+        q, x = words((b, w)), words((n, w))
+        valid = torch.from_numpy(rng.random(n) > 0.1).to(dev)
+        xp = torch.from_numpy(rng.uniform(0, 32 * w, n).astype(np.float32)).to(dev)
+        planes = K.bq_queries_to_planes(q, w)
+        for kw in ({}, dict(valid=valid),
+                   dict(valid=valid, x_pop=xp, q_planes=planes, q_pop=planes.float().sum(1))):
+            _same_block(torch, K.bq_mxu_block(q, x, **kw), K.bq_mxu_block_plain(q, x, **kw),
+                        f"bq_mxu_block [{b},{w}] x [{n},{w}] {sorted(kw)}")
+    for b, n, m, kc, ds, top in RECON_CHECKS:
+        q = torch.from_numpy(rng.standard_normal((b, m * ds)).astype(np.float32)).to(dev)
+        cent = torch.from_numpy(rng.standard_normal((m, kc, ds)).astype(np.float32)).to(dev)
+        codes = torch.from_numpy(rng.integers(0, top, (n, m)).astype(np.uint8)).to(dev)
+        valid = torch.from_numpy(rng.random(n) > 0.1).to(dev)
+        for metric in ("l2-squared", "dot", "cosine"):
+            qm = torch.nn.functional.normalize(q, dim=1) if metric == "cosine" else q
+            for v in (None, valid):
+                _same_block(torch, K.pq4_recon_block(qm, codes, cent, metric, v),
+                            K.pq4_recon_block_plain(qm, codes, cent, metric, v),
+                            f"pq4_recon_block {metric} [{b},{m * ds}] x [{n},{m}] ds {ds} "
+                            f"codes < {top} valid {v is not None}", tol=PQ_TOL)
+    return len(MXU_CHECKS) + len(RECON_CHECKS)
+
+
+def mxu_bound(b: int, n: int, w: int) -> tuple[float, str]:
+    """bq_mxu_block's bound: the words, the query popcounts, valid and the
+    bf16 output once, against the reference kernel's cost estimate
+    (2*B*N*32W, the 0/1 product) at the single-bit rate B1_OPS its MMAs
+    run at, as bq_scan_reduce's: bound by the bytes."""
+    return bound_ms((b + n) * w * 4 + b * 4 + n + b * n * 2, 2.0 * b * n * 32 * w, B1_OPS)
+
+
 def _block_kernels(torch, K, ops, qs, rng, timer) -> tuple[dict, dict]:
     """The four block kernels against their plain versions on the card:
     ragged shapes (B = 1, 5, 256; N off every tile; W = 3 and 48; m = 24
-    and 384; k = 12 and 16), then the main path's: 256 queries x the
-    1M-row corpus's sign words (W = 24) and 4-bit PQ codes (m = 192, ds =
-    4) from _scan_reduce_kernels, with ~10% dead rows; then bq_mxu_block at
-    the shapes of tools/probe_r4.py. The bq kernels and pq4_lut_block must
-    equal their plain versions bit for bit, pq4_recon_block within PQ_TOL.
-    Returns the numbers and the launch counts of this window."""
+    and 384; k = 12 and 16; LUT_CHECKS, MXU_CHECKS, RECON_CHECKS), then
+    the main path's: 256 queries x the 1M-row corpus's sign words (W = 24)
+    and 4-bit PQ codes (m = 192, ds = 4) from _scan_reduce_kernels, with
+    ~10% dead rows; then bq_mxu_block at the shapes of tools/probe_r4.py.
+    The bq kernels and pq4_lut_block must equal their plain versions bit
+    for bit, pq4_recon_block within PQ_TOL. Returns the numbers and the
+    launch counts of this window."""
     from weaviate_tpu_torch.ops.bq import bq_hamming_np
 
     dev = qs.device
@@ -1498,6 +1561,7 @@ def _block_kernels(torch, K, ops, qs, rng, timer) -> tuple[dict, dict]:
                         tol=PQ_TOL)
         ragged += 1
     lut_cases = lut_checks(torch, K, rng, dev)
+    mr_cases = mxu_recon_checks(torch, K, rng, dev)
 
     # the main path's shapes: 256 queries x 1,048,576 rows, 768 dims
     qw, xw = ops["qw"], ops["xw"]
@@ -1527,7 +1591,7 @@ def _block_kernels(torch, K, ops, qs, rng, timer) -> tuple[dict, dict]:
         max_abs_err=0.0, ms=timer(lambda: K.bq_hamming_block(qw, xw), reps=10),
         plain_ms=timer(lambda: K.bq_hamming_block_plain(qw, xw), reps=1, warmup=0),
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
-    b_ms, b_by = bound_ms(nbytes_words + b * 4 + n + b * n * 2, 2.0 * b * n * 32 * w, INT8_OPS)
+    b_ms, b_by = mxu_bound(b, n, w)
     out["bq_mxu_block"] = dict(
         max_abs_err=0.0, ms=timer(lambda: K.bq_mxu_block(qw, xw, valid=valid), reps=10),
         plain_ms=timer(lambda: K.bq_mxu_block_plain(qw, xw, valid=valid), reps=1, warmup=0),
@@ -1580,7 +1644,10 @@ def _block_kernels(torch, K, ops, qs, rng, timer) -> tuple[dict, dict]:
         f"{_bound_text(o['bq_hamming_block'])}; bq_mxu_block equal to the plain version and "
         f"to bf16(exact hamming) on the live rows, also with cached x_pop / q_planes, kernel "
         f"{o['bq_mxu_block']['ms']:.3f} ms, plain {o['bq_mxu_block']['plain_ms']:.3f} ms, "
-        f"{_bound_text(o['bq_mxu_block'])}; at the probe shapes {', '.join(probe)}")
+        f"{_bound_text(o['bq_mxu_block'])}; at the probe shapes {', '.join(probe)}; "
+        f"bq_mxu_block and pq4_recon_block also at {mr_cases} more shapes (MXU_CHECKS, "
+        f"RECON_CHECKS: W = 1 / 8 / 9 / 200, B = 8 / 129 / 1024; ds = 1 / 2 / 3 / 8, d off "
+        f"16, codes past 15, the FFMA body at d = 1024)")
     log(f"phase 2 kernels: lut [{b},{m},16] x codes [{n},{m}] with ~10% dead rows: "
         f"pq4_lut_block equal to the plain version there and at {lut_cases} more cases "
         f"(LUT_CHECKS: ragged m up to 4100, codes past 15, subnormal / -0.0 / infinite "
@@ -2740,19 +2807,130 @@ def synthetic_hybrid(torch, seed: int, n_docs: int = FIQA_DOCS, dispatches: int 
     return idx, batches
 
 
+def mxu_times(torch, K, gen, timer) -> list[str]:
+    """bq_mxu_block at the main shape [256, 24 words] x 1,048,576 rows
+    (~10% dead), equal to its plain version, timed beside its bound, with
+    each query block the kernel could take (BQ_TC_QBLOCKS; the wrapper
+    picks 128) and the popcount body it keeps; phase 8's [8, 4 words] x 512
+    from a CUDA graph; and the product alone as a yardstick: torch._int_mm
+    of the 0/1 int8 bit planes, [256, 768] x [768, N] (not library_ms: no
+    PyTorch call computes the function). Returns one text part each."""
+    dev = "cuda"
+    n, w = 1 << 20, DIM // 32
+    xw = torch.randint(-2 ** 31, 2 ** 31 - 1, (n, w), dtype=torch.int32, device=dev,
+                       generator=gen)
+    qw = torch.randint(-2 ** 31, 2 ** 31 - 1, (BATCH, w), dtype=torch.int32, device=dev,
+                       generator=gen)
+    valid = torch.rand(n, device=dev, generator=gen) > 0.1
+    _same_block(torch, K.bq_mxu_block(qw, xw, valid=valid),
+                K.bq_mxu_block_plain(qw, xw, valid=valid), f"bq_mxu_block [{BATCH},{w}] x [{n}]")
+    b_ms, b_by = mxu_bound(BATCH, n, w)
+    o = dict(ms=timer(lambda: K.bq_mxu_block(qw, xw, valid=valid), reps=20), bound_ms=b_ms,
+             bound_by=b_by)
+    parts = [f"bq_mxu_block [{BATCH},{w} words] x [{n},{w}] ~10% dead: equal to the plain "
+             f"version; kernel {o['ms']:.4f} ms, {_bound_text(o)}"]
+    if hasattr(K, "bq_mxu_launch"):  # absent from trees before the single-bit body
+        blocks = {qn: timer(lambda: K.bq_mxu_launch(qw, None, xw, None, valid, qn), reps=20)
+                  for qn in K.BQ_TC_QBLOCKS[2:] + (0,)}
+        parts.append(f"by query block (the wrapper takes {K.bq_mxu_qblock(BATCH, w)}; 0: the "
+                     "popcount body): " + ", ".join(f"{qn} {ms:.4f} ms"
+                                                    for qn, ms in blocks.items()))
+    q8, x8 = qw[:8, :4].contiguous(), xw[:512, :4].contiguous()
+    parts.append(f"phase 8's [8,4 words] x [512,4]: "
+                 f"{graph_ms(torch, K, [lambda: K.bq_mxu_block(q8, x8)]):.4f} ms "
+                 "(a CUDA graph of launches)")
+    try:
+        shifts = torch.arange(32, device=dev)
+        q01 = K.bq_queries_to_planes(qw, w).to(torch.int8)  # [B, 32W] 0/1, plane order
+        x01 = torch.empty((n, 32 * w), dtype=torch.int8, device=dev)
+        for s in range(0, n, ADD_BATCH):
+            x01[s:s + ADD_BATCH] = ((xw[s:s + ADD_BATCH].long()[:, None, :]
+                                     >> shifts[None, :, None]) & 1).reshape(-1, 32 * w)
+        ms = timer(lambda: torch._int_mm(q01, x01.t()), reps=5)
+        parts.append(f"yardstick torch._int_mm [{BATCH},{32 * w}] x [{32 * w},{n}] 0/1 int8 "
+                     f"(the product alone): {ms:.4f} ms")
+        del x01
+    except RuntimeError as e:  # a yardstick only: the run goes on without it
+        parts.append(f"yardstick torch._int_mm failed: {str(e).splitlines()[0]}")
+    return parts
+
+
+def recon_times(torch, K, gen, timer) -> list[str]:
+    """pq4_recon_block at the main shape, q [256, 768] x codes [1,048,576,
+    192], ds 4, ~10% dead: l2 / dot / cosine within PQ_TOL of the plain
+    version, each timed beside the bound; its fast path's MMAs alone and
+    its A build alone (``-DWTT_RECON_PART`` builds); and the product alone as a
+    yardstick: a bf16 torch.matmul of q by a materialized x_hat^T [768, N]
+    (1.6 GB; not library_ms: the port never materializes x_hat). Returns
+    one text part each."""
+    dev = "cuda"
+    n, m, ds = 1 << 20, DIM // 4, 4
+    codes = torch.randint(0, 16, (n, m), dtype=torch.uint8, device=dev, generator=gen)
+    cent = torch.randn((m, 16, ds), device=dev, generator=gen) * 0.2
+    q = torch.nn.functional.normalize(torch.randn((BATCH, DIM), device=dev, generator=gen), dim=1)
+    valid = torch.rand(n, device=dev, generator=gen) > 0.1
+    b_ms, b_by = bound_ms(q.numel() * 4 + codes.numel() + cent.numel() * 4 + n + BATCH * n * 2,
+                          2.0 * BATCH * n * DIM, BF16_FLOPS)
+    parts = []
+    for metric in ("l2-squared", "dot", "cosine"):
+        err = _same_block(torch, K.pq4_recon_block(q, codes, cent, metric, valid),
+                          K.pq4_recon_block_plain(q, codes, cent, metric, valid),
+                          f"pq4_recon_block {metric} [{BATCH},{DIM}] x [{n},{m}]", tol=PQ_TOL)
+        o = dict(ms=timer(lambda: K.pq4_recon_block(q, codes, cent, metric, valid), reps=10),
+                 bound_ms=b_ms, bound_by=b_by)
+        parts.append(f"pq4_recon_block {metric} [{BATCH},{DIM}] x [{n},{m}] ds {ds}: within "
+                     f"PQ_TOL (max_abs_err {err:.3g}); kernel {o['ms']:.4f} ms, {_bound_text(o)}")
+    if hasattr(K, "pq4_recon_fast"):  # the breakdown builds are this design's
+        from weaviate_tpu_torch.ops import _build
+
+        full, ms = _build.kernel("pq4_recon_block"), {}
+        try:
+            for part, what in ((1, "the MMAs alone"), (2, "the A build alone")):
+                _build._funcs["pq4_recon_block"] = _build.build_variant(
+                    "pq4_recon_block", (f"WTT_RECON_PART={part}",))
+                ms[what] = timer(lambda: K.pq4_recon_block(q, codes, cent, METRIC, valid), reps=10)
+        finally:
+            _build._funcs["pq4_recon_block"] = full
+        parts.append(f"pq4_recon_block {METRIC} breakdown (-DWTT_RECON_PART builds of the fast "
+                     "path, same call): " + ", ".join(f"{w} {t:.4f} ms" for w, t in ms.items()))
+    try:
+        cb = torch.nn.functional.pad(K._pq4_recon_centroids(cent), (0, 0, 0, 1)) \
+            .to(torch.bfloat16)  # [m, 17, ds], row 16 for the codes past 15
+        seg = torch.arange(m, device=dev)
+        xhat = torch.empty((n, DIM), dtype=torch.bfloat16, device=dev)
+        for s in range(0, n, ADD_BATCH):
+            c = codes[s:s + ADD_BATCH].long().clamp(max=16)
+            xhat[s:s + ADD_BATCH] = cb[seg[None, :], c].reshape(-1, DIM)
+        qb = q.to(torch.bfloat16)
+        ms = timer(lambda: torch.matmul(qb, xhat.t()), reps=5)
+        parts.append(f"yardstick torch.matmul [{BATCH},{DIM}] x [{DIM},{n}] bf16 on a "
+                     f"materialized x_hat (the product alone): {ms:.4f} ms")
+        del xhat
+    except RuntimeError as e:  # a yardstick only: the run goes on without it
+        parts.append(f"yardstick torch.matmul failed: {str(e).splitlines()[0]}")
+    return parts
+
+
 def block_times(torch, K, seed: int, timer) -> list[str]:
-    """``--block-times``: pq4_lut_block and bm25_block held to their plain
-    versions (LUT_CHECKS, the 1M-row shape; BM25_CHECKS) and timed at the
-    main and dispatch shapes, then the fused hybrid dispatch's split on a
-    synthetic FiQA-sized index. Returns one text part each."""
+    """``--block-times``: bq_mxu_block and pq4_recon_block held to their
+    plain versions (MXU_CHECKS, RECON_CHECKS, the main shapes) and timed
+    beside their bounds and product yardsticks (mxu_times, recon_times);
+    pq4_lut_block and bm25_block held to their plain versions (LUT_CHECKS,
+    the 1M-row shape; BM25_CHECKS) and timed at the main and dispatch
+    shapes, then the fused hybrid dispatch's split on a synthetic
+    FiQA-sized index. Returns one text part each."""
     from weaviate_tpu_torch.ops import bm25 as B
 
     rng = np.random.default_rng([seed, 2])
     dev = "cuda"
-    parts = [f"pq4_lut_block equal to the plain version at {lut_checks(torch, K, rng)} "
-             f"LUT_CHECKS cases"]
-    n, m = 1 << 20, DIM // 4
     gen = torch.Generator(device=dev).manual_seed(seed)
+    parts = [f"bq_mxu_block and pq4_recon_block held to the plain versions at "
+             f"{mxu_recon_checks(torch, K, rng, dev)} MXU_CHECKS / RECON_CHECKS shapes"]
+    parts += mxu_times(torch, K, gen, timer) + recon_times(torch, K, gen, timer)
+    torch.cuda.empty_cache()
+    parts.append(f"pq4_lut_block equal to the plain version at {lut_checks(torch, K, rng)} "
+                 f"LUT_CHECKS cases")
+    n, m = 1 << 20, DIM // 4
     codes = torch.randint(0, 16, (n, m), dtype=torch.uint8, device=dev, generator=gen)
     lut = torch.randn((BATCH, m, 16), device=dev, generator=gen) * 3
     valid = torch.rand(n, device=dev, generator=gen) > 0.1
@@ -2816,9 +2994,11 @@ def main() -> int:
                     "256 and on the prefix beside the _int_mm yardstick, and run the "
                     "single-bit wgmma probe (no result line)")
     ap.add_argument("--block-times", action="store_true",
-                    help="only build the kernels, hold pq4_lut_block and bm25_block to their "
-                    "plain versions, time them at the main and dispatch shapes and print "
-                    "the fused hybrid dispatch's split on a synthetic index (no result line)")
+                    help="only build the kernels, hold bq_mxu_block, pq4_recon_block, "
+                    "pq4_lut_block and bm25_block to their plain versions, time them at the "
+                    "main and dispatch shapes (the first two beside their product "
+                    "yardsticks) and print the fused hybrid dispatch's split on a synthetic "
+                    "index (no result line)")
     ap.add_argument("--dist-times", action="store_true",
                     help="only build the kernels and time distance_block, "
                     "pq4_scan_reduce and one approx batch (no checks, no result line)")

@@ -52,11 +52,12 @@ SIGNATURES = {
                     _P, _P]),
     "bq_hamming_block": ("wtt_bq_hamming_block", [_P, _P, _I, _I, _I, _I, _P, _P]),
     "bq_mxu_block": ("wtt_bq_mxu_block",
-                     [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P]),
+                     [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P]),
     "pq4_lut_block": ("wtt_pq4_lut_block",
                       [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P]),
     "pq4_recon_block": ("wtt_pq4_recon_block",
-                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]),
+                        [_P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _P, _P]),
 }
 # Residency queries of the two selection kernels: (shape arguments...,
 # int* dynamic shared memory bytes) -> CTAs per SM

@@ -1129,9 +1129,9 @@ def _planes_to_words(q_planes: torch.Tensor, w: int) -> torch.Tensor:
 
 def _bq_mxu_operands(q_bits, x_bits, x_pop, valid, q_planes, q_pop):
     """Checks ``bq_mxu_block``'s operands; returns (query words, query
-    popcounts [B] f32). With ``q_planes`` the words are packed back from
-    the planes, which must hold only 0 and 1, and ``q_pop`` is used as
-    given, as the reference kernel uses both."""
+    popcounts [B] f32 or None: the words' own). With ``q_planes`` the words
+    are packed back from the planes, which must hold only 0 and 1, and
+    ``q_pop`` is used as given, as the reference kernel uses both."""
     name = "bq_mxu_block"
     _check_words(name, "q_bits", q_bits)
     _check_words(name, "x_bits", x_bits, q_bits.shape[1])
@@ -1142,7 +1142,7 @@ def _bq_mxu_operands(q_bits, x_bits, x_pop, valid, q_planes, q_pop):
     if (q_planes is None) != (q_pop is None):
         raise ValueError(f"{name}: q_planes and q_pop are given together")
     if q_planes is None:
-        return q_bits, popcount32(_u32(q_bits)).sum(dim=1).float()
+        return q_bits, None
     if q_planes.shape != (b, 32 * w):
         raise ValueError(f"{name}: q_planes must be [{b}, {32 * w}], got {tuple(q_planes.shape)}")
     if q_pop.numel() != b or q_pop.shape not in ((b,), (b, 1)):
@@ -1162,6 +1162,8 @@ def bq_mxu_block_plain(q_bits, x_bits, x_pop=None, valid=None, q_planes=None, q_
 def _bq_mxu_plain(q_words, qpop, x_bits, x_pop, valid):
     (b, w), n = q_words.shape, x_bits.shape[0]
     q64 = _u32(q_words)
+    if qpop is None:
+        qpop = popcount32(q64).sum(dim=1).float()
     out = torch.empty((b, n), dtype=torch.bfloat16, device=x_bits.device)
     per = _row_chunk(b, w)
     for lo in range(0, n, per):
@@ -1176,6 +1178,57 @@ def _bq_mxu_plain(q_words, qpop, x_bits, x_pop, valid):
     return out
 
 
+_BQ_MXU_OS = 72  # bf16 stride of a query's rows in the kernel's output tile
+
+
+def bq_mxu_smem(qn: int, w: int) -> int:
+    """Shared memory of ``bq_mxu_block``'s tensor-core body (csrc
+    ``tc_smem``): the query block's words and its all-ones rows, the two
+    warpgroups' row rings and output tiles, the popcounts, the mbarrier."""
+    w8 = _pad_to(max(w, 1), 8)
+    return ((qn + 16) * w8 * 4 + 2 * _BQ_TC_STAGES * _BQ_TC_TILE * w8 * 4
+            + 2 * qn * _BQ_MXU_OS * 2 + qn * 4 + 16)
+
+
+def bq_mxu_qblock(b: int, w: int) -> int:
+    """The body ``bq_mxu_block`` launches for ``b`` queries of ``w``
+    words: the tensor-core body's query block (the smallest of
+    BQ_TC_QBLOCKS that holds B, at most 128, halved while its shared
+    memory exceeds the card's), or 0 for the popcount body, where even 8
+    queries do not fit (W past ~100 words)."""
+    qn = next((n for n in BQ_TC_QBLOCKS if n >= b), BQ_TC_QBLOCKS[-1])
+    while qn >= BQ_TC_QBLOCKS[0] and bq_mxu_smem(qn, w) > _SMEM_MAX:
+        qn //= 2
+    return qn if qn >= BQ_TC_QBLOCKS[0] else 0
+
+
+def bq_mxu_launch(q_words: torch.Tensor, qpop, x_bits: torch.Tensor,
+                  x_pop, valid, qn: int) -> torch.Tensor:
+    """One launch of csrc/bq_mxu_block.cu on checked CUDA operands with
+    query block ``qn`` (``bq_mxu_qblock``'s choice, or 0 for the popcount
+    body); ``qpop`` None: the kernel counts the query words. This is
+    ``bq_mxu_block``'s launch, also called directly to time another
+    block."""
+    from weaviate_tpu_torch.ops import _build
+
+    q_words, x_bits = q_words.contiguous(), x_bits.contiguous()
+    qpop = None if qpop is None else qpop.contiguous()
+    xpop = None if x_pop is None else x_pop.float().contiguous()
+    valid = None if valid is None else valid.contiguous()
+    (b, w), n = q_words.shape, x_bits.shape[0]
+    qm = None if qn == 0 else bq_query_blocks(q_words, qn)
+    out = torch.empty((b, n), dtype=torch.bfloat16, device=x_bits.device)
+    vec4 = int(w % 4 == 0 and x_bits.data_ptr() % 16 == 0)
+    out16 = int(n % 8 == 0 and out.data_ptr() % 16 == 0)
+    rc = _build.kernel("bq_mxu_block")(
+        _ptr(qm), q_words.data_ptr(), x_bits.data_ptr(), vec4, _ptr(qpop), _ptr(xpop),
+        _ptr(valid), b, n, w, qn, -(-b // (qn or BQ_QBLOCK)), out16, out.data_ptr(),
+        _stream(x_bits.device))
+    _check_rc("bq_mxu_block", rc)
+    _count("bq_mxu_block")
+    return out
+
+
 def bq_mxu_block(q_bits: torch.Tensor, x_bits: torch.Tensor,
                  x_pop: torch.Tensor | None = None, valid: torch.Tensor | None = None,
                  q_planes: torch.Tensor | None = None,
@@ -1186,24 +1239,14 @@ def bq_mxu_block(q_bits: torch.Tensor, x_bits: torch.Tensor,
     valid) * MASKED_DISTANCE)``. ``x_pop`` [N] caches the rows' popcounts;
     ``q_planes`` [B, 32W] (``bq_queries_to_planes``) with ``q_pop`` [B]
     stand in for the query words. CUDA tensors launch
-    csrc/bq_mxu_block.cu; CPU tensors take ``bq_mxu_block_plain``."""
+    csrc/bq_mxu_block.cu (its single-bit tensor-core body, or the
+    popcount body where ``bq_mxu_qblock`` says so); CPU tensors take
+    ``bq_mxu_block_plain``."""
     q_words, qpop = _bq_mxu_operands(q_bits, x_bits, x_pop, valid, q_planes, q_pop)
     if x_bits.device.type == "cpu":
         return _bq_mxu_plain(q_words, qpop, x_bits, x_pop, valid)
-    from weaviate_tpu_torch.ops import _build
-
-    q_words, x_bits, qpop = q_words.contiguous(), x_bits.contiguous(), qpop.contiguous()
-    xpop = None if x_pop is None else x_pop.float().contiguous()
-    valid = None if valid is None else valid.contiguous()
-    (b, w), n = q_words.shape, x_bits.shape[0]
-    out = torch.empty((b, n), dtype=torch.bfloat16, device=x_bits.device)
-    vec4 = int(w % 4 == 0 and x_bits.data_ptr() % 16 == 0)
-    rc = _build.kernel("bq_mxu_block")(
-        q_words.data_ptr(), x_bits.data_ptr(), vec4, qpop.data_ptr(), _ptr(xpop),
-        _ptr(valid), b, n, w, out.data_ptr(), _stream(x_bits.device))
-    _check_rc("bq_mxu_block", rc)
-    _count("bq_mxu_block")
-    return out
+    return bq_mxu_launch(q_words, qpop, x_bits, x_pop, valid,
+                         bq_mxu_qblock(q_words.shape[0], q_words.shape[1]))
 
 
 # -- pq4_lut_block -------------------------------------------------------------
@@ -1384,6 +1427,91 @@ def pq4_recon_block_plain(q, codes, centroids, metric="l2-squared", valid=None):
     return out
 
 
+PQ4_RECON_QBLOCK = 64  # queries per CTA of the tensor-core body: the MMA's N
+# the tensor-core body's code slices (segments), CTA row tile, ring depth,
+# and bf16 stride of a query's rows in its output tile (csrc/pq4_recon_block.cu)
+_RECON_SLICE, _RECON_ROWS, _RECON_STAGES, _RECON_OS = 64, 256, 2, 136
+
+
+def _recon_slices(d: int, ds: int) -> int:
+    """Code slices of 64 segments (4 * ds K steps of 16 dims) that cover
+    d rounded up to 16: the kernel's ``nsl``."""
+    return -(-(_pad_to(d, 16) // 16) // (4 * ds))
+
+
+def pq4_recon_fast(m: int, ds: int) -> bool:
+    """Whether the tensor-core body takes its fast path (csrc
+    ``recon_fast``): ds = 4 and m a multiple of 64, so that every code slice
+    holds 16 whole K steps and a lane's four dims of a K step are one
+    centroid."""
+    return ds == 4 and m % 64 == 0
+
+
+def _recon_row_stride(d16: int) -> int:
+    """Columns of the centroid table: d16 and up to 48 more, so that a row
+    holds 16 mod 64 bf16 and rows of different codes start 8 banks apart."""
+    return d16 + (16 - d16) % 64
+
+
+def pq4_recon_smem(d: int, m: int, ds: int, metric: str) -> int:
+    """Shared memory of ``pq4_recon_block``'s tensor-core body (csrc
+    ``tc_smem``): the resident query block, centroid table and (l2) norm
+    table, the code ring, the two output tiles, |q|^2, the mbarrier."""
+    d16 = _pad_to(d, 16)
+    norm = _recon_slices(d, ds) * _RECON_SLICE * 17 * 4 if metric == "l2-squared" else 0
+    return (PQ4_RECON_QBLOCK * d16 * 2 + 17 * _recon_row_stride(d16) * 2 + norm
+            + _RECON_STAGES * _RECON_ROWS * (_RECON_SLICE + 16)
+            + 2 * PQ4_RECON_QBLOCK * _RECON_OS * 2 + PQ4_RECON_QBLOCK * 4 + 16)
+
+
+# the fast path's order of the 16 dims of a K step: lane t holds MMA slots
+# 2t, 2t + 1 and 8 + 2t, 9 + 2t, which take dims 4t .. 4t + 3 (one centroid)
+_RECON_FAST_DIMS = (0, 1, 4, 5, 8, 9, 12, 13, 2, 3, 6, 7, 10, 11, 14, 15)
+
+
+def pq4_recon_query_blocks(qb: torch.Tensor, fast: bool = False) -> torch.Tensor:
+    """The tensor-core body's query operand: bf16 ``qb`` [B, d] zero-padded
+    to blocks of 64 queries and d16 = d rounded up to 16 dims (with
+    ``fast``, each 16 dims in the order _RECON_FAST_DIMS), laid out as the
+    tensor cores read it from shared memory: [blocks][8 groups of 8
+    queries][d16 / 8 chunks of 8 dims][8 queries][8 dims], K-major core
+    matrices of 128 bytes. Returns the flat bf16 tensor; one group (16 *
+    d16 bytes) is one bulk copy."""
+    b, d = qb.shape
+    d16, n_qb = _pad_to(d, 16), -(-b // PQ4_RECON_QBLOCK)
+    q = torch.nn.functional.pad(qb, (0, d16 - d, 0, n_qb * PQ4_RECON_QBLOCK - b))
+    if fast:
+        q = q.reshape(-1, d16 // 16, 16)[:, :, list(_RECON_FAST_DIMS)].reshape(-1, d16)
+    return q.reshape(n_qb, 8, 8, d16 // 8, 8).permute(0, 1, 3, 2, 4).contiguous().reshape(-1)
+
+
+def pq4_recon_table(centroids: torch.Tensor) -> torch.Tensor:
+    """The kernels' centroid table, dim-major: [17, ts] bf16 with
+    table[c, s * ds + j] = bf16(centroids[s, c, j]), zero for the codes
+    past k, in row 16 (every code past 15) and past d. Row x_hat[n, k] is
+    table[min(codes[n, k // ds], 16), k]; ts = _recon_row_stride(d16)."""
+    m, kc, ds = centroids.shape
+    d16 = _pad_to(m * ds, 16)
+    table = torch.zeros((17, _recon_row_stride(d16)), dtype=torch.bfloat16,
+                        device=centroids.device)
+    table[:kc, :m * ds] = centroids.to(torch.bfloat16).permute(1, 0, 2).reshape(kc, m * ds)
+    return table
+
+
+def pq4_recon_norms(centroids: torch.Tensor) -> torch.Tensor:
+    """The l2 epilogue's table of the bf16 centroids' squared norms: [ms,
+    17] f32, norms[s, c] = sum_j bf16(centroids[s, c, j])^2 in f32, zero
+    for the codes past k, in column 16 and past m; ms covers every code
+    slice the kernel reads. A row's |x_hat|^2 is the sum of its m
+    entries."""
+    m, kc, ds = centroids.shape
+    cb = centroids.to(torch.bfloat16).float()
+    norms = torch.zeros((_recon_slices(m * ds, ds) * _RECON_SLICE, 17), dtype=torch.float32,
+                        device=centroids.device)
+    norms[:m, :kc] = (cb * cb).sum(dim=2)
+    return norms
+
+
 def pq4_recon_block(q: torch.Tensor, codes: torch.Tensor, centroids: torch.Tensor,
                     metric: str = "l2-squared",
                     valid: torch.Tensor | None = None) -> torch.Tensor:
@@ -1395,21 +1523,32 @@ def pq4_recon_block(q: torch.Tensor, codes: torch.Tensor, centroids: torch.Tenso
     are f32; l2 is ``|q|^2 - 2 q.x_hat + |x_hat|^2`` unclamped, dot
     ``-q.x_hat``, cosine ``1 - q.x_hat``. Unlike the reference, a metric
     outside KERNEL_METRICS raises. CUDA tensors launch
-    csrc/pq4_recon_block.cu; CPU tensors take ``pq4_recon_block_plain``."""
+    csrc/pq4_recon_block.cu (its bf16 tensor-core body, or the FFMA body
+    where ``pq4_recon_smem`` exceeds the card's shared memory); CPU
+    tensors take ``pq4_recon_block_plain``."""
     b, n, m, ds = _check_pq4_recon(q, codes, centroids, metric, valid)
     if q.device.type == "cpu":
         return pq4_recon_block_plain(q, codes, centroids, metric, valid)
     from weaviate_tpu_torch.ops import _build
 
-    qb = q.to(torch.bfloat16).float().contiguous()
-    qn = (qb * qb).sum(dim=1).contiguous()
-    cent = _pq4_recon_centroids(centroids).contiguous()
+    l2 = metric == "l2-squared"
+    qb = q.to(torch.bfloat16).contiguous()
+    qf = qb.float()
+    qn = (qf * qf).sum(dim=1).contiguous()
+    tc = pq4_recon_smem(m * ds, m, ds, metric) <= _SMEM_MAX
+    qblk = pq4_recon_query_blocks(qb, pq4_recon_fast(m, ds)) if tc else None
+    table = pq4_recon_table(centroids)
+    norms = pq4_recon_norms(centroids) if tc and l2 else None
     codes = codes.contiguous()
     valid = None if valid is None else valid.contiguous()
     out = torch.empty((b, n), dtype=torch.bfloat16, device=q.device)
+    vec16 = int(m % 16 == 0 and codes.data_ptr() % 16 == 0)
+    out16 = int(n % 8 == 0 and out.data_ptr() % 16 == 0)
     rc = _build.kernel("pq4_recon_block")(
-        qb.data_ptr(), qn.data_ptr(), codes.data_ptr(), cent.data_ptr(), _ptr(valid),
-        b, n, m, ds, _METRIC_ID[metric], out.data_ptr(), _stream(q.device))
+        _ptr(qblk), qb.data_ptr(), qn.data_ptr(), codes.data_ptr(), table.data_ptr(),
+        table.shape[1], _ptr(norms), 0 if norms is None else norms.numel() * 4, _ptr(valid),
+        b, n, m, ds, _METRIC_ID[metric], int(tc), -(-b // PQ4_RECON_QBLOCK), vec16, out16,
+        out.data_ptr(), _stream(q.device))
     _check_rc("pq4_recon_block", rc)
     _count("pq4_recon_block")
     return out
