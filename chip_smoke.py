@@ -9,9 +9,12 @@ Run from the repository root:
                                          # and one approx batch, timed only
     python3 chip_smoke.py --bq-times     # phases 0-1, bq_scan_reduce at B = 1 / 8 /
                                          # 64 / 256, the prefix, the single-bit probe
-    python3 chip_smoke.py --block-times  # phases 0-1, bq_mxu_block, pq4_recon_block,
-                                         # pq4_lut_block and bm25_block checked and
-                                         # timed, the hybrid dispatch split
+    python3 chip_smoke.py --block-times  # phases 0-1, bq_hamming_block, bq_mxu_block,
+                                         # pq4_recon_block, pq4_lut_block and bm25_block
+                                         # checked and timed, the hybrid dispatch split
+    python3 chip_smoke.py --import-times # phases 0-1, the FiQA-sized text import and a
+                                         # 100,000-row vector batch_put with the native
+                                         # host library, without it, and with it again
 
 It drives the port's flat nearVector path at VectorDBBench's
 Performance768D1M case (Cohere wiki-22-12: 1,000,000 x 768, cosine,
@@ -21,7 +24,9 @@ is downloaded), in phases:
 0. card: name and power limit (nvidia-smi), torch and CUDA versions;
 1. build: compiles every kernel in weaviate_tpu_torch/csrc with nvcc and
    prints each one's registers, shared memory and spills, and the
-   residency (CTAs per SM) of the two selection kernels;
+   residency (CTAs per SM) of the two selection kernels; beside them it
+   builds the native host library (csrc/host/weaviate_native.cpp, g++)
+   and fails unless it is active, so that the import phases time it;
 2. kernels: each CUDA kernel against its plain PyTorch version on the
    card, at the main path's shapes, with timings and bounds.
    fused_topk_scan also on the bf16 copy of the 1M-row corpus, at ragged
@@ -42,7 +47,9 @@ is downloaded), in phases:
    torch._int_mm product yardstick (bq_times). The four
    block kernels (bq_hamming_block, bq_mxu_block, pq4_lut_block,
    pq4_recon_block) at ragged shapes, then at 256 queries x the 1M-row
-   corpus's sign words and 4-bit PQ codes with ~10% dead rows, then
+   corpus's sign words and 4-bit PQ codes with ~10% dead rows (and
+   bq_hamming_block at HAM_CHECKS and UNALIGNED, timed beside
+   torch.cdist(p=0) on the 0/1 planes and torch._int_mm), then
    bq_mxu_block at the two shapes of tools/probe_r4.py; bq_mxu_block is
    also held to bf16(exact hamming) at 768 dims and at MXU_CHECKS (W = 1,
    8, 9 and the popcount body's 200, B = 8, 129, 1,024), pq4_recon_block
@@ -148,6 +155,7 @@ CHUNK = 8192
 ADD_BATCH = 65_536
 IMPORT_BATCH = 10_000
 IMPORT_BUDGET_S = 300.0  # phase 4 cuts its row count past this
+IMPORT_ROWS = 100_000    # --import-times' vector batch_put
 # calls per client in phase 6 (CALLS) and phase 4 (PLAIN_CALLS), and phase
 # 4's queries after its deletes: cut so that phase 7's FiQA-sized hybrid
 # collection (whose text import takes minutes on the host) keeps the script
@@ -628,12 +636,8 @@ def bq_times(torch, K, qw, xw, vmask, timer) -> list[str]:
     if not hasattr(K, "bq_queries_to_pm1"):  # a tree before this yardstick
         return parts
     try:
-        shifts = torch.arange(32, device=xw.device)
         pm1 = K.bq_queries_to_pm1(qw, w)  # [B, 32W] +-1 in bit-plane order j*W + word
-        x01 = torch.empty((n, 32 * w), dtype=torch.int8, device=xw.device)
-        for s in range(0, n, ADD_BATCH):
-            x01[s:s + ADD_BATCH] = ((xw[s:s + ADD_BATCH].long()[:, None, :]
-                                     >> shifts[None, :, None]) & 1).reshape(-1, 32 * w)
+        x01 = _bit_planes(torch, xw, torch.int8)
         ms = timer(lambda: torch._int_mm(pm1, x01.t()), reps=5)
         parts.append(f"yardstick torch._int_mm [{qw.shape[0]},{32 * w}] x [{32 * w},{n}] "
                      f"int8 (the product alone): {ms:.4f} ms")
@@ -724,9 +728,16 @@ def phase_card(torch) -> dict:
 
 
 def phase_build(K) -> None:
+    from weaviate_tpu_torch import native
     from weaviate_tpu_torch.ops import _build
 
+    # the host library builds with g++ beside the kernels' nvcc runs
+    t_native = time.perf_counter()
+    lib = threading.Thread(target=native.available)
+    lib.start()
     secs = _build.build_all()
+    lib.join()
+    native_s = time.perf_counter() - t_native
     regs = []
     for name in _build.SIGNATURES:
         with open(_build.log_path(name)) as f:
@@ -743,8 +754,18 @@ def phase_build(K) -> None:
     if hasattr(K, "kernel_residency"):  # absent from builds before the radix select
         log(f"phase 1 build: {residency_text(K)}")
     for name in ("bq_scan_reduce", "pq4_scan_reduce", "pq4_lut_block", "bq_mxu_block",
-                 "pq4_recon_block"):
+                 "pq4_recon_block", "bq_hamming_block"):
         log(f"phase 1 build: {name} SASS: {_sass_summary(_build._lib_path(name))}")
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True,
+                         timeout=60).stdout.splitlines()
+    if not native.available():
+        # the import phases would time the numpy codecs as the library's
+        raise AssertionError("the native host library did not build or load "
+                             f"({native.SRC} with {gxx[:1]})")
+    built = ("built in " + f"{native.build_seconds:.1f} s" if native.build_seconds is not None
+             else "loaded from an earlier build")
+    log(f"phase 1 build: native host library {native.library_path()} ({gxx[0]}, "
+        f"{' '.join(native.CXX_FLAGS)}) {built}; {native_s:.1f} s beside the kernels")
 
 
 def phase_kernels(torch, K, seed: int) -> tuple[dict, dict]:
@@ -1452,6 +1473,15 @@ def _same_block(torch, a, b, what, tol=None) -> float:
 # 128) and 1,024 (the probe's), N off the 64-row tile
 MXU_CHECKS = ((8, 4099, 1), (129, 9001, 8), (1024, 2050, 9), (8, 3001, 200),
               (129, 777, 200), (1024, 1001, 4))
+# bq_hamming_block beyond the main shape: (B, N, W), the shapes of
+# tests/test_torch_hamming_tc.py (W = 1, 3, 8, 9, 24, 25, 33; B = 1, 8, 129;
+# N = 1, 63, 65, 9001), then W = 120 and 200 on the popcount body it keeps
+# (bq_hamming_qblock 0) and the main W at B = 256; ham_checks also runs
+# UNALIGNED on a base 4 bytes past 16-byte alignment (the 4-byte copies)
+HAM_CHECKS = ((1, 1, 1), (8, 63, 3), (129, 65, 8), (1, 9001, 9), (8, 9001, 24),
+              (129, 63, 25), (8, 65, 33), (129, 9001, 1), (1, 65, 24), (129, 1, 33),
+              (8, 1, 9), (1, 63, 8), (1, 70, 120), (129, 33, 200), (256, 9001, 24))
+UNALIGNED = ((8, 4099, 24), (129, 1001, 8), (256, 9001, 24))
 # pq4_recon_block beyond the main shape: (B, N, m, k, ds, top code). ds = 3
 # and 1 with d = m * ds no multiple of 16, ds = 8 and 2, codes past 15 (top
 # code past 16), B past one 64-query block; d = 1,024 takes the FFMA body
@@ -1492,6 +1522,82 @@ def mxu_recon_checks(torch, K, rng, dev) -> int:
                             f"pq4_recon_block {metric} [{b},{m * ds}] x [{n},{m}] ds {ds} "
                             f"codes < {top} valid {v is not None}", tol=PQ_TOL)
     return len(MXU_CHECKS) + len(RECON_CHECKS)
+
+
+def ham_checks(torch, K, rng, dev) -> int:
+    """bq_hamming_block bit for bit against its plain version at
+    HAM_CHECKS, and at UNALIGNED on a corpus whose base is 4 bytes past
+    16-byte alignment (the kernel's 4-byte copies where W % 4 == 0 would
+    take 16-byte ones). Returns the number of shapes run."""
+    def words(count):
+        return torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, count, dtype=np.int64)
+                                .astype(np.int32)).to(dev)
+
+    for b, n, w in HAM_CHECKS:
+        q, x = words(b * w).reshape(b, w), words(n * w).reshape(n, w)
+        _same_block(torch, K.bq_hamming_block(q, x), K.bq_hamming_block_plain(q, x),
+                    f"bq_hamming_block [{b},{w}] x [{n},{w}]")
+    for b, n, w in UNALIGNED:
+        q = words(b * w).reshape(b, w)
+        x = words(n * w + 1)[1:].view(n, w)  # 4 bytes past the allocation's start
+        if x.data_ptr() % 16 == 0:
+            raise AssertionError("the unaligned corpus is aligned")
+        _same_block(torch, K.bq_hamming_block(q, x), K.bq_hamming_block_plain(q, x),
+                    f"bq_hamming_block unaligned [{b},{w}] x [{n},{w}]")
+    return len(HAM_CHECKS) + len(UNALIGNED)
+
+
+def ham_bound(b: int, n: int, w: int) -> tuple[float, str]:
+    """bq_hamming_block's bound: the words and the f32 output once, against
+    the reference kernel's 2*B*N*32W operations at the single-bit rate
+    B1_OPS its MMAs run at: bound by the bytes."""
+    return bound_ms((b + n) * w * 4 + b * n * 4, 2.0 * b * n * 32 * w, B1_OPS)
+
+
+def _bit_planes(torch, words, dtype):
+    """[R, W] sign words -> [R, 32W] 0/1 planes in bit-plane order (column
+    j*W + word), built in slices of ADD_BATCH rows."""
+    n, w = words.shape
+    shifts = torch.arange(32, device=words.device)
+    out = torch.empty((n, 32 * w), dtype=dtype, device=words.device)
+    for s in range(0, n, ADD_BATCH):
+        out[s:s + ADD_BATCH] = ((words[s:s + ADD_BATCH].long()[:, None, :]
+                                 >> shifts[None, :, None]) & 1).reshape(-1, 32 * w)
+    return out
+
+
+def ham_yardsticks(torch, qw, xw, ham, timer) -> tuple[float | None, str]:
+    """bq_hamming_block's two yardsticks at its main shape: the library
+    call, torch.cdist(p=0) on the 0/1 f32 bit planes (the count of planes
+    that differ: the same function, which must equal the kernel's answer
+    to count), and the product alone, torch._int_mm of the 0/1 int8 planes.
+    Returns (library ms or None, text)."""
+    lib_ms, parts = None, []
+    try:
+        q01, x01 = _bit_planes(torch, qw, torch.float32), _bit_planes(torch, xw, torch.float32)
+        cd = torch.cdist(q01, x01, p=0)
+        if torch.equal(cd, ham):
+            lib_ms = timer(lambda: torch.cdist(q01, x01, p=0), reps=2, warmup=0)
+            parts.append(f"library torch.cdist(p=0) on the 0/1 f32 planes [{qw.shape[0]},"
+                         f"{q01.shape[1]}] x [{x01.shape[0]},{x01.shape[1]}]: equal to the "
+                         f"kernel, {lib_ms:.4f} ms")
+        else:
+            parts.append(f"library torch.cdist(p=0): {int((cd != ham).sum())} values differ "
+                         "from the kernel's: not counted")
+        del q01, x01, cd
+    except RuntimeError as e:  # a yardstick only: the run goes on without it
+        parts.append(f"library torch.cdist(p=0) failed: {str(e).splitlines()[0]}")
+    torch.cuda.empty_cache()
+    try:
+        q01, x01 = _bit_planes(torch, qw, torch.int8), _bit_planes(torch, xw, torch.int8)
+        ms = timer(lambda: torch._int_mm(q01, x01.t()), reps=5)
+        parts.append(f"the product alone, torch._int_mm [{qw.shape[0]},{q01.shape[1]}] x "
+                     f"[{q01.shape[1]},{x01.shape[0]}] 0/1 int8: {ms:.4f} ms")
+        del q01, x01
+    except RuntimeError as e:
+        parts.append(f"yardstick torch._int_mm failed: {str(e).splitlines()[0]}")
+    torch.cuda.empty_cache()
+    return lib_ms, "; ".join(parts)
 
 
 def mxu_bound(b: int, n: int, w: int) -> tuple[float, str]:
@@ -1562,6 +1668,7 @@ def _block_kernels(torch, K, ops, qs, rng, timer) -> tuple[dict, dict]:
         ragged += 1
     lut_cases = lut_checks(torch, K, rng, dev)
     mr_cases = mxu_recon_checks(torch, K, rng, dev)
+    ham_cases = ham_checks(torch, K, rng, dev)
 
     # the main path's shapes: 256 queries x 1,048,576 rows, 768 dims
     qw, xw = ops["qw"], ops["xw"]
@@ -1584,13 +1691,15 @@ def _block_kernels(torch, K, ops, qs, rng, timer) -> tuple[dict, dict]:
     cached = K.bq_mxu_block(qw, xw, popcounts(xw), valid, planes, planes.float().sum(1))
     if not torch.equal(cached, mxu):
         raise AssertionError("bq_mxu_block with cached x_pop and q_planes differs")
-    del ham, mxu, cached
-    nbytes_words = qw.numel() * 4 + xw.numel() * 4
-    b_ms, b_by = bound_ms(nbytes_words + b * n * 4, 2.0 * b * n * 32 * w, INT8_OPS)
+    del mxu, cached
+    b_ms, b_by = ham_bound(b, n, w)
+    ham_ms = timer(lambda: K.bq_hamming_block(qw, xw), reps=10)
+    ham_lib_ms, ham_yard = ham_yardsticks(torch, qw, xw, ham, timer)
+    del ham
     out["bq_hamming_block"] = dict(
-        max_abs_err=0.0, ms=timer(lambda: K.bq_hamming_block(qw, xw), reps=10),
+        max_abs_err=0.0, ms=ham_ms,
         plain_ms=timer(lambda: K.bq_hamming_block_plain(qw, xw), reps=1, warmup=0),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        library_ms=ham_lib_ms, bound_ms=b_ms, bound_by=b_by)
     b_ms, b_by = mxu_bound(b, n, w)
     out["bq_mxu_block"] = dict(
         max_abs_err=0.0, ms=timer(lambda: K.bq_mxu_block(qw, xw, valid=valid), reps=10),
@@ -1639,9 +1748,12 @@ def _block_kernels(torch, K, ops, qs, rng, timer) -> tuple[dict, dict]:
     o = out
     log(f"phase 2 kernels: block kernels, {ragged // 2} ragged shapes each, then "
         f"[{b},{w} words] x [{n},{w}] with ~10% dead rows: bq_hamming_block equal to the plain "
-        f"version and to bq_hamming_np (first {np_rows} rows), kernel "
+        f"version and to bq_hamming_np (first {np_rows} rows), also at {ham_cases} more "
+        f"shapes (HAM_CHECKS, UNALIGNED: W = 1 / 3 / 8 / 9 / 24 / 25 / 33 and the popcount "
+        f"body's 120 / 200, B = 1 / 8 / 129 / 256, N = 1 / 63 / 65 / 9001, a base off 16-byte "
+        f"alignment), kernel (query block {K.bq_hamming_qblock(b, w)}) "
         f"{o['bq_hamming_block']['ms']:.3f} ms, plain {o['bq_hamming_block']['plain_ms']:.3f} ms, "
-        f"{_bound_text(o['bq_hamming_block'])}; bq_mxu_block equal to the plain version and "
+        f"{_bound_text(o['bq_hamming_block'])}; {ham_yard}; bq_mxu_block equal to the plain version and "
         f"to bf16(exact hamming) on the live rows, also with cached x_pop / q_planes, kernel "
         f"{o['bq_mxu_block']['ms']:.3f} ms, plain {o['bq_mxu_block']['plain_ms']:.3f} ms, "
         f"{_bound_text(o['bq_mxu_block'])}; at the probe shapes {', '.join(probe)}; "
@@ -1918,7 +2030,7 @@ def phase_end_to_end(torch, K, seed: int, rows: int, db) -> tuple[dict, dict]:
     counts = dict(K.launch_counts)  # ... and ends here
     log(f"phase 4 end to end: Database(device='cuda') flat {METRIC} collection, "
         f"batch_put {done} objects{cut} in {import_s:.1f} s "
-        f"({done / import_s:.0f} objects/s); serial path {nq} near_vector(k=10) in "
+        f"({done / import_s:.0f} objects/s, native host library {_native_state()}); serial path {nq} near_vector(k=10) in "
         f"{timings['serial']:.1f} s; {CLIENTS} clients x {PLAIN_CALLS} near_vector(k=10), "
         f"half where(views >= {VIEWS_CUT}, values 0..99): "
         + "; ".join(stats)
@@ -2360,14 +2472,21 @@ def _tie_ordered_reference(col, shard, query, vec, fusion, alpha, allow):
     return [(r.uuid, s) for s, r in fuse(legs, weights, HYBRID_K)]
 
 
-def phase_hybrid(torch, K, seed: int, db, n_docs: int) -> dict:
-    """Phase 7. Returns its launch counts."""
-    from weaviate_tpu_torch.filters import Filter, Operator
+def _native_state() -> str:
+    from weaviate_tpu_torch import native
+
+    return "on" if native.available() else "off (numpy)"
+
+
+def _fiqa_import(torch, seed: int, db, n_docs: int):
+    """Phase 7's collection: FiQA-shaped text and clustered vectors
+    through Collection.batch_put in batches of 2,000. Returns (collection,
+    unit rows on the card, document frequencies, mean text length, the
+    seconds spent making the text and importing it)."""
     from weaviate_tpu_torch.schema.config import (CollectionConfig, Property,
                                                   VectorConfig, VectorIndexConfig)
 
     dev = "cuda"
-    rng = np.random.default_rng([seed, 9])
     t0 = time.perf_counter()
     texts, titles, df, mean_len = _fiqa_corpus(seed, n_docs)
     cent = centers(seed)
@@ -2390,7 +2509,73 @@ def phase_hybrid(torch, K, seed: int, db, n_docs: int) -> dict:
         if any(r["status"] != "SUCCESS" for r in res):
             raise AssertionError(f"batch_put failed: {res[0]}")
         ref[s:s + n] = torch.nn.functional.normalize(torch.from_numpy(v).to(dev), dim=1)
-    import_s = time.perf_counter() - t0
+    return col, ref, df, mean_len, gen_s, time.perf_counter() - t0
+
+
+def import_run(torch, seed: int, n_docs: int, rows: int) -> dict:
+    """The FiQA-sized text import (phase 7's) and a ``rows``-row vector
+    batch_put (phase 4's) into a fresh Database on the card, with the
+    native host library or without it (WEAVIATE_TPU_NO_NATIVE=1): the
+    import rates of whichever path is active."""
+    from weaviate_tpu_torch import native
+    from weaviate_tpu_torch.db import Database
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_import_")
+    db = None
+    try:
+        db = Database(tmp, device="cuda")
+        col, _ref, _df, _len, _gen, text_s = _fiqa_import(torch, seed, db, n_docs)
+        if col.object_count() != n_docs:
+            raise AssertionError(f"object_count {col.object_count()} != {n_docs}")
+        vcol = _collection(db, "Wiki")
+        _, _, done, vec_s = _import(torch, vcol, seed + 1, rows, 8000,
+                                    np.random.default_rng([seed, 4]), IMPORT_BUDGET_S)
+        if vcol.object_count() != done:
+            raise AssertionError(f"object_count {vcol.object_count()} != {done}")
+    finally:
+        if db is not None:
+            db.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"native": native.available(), "text_docs": n_docs, "text_s": text_s,
+            "text_objects_s": n_docs / text_s, "vector_rows": done, "vector_s": vec_s,
+            "vector_objects_s": done / vec_s}
+
+
+def import_times(torch, seed: int, n_docs: int, rows: int) -> list[str]:
+    """``--import-times``: import_run with the native host library, then
+    in a child process with WEAVIATE_TPU_NO_NATIVE=1 (the numpy codecs),
+    then with the library again, in one call. Returns one text part
+    each."""
+    import os
+
+    def text(r):
+        return (f"native host library {'on' if r['native'] else 'off (numpy)'}: "
+                f"FiQA-sized text import {r['text_docs']} documents in {r['text_s']:.1f} s "
+                f"({r['text_objects_s']:.0f} objects/s), vector batch_put {r['vector_rows']} "
+                f"rows x {DIM} in {r['vector_s']:.1f} s ({r['vector_objects_s']:.0f} objects/s)")
+
+    parts = [text(import_run(torch, seed, n_docs, rows))]
+    env = dict(os.environ, WEAVIATE_TPU_NO_NATIVE="1")
+    child = subprocess.run(
+        [sys.executable, __file__, "--import-run", "--seed", str(seed), "--rows", str(rows),
+         "--hybrid-docs", str(n_docs)], capture_output=True, text=True, timeout=1800, env=env)
+    if child.returncode != 0:
+        raise AssertionError(f"the numpy import run failed:\n{child.stderr[-4000:]}")
+    numpy_run = json.loads(child.stdout.strip().splitlines()[-1])
+    if numpy_run["native"]:
+        raise AssertionError("WEAVIATE_TPU_NO_NATIVE=1 did not turn the library off")
+    parts.append(text(numpy_run))
+    parts.append(text(import_run(torch, seed, n_docs, rows)) + " (again)")
+    return parts
+
+
+def phase_hybrid(torch, K, seed: int, db, n_docs: int) -> dict:
+    """Phase 7. Returns its launch counts."""
+    from weaviate_tpu_torch.filters import Filter, Operator
+
+    dev = "cuda"
+    rng = np.random.default_rng([seed, 9])
+    col, ref, df, mean_len, gen_s, import_s = _fiqa_import(torch, seed, db, n_docs)
     if col.object_count() != n_docs:
         raise AssertionError(f"object_count {col.object_count()} != {n_docs}")
     shard = next(iter(col.shards.values()))
@@ -2547,7 +2732,7 @@ def phase_hybrid(torch, K, seed: int, db, n_docs: int) -> dict:
     log(f"phase 7 hybrid: BEIR FiQA-2018 shape, {n_docs} documents (text {mean_len:.1f} "
         f"words, title ~{TITLE_WORDS}, Zipf s={ZIPF_S} over {VOCAB} words, made in "
         f"{gen_s:.1f} s), {DIM}-d {METRIC} flat; batch_put in {import_s:.1f} s "
-        f"({n_docs / import_s:.0f} objects/s); k1 1.2, b 0.75, k={HYBRID_K}, "
+        f"({n_docs / import_s:.0f} objects/s, native host library {_native_state()}); k1 1.2, b 0.75, k={HYBRID_K}, "
         f"{'/'.join(f'{f} {a}' for f, a in HYBRID_SETTINGS)} in turn: " + " | ".join(parts)
         + f"; {dispatches} batched dispatches in all; host reference ({ref_s:.1f} s, serial, "
         f"device_hybrid off): {exact} device answers equal to it (uuids, scores within "
@@ -2840,18 +3025,68 @@ def mxu_times(torch, K, gen, timer) -> list[str]:
                  f"{graph_ms(torch, K, [lambda: K.bq_mxu_block(q8, x8)]):.4f} ms "
                  "(a CUDA graph of launches)")
     try:
-        shifts = torch.arange(32, device=dev)
-        q01 = K.bq_queries_to_planes(qw, w).to(torch.int8)  # [B, 32W] 0/1, plane order
-        x01 = torch.empty((n, 32 * w), dtype=torch.int8, device=dev)
-        for s in range(0, n, ADD_BATCH):
-            x01[s:s + ADD_BATCH] = ((xw[s:s + ADD_BATCH].long()[:, None, :]
-                                     >> shifts[None, :, None]) & 1).reshape(-1, 32 * w)
+        q01, x01 = _bit_planes(torch, qw, torch.int8), _bit_planes(torch, xw, torch.int8)
         ms = timer(lambda: torch._int_mm(q01, x01.t()), reps=5)
         parts.append(f"yardstick torch._int_mm [{BATCH},{32 * w}] x [{32 * w},{n}] 0/1 int8 "
                      f"(the product alone): {ms:.4f} ms")
         del x01
     except RuntimeError as e:  # a yardstick only: the run goes on without it
         parts.append(f"yardstick torch._int_mm failed: {str(e).splitlines()[0]}")
+    return parts
+
+
+def ham_times(torch, K, gen, timer) -> list[str]:
+    """bq_hamming_block at the main shape [256, 24 words] x 1,048,576 rows,
+    equal to its plain version, timed beside its bound: the wrapper (which
+    lays out the query blocks each call), the kernel alone on blocks laid
+    out once, each query block the tensor-core body could take and the
+    popcount body it keeps (query block 0); then its two yardsticks
+    (ham_yardsticks). Returns one text part each."""
+    from weaviate_tpu_torch.ops import _build
+
+    dev = "cuda"
+    n, w = 1 << 20, DIM // 32
+    xw = torch.randint(-2 ** 31, 2 ** 31 - 1, (n, w), dtype=torch.int32, device=dev,
+                       generator=gen)
+    qw = torch.randint(-2 ** 31, 2 ** 31 - 1, (BATCH, w), dtype=torch.int32, device=dev,
+                       generator=gen)
+    ham = K.bq_hamming_block(qw, xw)
+    _same_block(torch, ham, K.bq_hamming_block_plain(qw, xw), f"bq_hamming_block [{BATCH},{w}] x [{n}]")
+    b_ms, b_by = ham_bound(BATCH, n, w)
+    o = dict(ms=timer(lambda: K.bq_hamming_block(qw, xw), reps=20), bound_ms=b_ms, bound_by=b_by)
+    parts = [f"bq_hamming_block [{BATCH},{w} words] x [{n},{w}]: equal to the plain version; "
+             f"the wrapper {o['ms']:.4f} ms, {_bound_text(o)}"]
+    qn = K.bq_hamming_qblock(BATCH, w)
+    qm, out = K.bq_query_blocks(qw, qn), torch.empty_like(ham)
+    fn, stream = _build.kernel("bq_hamming_block"), torch.cuda.current_stream().cuda_stream
+
+    def kernel_only():
+        fn(qm.data_ptr(), qw.data_ptr(), xw.data_ptr(), 1, BATCH, n, w, qn, -(-BATCH // qn), 1,
+           out.data_ptr(), stream)
+    kernel_only()
+    if not torch.equal(out, ham):
+        raise AssertionError("bq_hamming_block's kernel alone differs from the wrapper")
+    o = dict(ms=timer(kernel_only, reps=20), bound_ms=b_ms, bound_by=b_by)
+    parts.append(f"the kernel alone (query blocks laid out once) {o['ms']:.4f} ms, "
+                 f"{_bound_text(o)}")
+    # the body without its global stores (a -DWTT_BQ_TC_NOSTORE build),
+    # beside the stores alone: one fill_ of the [B, N] f32 output
+    nostore = _build.build_variant("bq_hamming_block", ("WTT_BQ_TC_NOSTORE",))
+
+    def no_stores():
+        nostore(qm.data_ptr(), qw.data_ptr(), xw.data_ptr(), 1, BATCH, n, w, qn, -(-BATCH // qn),
+                1, out.data_ptr(), stream)
+    no_stores()
+    torch.cuda.synchronize()
+    parts.append(f"its breakdown: the body without its global stores (-DWTT_BQ_TC_NOSTORE) "
+                 f"{timer(no_stores, reps=20):.4f} ms, the stores alone (fill_ of the "
+                 f"[{BATCH},{n}] f32 output) {timer(lambda: out.fill_(1.0), reps=20):.4f} ms")
+    blocks = {q: timer(lambda: K.bq_hamming_launch(qw, xw, q), reps=20)
+              for q in K.BQ_TC_QBLOCKS[2:] + (0,)}
+    parts.append(f"by query block (the wrapper takes {qn}; 0: the popcount body it keeps): "
+                 + ", ".join(f"{q} {ms:.4f} ms" for q, ms in blocks.items()))
+    del out, qm
+    parts.append(ham_yardsticks(torch, qw, xw, ham, timer)[1])
     return parts
 
 
@@ -2912,9 +3147,10 @@ def recon_times(torch, K, gen, timer) -> list[str]:
 
 
 def block_times(torch, K, seed: int, timer) -> list[str]:
-    """``--block-times``: bq_mxu_block and pq4_recon_block held to their
-    plain versions (MXU_CHECKS, RECON_CHECKS, the main shapes) and timed
-    beside their bounds and product yardsticks (mxu_times, recon_times);
+    """``--block-times``: bq_hamming_block, bq_mxu_block and
+    pq4_recon_block held to their plain versions (HAM_CHECKS, UNALIGNED,
+    MXU_CHECKS, RECON_CHECKS, the main shapes) and timed beside their
+    bounds and yardsticks (ham_times, mxu_times, recon_times);
     pq4_lut_block and bm25_block held to their plain versions (LUT_CHECKS,
     the 1M-row shape; BM25_CHECKS) and timed at the main and dispatch
     shapes, then the fused hybrid dispatch's split on a synthetic
@@ -2925,7 +3161,11 @@ def block_times(torch, K, seed: int, timer) -> list[str]:
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(seed)
     parts = [f"bq_mxu_block and pq4_recon_block held to the plain versions at "
-             f"{mxu_recon_checks(torch, K, rng, dev)} MXU_CHECKS / RECON_CHECKS shapes"]
+             f"{mxu_recon_checks(torch, K, rng, dev)} MXU_CHECKS / RECON_CHECKS shapes, "
+             f"bq_hamming_block at {ham_checks(torch, K, rng, dev)} HAM_CHECKS / UNALIGNED "
+             "shapes"]
+    parts += ham_times(torch, K, gen, timer)
+    torch.cuda.empty_cache()
     parts += mxu_times(torch, K, gen, timer) + recon_times(torch, K, gen, timer)
     torch.cuda.empty_cache()
     parts.append(f"pq4_lut_block equal to the plain version at {lut_checks(torch, K, rng)} "
@@ -3002,7 +3242,20 @@ def main() -> int:
     ap.add_argument("--dist-times", action="store_true",
                     help="only build the kernels and time distance_block, "
                     "pq4_scan_reduce and one approx batch (no checks, no result line)")
+    ap.add_argument("--import-times", action="store_true",
+                    help="only build the kernels and the native host library, then time "
+                    "the FiQA-sized text import and a vector batch_put of --import-rows rows "
+                    "with the library, without it (WEAVIATE_TPU_NO_NATIVE=1, a child "
+                    "process) and with it again (no result line)")
+    ap.add_argument("--import-rows", type=int, default=IMPORT_ROWS,
+                    help="--import-times' vector rows (default 100,000)")
+    ap.add_argument("--import-run", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.import_run:  # --import-times' child: one import run, its JSON line
+        import torch
+
+        print(json.dumps(import_run(torch, args.seed, args.hybrid_docs, args.rows)), flush=True)
+        return 0
     import torch
 
     if not torch.cuda.is_available():
@@ -3061,6 +3314,11 @@ def main() -> int:
     if args.dist_times:
         for part in dist_times(torch, K, args.seed, Timer(torch)):
             log(f"dist times: {part}")
+        log(f"card after (SM clock, max SM clock, power, temperature): {card_clocks()}")
+        return 0
+    if args.import_times:
+        for part in import_times(torch, args.seed, args.hybrid_docs, args.import_rows):
+            log(f"import times: {part}")
         log(f"card after (SM clock, max SM clock, power, temperature): {card_clocks()}")
         return 0
     numbers, counts2 = phase_kernels(torch, K, args.seed)

@@ -169,8 +169,10 @@ def test_bq_mxu_qblock_picks_a_body_that_fits():
         for w in range(1, 130, 7):
             qn = K.bq_mxu_qblock(b, w)
             assert qn == 0 or K.bq_mxu_smem(qn, w) <= K._SMEM_MAX
-    # the host's shared-memory sum is the kernel's
-    src = open(f"{_build.CSRC}/bq_mxu_block.cu").read()
+    # the host's shared-memory sum is the kernel's (its body is shared with
+    # bq_hamming_block in bq_block_tc.cuh, its epilogue's stride is its own)
+    src = open(f"{_build.CSRC}/bq_mxu_block.cu").read() + \
+        open(f"{_build.CSRC}/bq_block_tc.cuh").read()
     consts = dict(re.findall(r"constexpr int (STAGES|TILE|SMEM_MAX) = (\d+);", src))
     assert (int(consts["STAGES"]), int(consts["TILE"]), int(consts["SMEM_MAX"])) == \
         (K._BQ_TC_STAGES, K._BQ_TC_TILE, K._SMEM_MAX)

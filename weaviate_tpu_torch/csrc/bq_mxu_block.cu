@@ -36,40 +36,22 @@
 // popcounts at 16 per clock per SM, ~1.5 ms whatever the tuning, and
 // stores of 64 contiguous bytes per query and warp.
 //
-// Design: bq_scan_reduce's single-bit body with a block epilogue.
-//  - wgmma.m64nNk256.s32.b1.b1.and.popc, both operands from shared memory:
-//    D[row, query] = popc(x AND q) over 256 bits a K step. Rows are the
-//    MMA's M: the x words themselves, K-major core matrices of 8 rows x 16
-//    bytes, no unpack, through a 4-stage cp.async ring per warpgroup (16-byte
-//    copies when W % 4 == 0 on an aligned base, 4-byte copies otherwise).
-//    Queries are its N: the query block's words plus 16 all-ones rows,
-//    resident for the CTA (bulk copies on an mbarrier); the all-ones
-//    columns give popc(x) of every row from the same MMA, used when the
-//    caller has no cached popcounts.
-//  - N = QN + 16 (wgmma's N past 32 is a multiple of 16), QN chosen from B
-//    (8, 16, 32, 64 or 128 queries): phase 8's 8-query call does not pay
-//    for 128. Larger B runs over several query blocks, the query block
-//    fastest in the grid so that CTAs reading the same rows run together.
-//  - A CTA of two warpgroups owns 2 * TPW consecutive 64-row tiles;
-//    warpgroup w takes tiles w, w + 2, ... After a tile's MMAs each entry
-//    goes through the f32 epilogue into a shared-memory tile [QN queries x
-//    64 rows] (transposed), and each query's 64 rows go out as one
-//    128-byte run of 16-byte stores. A tile's stores are in flight while
-//    the next tile's MMAs run.
-//  - Rows past N are zero-filled by the copies and never stored.
-//  - The first design's body (AND + __popc, 32 queries a CTA) stays for
-//    codes too wide for the tensor-core body's shared memory (W past ~100
-//    words).
+// Design: bq_scan_reduce's single-bit body with a block epilogue, shared
+// with bq_hamming_block (bq_block_tc.cuh: the MMAs, the row ring, the
+// transposed output tile and its stores). The epilogue here is the f32
+// formula and the mask, rounded to bf16 into a tile of 144-byte rows; each
+// query's 64 rows leave as one 128-byte run. The first design's body (AND +
+// __popc, 32 queries a CTA) stays for codes too wide for the tensor-core
+// body's shared memory (W past ~100 words).
 
 #include <cuda_bf16.h>
 
-#include "scan_reduce_common.cuh"
-#include "wgmma_common.cuh"
+#include "bq_block_tc.cuh"
 
 namespace {
 
 using namespace wtt_scan;
-using namespace wtt_wgmma;
+using namespace wtt_bq_tc;
 
 // -- the popcount body ---------------------------------------------------------
 
@@ -128,190 +110,20 @@ void launch_popc(const uint32_t* q, const uint32_t* x, int vec4, const float* qp
       q, x, vec4, qpop, xpop, valid, B, N, W, wp, n_qblocks, out);
 }
 
-// -- the tensor-core body --------------------------------------------------------
+// -- the tensor-core body's epilogue ------------------------------------------
 
-constexpr int TC_THREADS = 256;  // two warpgroups
-constexpr int TILE = 64;         // rows of one warpgroup step: the MMA's M
-constexpr int STAGES = 4;        // row tiles in flight per warpgroup
-constexpr int TPW = 8;           // tiles per warpgroup and CTA
-constexpr int OS = TILE + 8;     // bf16 stride of a query's row in the output tile (144 B)
-constexpr int SMEM_MAX = 232448; // dynamic shared memory a block can use
-
-__host__ __device__ inline int tc_words(int W) { return (W + 7) / 8 * 8; }  // K steps of 8 words
-// the query block's words and its all-ones rows, the two warpgroups' rings
-// and output tiles, the queries' popcounts, the mbarrier
-// (ops/kernels.bq_mxu_smem computes the same)
-__host__ inline int tc_smem(int qn, int W) {
-  return (qn + 16) * tc_words(W) * 4 + 2 * STAGES * TILE * tc_words(W) * 4 + 2 * qn * OS * 2 +
-         qn * 4 + 16;
-}
-
-struct TcGeo {
-  int B, N, W, n_qb, vec16;  // vec16: N % 8 == 0 and out 16-byte aligned
+// the reference's f32 order: (qpop + xpop) - 2 dot, then the mask, rounded
+// to bf16; the popcounts are f32 (a caller's cached ones are used as given)
+struct MxuEpilogue {
+  using T = __nv_bfloat16;
+  using P = float;
+  static constexpr int OS = TILE + 8;  // bf16 stride of a query's row in the output tile (144 B)
+  __device__ static __forceinline__ T entry(int dot, float qp, float xp, float dead, bool masked) {
+    float d = __fsub_rn(__fadd_rn(qp, xp), __fmul_rn(2.f, (float)dot));
+    if (masked) d = __fadd_rn(d, dead);
+    return __float2bfloat16_rn(d);
+  }
 };
-
-template <int QN, bool VEC>
-__global__ void __launch_bounds__(TC_THREADS, QN >= 128 ? 1 : 2)
-bq_mxu_tc_kernel(const uint32_t* __restrict__ qblk, const uint32_t* __restrict__ q,
-                 const uint32_t* __restrict__ x, const float* __restrict__ qpop,
-                 const float* __restrict__ xpop,
-                 const bool* __restrict__ valid, TcGeo g, __nv_bfloat16* __restrict__ out) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int w8 = tc_words(g.W);
-  const int sbo = 32 * w8;  // bytes between core matrices along M / N: all K chunks of 8 rows
-  const int qbytes = (QN + 16) * w8 * 4;
-  const int stage_bytes = TILE * w8 * 4;
-  __nv_bfloat16* otile_all =
-      reinterpret_cast<__nv_bfloat16*>(smem + qbytes + 2 * STAGES * stage_bytes);
-  float* sqpop = reinterpret_cast<float*>(otile_all + 2 * QN * OS);
-  uint64_t* bar = reinterpret_cast<uint64_t*>(sqpop + QN);
-
-  const int qb = (int)(blockIdx.x % g.n_qb);
-  const long long chunk = blockIdx.x / g.n_qb;
-  const int q0 = qb * QN;
-  const int t = threadIdx.x, lane = t & 31, tw = t & 127;
-  const int wg = t >> 7, gq = lane >> 2, tq = lane & 3;
-  const int rl = (tw >> 5) * 16 + gq;  // this lane's rows of a tile: rl, rl + 8
-  unsigned char* ring = smem + qbytes + wg * STAGES * stage_bytes;
-  __nv_bfloat16* otile = otile_all + wg * QN * OS;  // [QN][OS]: query-major rows
-
-  if (t == 0) {
-    mbar_init(bar);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  for (int i = t; i < QN; i += TC_THREADS) {  // the caller's popcounts as given, else the words'
-    float p = 0.f;
-    if (q0 + i < g.B && qpop != nullptr) {
-      p = qpop[q0 + i];
-    } else if (q0 + i < g.B) {
-      int pop = 0;
-      for (int w = 0; w < g.W; ++w) pop += __popc(__ldg(q + (size_t)(q0 + i) * g.W + w));
-      p = (float)pop;
-    }
-    sqpop[i] = p;
-  }
-  __syncthreads();
-  if (t == 0) {  // the query block's words, one bulk copy per 8 queries
-    mbar_expect(bar, qbytes);
-    for (int i = 0; i < QN / 8 + 2; ++i)
-      bulk_copy(smem + i * sbo, reinterpret_cast<const unsigned char*>(qblk) +
-                                    (size_t)qb * qbytes + (size_t)i * sbo, sbo, bar);
-  }
-
-  // this warpgroup's tiles: s = 0 .. n_tiles-1 at rows row0 + 2 s TILE
-  const long long row0 = (chunk * 2 * TPW + wg) * TILE;
-  const long long left = g.N - row0;
-  const int n_tiles = left <= 0 ? 0 : (int)min((long long)TPW, (left + 2 * TILE - 1) / (2 * TILE));
-  // tile s in core-matrix order: word j of row r at (r/8)*sbo + (j/4)*128 + (r%8)*16 + (j%4)*4
-  auto load = [&](int s) {
-    unsigned char* dst = ring + (s % STAGES) * stage_bytes;
-    const long long r0 = row0 + (long long)s * 2 * TILE;
-    const int rr = tw >> 1;  // two threads a row
-    const long long row = r0 + rr;
-    const bool ok = row < g.N;
-    unsigned char* d = dst + (rr >> 3) * sbo + (rr & 7) * 16;
-    if (VEC) {  // 16-byte chunks of row-major rows
-      for (int c = tw & 1; c < g.W / 4; c += 2)
-        cp_async16(d + c * 128, ok ? (const void*)(x + row * g.W + 4 * c) : (const void*)x, ok);
-    } else {
-      for (int j = tw & 1; j < g.W; j += 2)
-        cp_async4(d + (j >> 2) * 128 + (j & 3) * 4, ok ? x + (size_t)row * g.W + j : x, ok);
-    }
-  };
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n_tiles) load(s);
-    cp_async_commit();
-  }
-
-  const uint32_t qm_s = (uint32_t)__cvta_generic_to_shared(smem);
-  const uint32_t ring_s = (uint32_t)__cvta_generic_to_shared(ring);
-  const int nq = min(QN, g.B - q0);
-  mbar_wait(bar, 0);
-  for (int s = 0; s < n_tiles; ++s) {
-    cp_async_wait<STAGES - 2>();  // tile s has landed; the MMAs read it through the
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // async proxy ...
-    // ... for the warpgroup, whose stores of tile s-1 have read the output tile
-    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-    if (s + STAGES - 1 < n_tiles) load(s + STAGES - 1);  // into tile s-1's stage
-    cp_async_commit();
-    const long long r0 = row0 + (long long)s * 2 * TILE;
-    // D[row, n] = popc(x AND q_n); the all-ones columns n >= QN give popc(x)
-    int acc[QN / 2 + 8];
-    const uint32_t a_s = ring_s + (s % STAGES) * stage_bytes;
-    wgmma_fence();
-    for (int j = 0; j < w8 / 8; ++j)  // K step j: words 8j .. 8j+7, two core matrices
-      wgmma_b1(acc, desc_of(a_s + j * 256, 128, sbo), desc_of(qm_s + j * 256, 128, sbo), j);
-    wgmma_commit();
-    // this lane's two rows: popcount and mask, read while the MMAs run
-    float xp[2], dead[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const long long row = r0 + rl + 8 * r;
-      const bool in = row < g.N;
-      xp[r] = (xpop != nullptr && in) ? xpop[row] : 0.f;
-      dead[r] = (valid != nullptr && in && !valid[row]) ? MASKED : 0.f;
-    }
-    wgmma_wait<0>();
-#pragma unroll
-    for (int i = 0; i < QN / 2 + 8; ++i) fence_operand(acc[i]);
-    if (xpop == nullptr) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) xp[r] = (float)acc[QN / 2 + 2 * r];
-    }
-    // entry i: query 8(i/4) + 2t + i%2, row rl + 8((i/2)%2); the reference's
-    // f32 order: (qpop + xpop) - 2 dot, then the mask
-#pragma unroll
-    for (int i = 0; i < QN / 2; ++i) {
-      const int r = (i >> 1) & 1, qi = (i >> 2) * 8 + 2 * tq + (i & 1);
-      float d = __fsub_rn(__fadd_rn(sqpop[qi], xp[r]), __fmul_rn(2.f, (float)acc[i]));
-      if (valid != nullptr) d = __fadd_rn(d, dead[r]);
-      otile[qi * OS + rl + 8 * r] = __float2bfloat16_rn(d);
-    }
-    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-    // each query's 64 rows: one 128-byte run, 8 threads of 16 bytes
-    const int nr = (int)min((long long)TILE, (long long)g.N - r0);
-    for (int e = tw; e < nq * 8; e += 128) {
-      const int qi = e >> 3, c8 = (e & 7) * 8;
-      if (c8 >= nr) continue;
-      __nv_bfloat16* dst = out + (size_t)(q0 + qi) * g.N + r0 + c8;
-      const __nv_bfloat16* src = otile + qi * OS + c8;
-      if (g.vec16 && c8 + 8 <= nr) {
-        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-      } else {
-        for (int k = 0; k < 8 && c8 + k < nr; ++k) dst[k] = src[k];
-      }
-    }
-  }
-  cp_async_wait<0>();
-}
-
-template <int QN, bool VEC>
-int launch_tc(const uint32_t* qm, const uint32_t* q, const uint32_t* x, const float* qpop,
-              const float* xpop, const bool* valid, const TcGeo& g, long long blocks, int smem,
-              __nv_bfloat16* out, cudaStream_t s) {
-  auto kern = bq_mxu_tc_kernel<QN, VEC>;
-  // the cap is set once per instantiation; a launch asks for what its W needs
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
-  if (attr != cudaSuccess) return (int)attr;
-  kern<<<(unsigned)blocks, TC_THREADS, smem, s>>>(qm, q, x, qpop, xpop, valid, g, out);
-  return (int)cudaGetLastError();
-}
-
-template <bool VEC>
-int dispatch_tc(int qn, const uint32_t* qm, const uint32_t* q, const uint32_t* x,
-                const float* qpop, const float* xpop, const bool* valid, const TcGeo& g,
-                long long blocks, int smem, __nv_bfloat16* out, cudaStream_t s) {
-  switch (qn) {
-    case 8: return launch_tc<8, VEC>(qm, q, x, qpop, xpop, valid, g, blocks, smem, out, s);
-    case 16: return launch_tc<16, VEC>(qm, q, x, qpop, xpop, valid, g, blocks, smem, out, s);
-    case 32: return launch_tc<32, VEC>(qm, q, x, qpop, xpop, valid, g, blocks, smem, out, s);
-    case 64: return launch_tc<64, VEC>(qm, q, x, qpop, xpop, valid, g, blocks, smem, out, s);
-    case 128: return launch_tc<128, VEC>(qm, q, x, qpop, xpop, valid, g, blocks, smem, out, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
 
 }  // namespace
 
@@ -340,13 +152,6 @@ extern "C" int wtt_bq_mxu_block(const void* qm, const void* q, const void* x, in
       launch_popc<false>(qq, xx, vec4, qp, xp, v, B, N, W, o, s);
     return (int)cudaGetLastError();
   }
-  const int smem = tc_smem(qblock, W);
-  if (n_qblocks * qblock < B || smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  TcGeo g;
-  g.B = B; g.N = N; g.W = W; g.n_qb = n_qblocks; g.vec16 = out16;
-  const long long chunks = ((long long)N + 2 * TPW * TILE - 1) / (2 * TPW * TILE);
-  const long long blocks = chunks * n_qblocks;
-  const uint32_t* m = static_cast<const uint32_t*>(qm);
-  return vec4 ? dispatch_tc<true>(qblock, m, qq, xx, qp, xp, v, g, blocks, smem, o, s)
-              : dispatch_tc<false>(qblock, m, qq, xx, qp, xp, v, g, blocks, smem, o, s);
+  const TcOperands p{static_cast<const uint32_t*>(qm), qq, xx, qp, xp, v};
+  return run_tc<MxuEpilogue>(p, vec4, B, N, W, qblock, n_qblocks, out16, o, s);
 }

@@ -1,0 +1,1075 @@
+// Native host-side runtime primitives.
+//
+// The reference's host hot loops outside the distance kernels are its
+// roaring-bitmap set algebra (dgraph-io/sroar behind
+// adapters/repos/db/roaringset/), the posting-list segment codecs
+// (lsmkv segment_serialization.go), and the cross-shard top-k merge
+// (adapters/repos/db/index.go:1644-1648). These are their C++ equivalents,
+// operating on the framework's canonical host representations:
+// sorted uint64 doc-id arrays (the dense analog of roaring containers),
+// varint-delta-coded posting blocks, and per-shard ascending candidate
+// lists. Exposed with a C ABI for ctypes (no pybind11 in this toolchain);
+// every entry point has a numpy fallback in weaviate_tpu_torch/native.py.
+// The PyTorch port's own copy of the JAX package's csrc/weaviate_native.cpp:
+// the same code, so both packages write the same bytes.
+//
+// Build: weaviate_tpu_torch/native.py runs g++ -O3 -fPIC -shared -std=c++17
+// at first use, into build/torch_native/.
+
+#include <cstdint>
+#include <cstring>
+#include <algorithm>
+#include <cmath>
+#include <map>
+#include <queue>
+#include <set>
+#include <string>
+#include <unordered_map>
+#include <utility>
+#include <vector>
+
+extern "C" {
+
+// ---- sorted uint64 set algebra ------------------------------------------
+// Inputs must be ascending and duplicate-free; outputs are too.
+// Output buffers sized by the caller (intersect: min(na,nb); union: na+nb;
+// difference: na). Returns the number of elements written.
+
+int64_t wn_intersect_u64(const uint64_t* a, int64_t na,
+                         const uint64_t* b, int64_t nb, uint64_t* out) {
+    int64_t i = 0, j = 0, n = 0;
+    // galloping when one side is much smaller: the filter-vs-postings case
+    if (na > 64 && nb > 64 && (na > 32 * nb || nb > 32 * na)) {
+        const uint64_t* small = na < nb ? a : b;
+        const uint64_t* big = na < nb ? b : a;
+        int64_t ns = std::min(na, nb), nbg = std::max(na, nb);
+        const uint64_t* lo = big;
+        const uint64_t* end = big + nbg;
+        for (int64_t s = 0; s < ns; ++s) {
+            lo = std::lower_bound(lo, end, small[s]);
+            if (lo == end) break;
+            if (*lo == small[s]) out[n++] = small[s];
+        }
+        return n;
+    }
+    while (i < na && j < nb) {
+        if (a[i] < b[j]) ++i;
+        else if (a[i] > b[j]) ++j;
+        else { out[n++] = a[i]; ++i; ++j; }
+    }
+    return n;
+}
+
+int64_t wn_union_u64(const uint64_t* a, int64_t na,
+                     const uint64_t* b, int64_t nb, uint64_t* out) {
+    int64_t i = 0, j = 0, n = 0;
+    while (i < na && j < nb) {
+        if (a[i] < b[j]) out[n++] = a[i++];
+        else if (a[i] > b[j]) out[n++] = b[j++];
+        else { out[n++] = a[i]; ++i; ++j; }
+    }
+    while (i < na) out[n++] = a[i++];
+    while (j < nb) out[n++] = b[j++];
+    return n;
+}
+
+int64_t wn_difference_u64(const uint64_t* a, int64_t na,
+                          const uint64_t* b, int64_t nb, uint64_t* out) {
+    int64_t i = 0, j = 0, n = 0;
+    while (i < na && j < nb) {
+        if (a[i] < b[j]) out[n++] = a[i++];
+        else if (a[i] > b[j]) ++j;
+        else { ++i; ++j; }
+    }
+    while (i < na) out[n++] = a[i++];
+    return n;
+}
+
+// membership: out[i] = 1 iff vals[i] >= 0 and (uint64)vals[i] ∈ allow
+// (sorted). The slot->docid AllowList translation of filtered vector
+// search (engine/flat.py::_allow_mask).
+void wn_membership_i64(const int64_t* vals, int64_t n,
+                       const uint64_t* allow, int64_t m, uint8_t* out) {
+    for (int64_t i = 0; i < n; ++i) {
+        if (vals[i] < 0) { out[i] = 0; continue; }
+        uint64_t v = (uint64_t)vals[i];
+        const uint64_t* p = std::lower_bound(allow, allow + m, v);
+        out[i] = (p != allow + m && *p == v) ? 1 : 0;
+    }
+}
+
+// ---- varint delta codec --------------------------------------------------
+// Sorted uint64 -> delta -> LEB128. The posting/segment block codec
+// (reference: lsmkv segment serialization + sroar containers).
+
+int64_t wn_varint_encode_u64(const uint64_t* vals, int64_t n, uint8_t* out) {
+    uint8_t* p = out;
+    uint64_t prev = 0;
+    for (int64_t i = 0; i < n; ++i) {
+        uint64_t d = vals[i] - prev;
+        prev = vals[i];
+        while (d >= 0x80) { *p++ = (uint8_t)(d | 0x80); d >>= 7; }
+        *p++ = (uint8_t)d;
+    }
+    return (int64_t)(p - out);
+}
+
+// Decodes at most ``cap`` values into ``out`` but returns the TOTAL number
+// of varints present in the buffer — a return value > cap tells the caller
+// the declared count was wrong (corrupt/truncated record) without ever
+// writing past the buffer. Returns -1 on an over-long varint (shift past
+// 63 bits would be UB and would decode corrupt bytes into plausible ids).
+int64_t wn_varint_decode_u64(const uint8_t* buf, int64_t nbytes,
+                             uint64_t* out, int64_t cap) {
+    const uint8_t* p = buf;
+    const uint8_t* end = buf + nbytes;
+    int64_t n = 0;
+    uint64_t prev = 0;
+    while (p < end) {
+        uint64_t d = 0;
+        int shift = 0;
+        while (p < end && (*p & 0x80)) {
+            if (shift > 63) return -1;
+            d |= (uint64_t)(*p++ & 0x7f) << shift;
+            shift += 7;
+        }
+        if (p >= end) break;
+        if (shift > 63) return -1;
+        d |= (uint64_t)(*p++) << shift;
+        prev += d;
+        if (n < cap) out[n] = prev;
+        ++n;
+    }
+    return n;
+}
+
+// ---- cross-shard top-k merge ---------------------------------------------
+// nlists ascending candidate lists of length len (dist f32 + id i64;
+// id<0 = dead slot) -> global ascending top-k. The host side of the
+// scatter-gather reduce when remote shards answer over the wire
+// (reference: index.go:1644-1648 sort+truncate).
+
+void wn_merge_topk(const float* dists, const int64_t* ids,
+                   int64_t nlists, int64_t len, int64_t k,
+                   float* out_d, int64_t* out_i) {
+    struct Head { float d; int64_t id; int64_t list; int64_t pos; };
+    auto cmp = [](const Head& x, const Head& y) { return x.d > y.d; };
+    std::vector<Head> heap;
+    heap.reserve((size_t)nlists);
+    for (int64_t l = 0; l < nlists; ++l) {
+        if (len > 0 && ids[l * len] >= 0)
+            heap.push_back({dists[l * len], ids[l * len], l, 0});
+    }
+    std::make_heap(heap.begin(), heap.end(), cmp);
+    int64_t n = 0;
+    while (n < k && !heap.empty()) {
+        std::pop_heap(heap.begin(), heap.end(), cmp);
+        Head h = heap.back();
+        heap.pop_back();
+        out_d[n] = h.d;
+        out_i[n] = h.id;
+        ++n;
+        int64_t next = h.pos + 1;
+        if (next < len && ids[h.list * len + next] >= 0) {
+            heap.push_back({dists[h.list * len + next],
+                            ids[h.list * len + next], h.list, next});
+            std::push_heap(heap.begin(), heap.end(), cmp);
+        }
+    }
+    for (int64_t i = n; i < k; ++i) { out_d[i] = 3.0e38f; out_i[i] = -1; }
+}
+
+// ---- batch text analyzer -------------------------------------------------
+// The import hot loop (reference: inverted/analyzer.go called per put from
+// shard_write_put.go:454) moved to one FFI call per (property, batch):
+// tokenize every value, accumulate per-(term, row) tf + per-row token
+// counts. ASCII-only fast path — the Python caller routes non-ASCII values
+// through the unicode-aware tokenizer so index/delete key derivation stays
+// byte-identical per value. Modes: 0=word (lowercase, split on any
+// non-alphanumeric), 1=lowercase (split whitespace), 2=whitespace,
+// 3=field (trimmed whole value).
+
+namespace {
+struct AnalyzeOut {
+    std::string terms;                 // concatenated term bytes
+    std::vector<int64_t> term_offs;    // nterms+1
+    std::vector<int64_t> entry_offs;   // nterms+1 (into rows/tfs)
+    std::vector<int64_t> rows;         // per entry: row index
+    std::vector<uint32_t> tfs;         // per entry: term frequency
+    std::vector<int64_t> row_tokens;   // per row: token count
+};
+thread_local AnalyzeOut g_an;
+
+inline bool tok_char(uint8_t c, int mode) {
+    if (mode == 0)
+        return (c >= '0' && c <= '9') || (c >= 'a' && c <= 'z') ||
+               (c >= 'A' && c <= 'Z');
+    // whitespace-split modes: token chars = non-space. Python str.split()
+    // also treats the ASCII separators 0x1c-0x1f as whitespace — the
+    // index/unindex key contract requires byte-identical tokenization.
+    return !(c == ' ' || c == '\t' || c == '\n' || c == '\r' ||
+             c == '\f' || c == '\v' || (c >= 0x1c && c <= 0x1f));
+}
+}  // namespace
+
+int64_t wn_analyze_batch(const uint8_t* blob, const int64_t* offs,
+                         int64_t nrows, int32_t mode,
+                         int64_t* out_nterms, int64_t* out_nentries,
+                         int64_t* out_termbytes) {
+    g_an = AnalyzeOut();
+    g_an.row_tokens.assign((size_t)nrows, 0);
+    // term -> entries (rows ascend because rows are processed in order)
+    std::unordered_map<std::string, std::vector<std::pair<int64_t, uint32_t>>>
+        acc;
+    std::unordered_map<std::string, uint32_t> row_counts;
+    std::string tok;
+    for (int64_t r = 0; r < nrows; ++r) {
+        const uint8_t* p = blob + offs[r];
+        const uint8_t* end = blob + offs[r + 1];
+        row_counts.clear();
+        int64_t ntok = 0;
+        if (mode == 3) {  // field: trimmed whole value — the trim set must
+            // equal Python str.strip()'s ASCII whitespace (incl \v \f and
+            // 0x1c-0x1f), i.e. exactly the mode-1/2 separator set
+            while (p < end && !tok_char(*p, 1)) ++p;
+            const uint8_t* e = end;
+            while (e > p && !tok_char(e[-1], 1)) --e;
+            if (e > p) {
+                row_counts.emplace(std::string((const char*)p, e - p), 1);
+                ntok = 1;
+            }
+        } else {
+            bool lower = mode != 2;
+            while (p < end) {
+                while (p < end && !tok_char(*p, mode)) ++p;
+                if (p >= end) break;
+                tok.clear();
+                while (p < end && tok_char(*p, mode)) {
+                    uint8_t c = *p++;
+                    if (lower && c >= 'A' && c <= 'Z') c += 32;
+                    tok.push_back((char)c);
+                }
+                ++ntok;
+                ++row_counts[tok];
+            }
+        }
+        g_an.row_tokens[(size_t)r] = ntok;
+        for (auto& kv : row_counts)
+            acc[kv.first].emplace_back(r, kv.second);
+    }
+    // deterministic output order: sorted terms
+    std::vector<const std::string*> keys;
+    keys.reserve(acc.size());
+    for (auto& kv : acc) keys.push_back(&kv.first);
+    std::sort(keys.begin(), keys.end(),
+              [](const std::string* a, const std::string* b) { return *a < *b; });
+    g_an.term_offs.push_back(0);
+    g_an.entry_offs.push_back(0);
+    for (const std::string* k : keys) {
+        g_an.terms += *k;
+        g_an.term_offs.push_back((int64_t)g_an.terms.size());
+        auto& entries = acc[*k];
+        for (auto& e : entries) {
+            g_an.rows.push_back(e.first);
+            g_an.tfs.push_back(e.second);
+        }
+        g_an.entry_offs.push_back((int64_t)g_an.rows.size());
+    }
+    *out_nterms = (int64_t)keys.size();
+    *out_nentries = (int64_t)g_an.rows.size();
+    *out_termbytes = (int64_t)g_an.terms.size();
+    return 0;
+}
+
+void wn_analyze_fetch(uint8_t* terms_blob, int64_t* term_offs,
+                      int64_t* entry_offs, int64_t* entry_rows,
+                      uint32_t* entry_tfs, int64_t* row_tokens) {
+    std::memcpy(terms_blob, g_an.terms.data(), g_an.terms.size());
+    std::memcpy(term_offs, g_an.term_offs.data(),
+                g_an.term_offs.size() * sizeof(int64_t));
+    std::memcpy(entry_offs, g_an.entry_offs.data(),
+                g_an.entry_offs.size() * sizeof(int64_t));
+    std::memcpy(entry_rows, g_an.rows.data(),
+                g_an.rows.size() * sizeof(int64_t));
+    std::memcpy(entry_tfs, g_an.tfs.data(),
+                g_an.tfs.size() * sizeof(uint32_t));
+    std::memcpy(row_tokens, g_an.row_tokens.data(),
+                g_an.row_tokens.size() * sizeof(int64_t));
+    g_an = AnalyzeOut();
+}
+
+// ---- batch varint framing ------------------------------------------------
+// Encode MANY sorted-u64 blocks in one call (one WAL frame per import
+// batch instead of one FFI round trip + Python pack per posting key).
+// vals: concatenated blocks; offs[nblocks+1]. out must hold 10 bytes per
+// value; out_lens[nblocks] gets per-block byte lengths. Returns total
+// bytes written.
+
+// ---- postings memtable ---------------------------------------------------
+// The native memtable for the two inverted-index strategies ("map" =
+// searchable postings doc->(tf,len); "roaringset" = filterable doc-id
+// sets). This was the import hot path: the Python dict memtable paid
+// ~15 Python ops per (term, batch) across WAL framing, sort/unique and
+// lazy-append bookkeeping (reference equivalent: memtable.go +
+// segment_serialization.go, called per put from shard_write_put.go:454).
+// One PTable instance backs one _Memtable (weaviate_tpu_torch/storage/kv.py);
+// batched entry points take whole (prop, batch) columns from the
+// analyzer and return the WAL frame payload in the same call.
+//
+// Semantics are mirrored from kv.py exactly:
+// - pure appends stay LAZY (per-key chunk lists, coalesced at read or
+//   flush) — the fast path;
+// - the first delete on a key flips it to EAGER canonical form and ops
+//   apply in order from then on (_merge_values semantics: newer set
+//   wins, del = union(dels) - newer set);
+// - a tombstone wipes the key; a later write REPLACES the tombstone
+//   (same as _Memtable.apply's `cur is _TOMBSTONE` branch).
+// Emitted values are msgpack documents identical in shape to
+// kv.py _pack_value output; WAL frames are the "P"/"R" formats that
+// kv.py _recover_wals already parses.
+
+namespace {
+
+// minimal msgpack emitter (only the encodings the value/frame formats use)
+struct Mp {
+    std::string& b;
+    explicit Mp(std::string& buf) : b(buf) {}
+    void raw(const void* p, size_t n) { b.append((const char*)p, n); }
+    void u8(uint8_t v) { b.push_back((char)v); }
+    void be16(uint16_t v) { uint8_t t[2] = {(uint8_t)(v >> 8), (uint8_t)v}; raw(t, 2); }
+    void be32(uint32_t v) {
+        uint8_t t[4] = {(uint8_t)(v >> 24), (uint8_t)(v >> 16),
+                        (uint8_t)(v >> 8), (uint8_t)v};
+        raw(t, 4);
+    }
+    void be64(uint64_t v) {
+        uint8_t t[8];
+        for (int i = 0; i < 8; ++i) t[i] = (uint8_t)(v >> (56 - 8 * i));
+        raw(t, 8);
+    }
+    void map_head(uint32_t n) {
+        if (n < 16) u8(0x80 | n);
+        else if (n < 65536) { u8(0xde); be16((uint16_t)n); }
+        else { u8(0xdf); be32(n); }
+    }
+    void arr_head(uint32_t n) {
+        if (n < 16) u8(0x90 | n);
+        else if (n < 65536) { u8(0xdc); be16((uint16_t)n); }
+        else { u8(0xdd); be32(n); }
+    }
+    void str(const char* s, size_t n) {
+        if (n < 32) u8(0xa0 | (uint8_t)n);
+        else { u8(0xd9); u8((uint8_t)n); }
+        raw(s, n);
+    }
+    void str(const char* s) { str(s, std::strlen(s)); }
+    void bin(const void* p, size_t n) {
+        if (n < 256) { u8(0xc4); u8((uint8_t)n); }
+        else if (n < 65536) { u8(0xc5); be16((uint16_t)n); }
+        else { u8(0xc6); be32((uint32_t)n); }
+        raw(p, n);
+    }
+    void uint(uint64_t v) {
+        if (v < 128) u8((uint8_t)v);
+        else if (v < 256) { u8(0xcc); u8((uint8_t)v); }
+        else if (v < 65536) { u8(0xcd); be16((uint16_t)v); }
+        else if (v <= 0xffffffffull) { u8(0xce); be32((uint32_t)v); }
+        else { u8(0xcf); be64(v); }
+    }
+    void boolean(bool v) { u8(v ? 0xc3 : 0xc2); }
+};
+
+void varint_append(std::string& out, const uint64_t* vals, size_t n) {
+    uint64_t prev = 0;
+    for (size_t i = 0; i < n; ++i) {
+        uint64_t d = vals[i] - prev;
+        prev = vals[i];
+        while (d >= 0x80) { out.push_back((char)(d | 0x80)); d >>= 7; }
+        out.push_back((char)d);
+    }
+}
+
+void sorted_unique(std::vector<uint64_t>& v) {
+    std::sort(v.begin(), v.end());
+    v.erase(std::unique(v.begin(), v.end()), v.end());
+}
+
+std::vector<uint64_t> set_union(const std::vector<uint64_t>& a,
+                                const std::vector<uint64_t>& b) {
+    std::vector<uint64_t> out;
+    out.reserve(a.size() + b.size());
+    std::set_union(a.begin(), a.end(), b.begin(), b.end(),
+                   std::back_inserter(out));
+    return out;
+}
+
+std::vector<uint64_t> set_diff(const std::vector<uint64_t>& a,
+                               const std::vector<uint64_t>& b) {
+    std::vector<uint64_t> out;
+    out.reserve(a.size());
+    std::set_difference(a.begin(), a.end(), b.begin(), b.end(),
+                        std::back_inserter(out));
+    return out;
+}
+
+struct PTVal {
+    bool tomb = false;
+    bool eager = false;
+    // map lazy: column appends in arrival order (last-wins at coalesce)
+    std::vector<int64_t> docs;
+    std::vector<uint32_t> tfs, lens;
+    // map eager
+    std::map<int64_t, std::pair<uint32_t, uint32_t>> emap;
+    std::set<int64_t> edel;
+    // roaring lazy: concatenated sorted-unique chunks
+    std::vector<uint64_t> radd;
+    // roaring eager (sorted unique)
+    std::vector<uint64_t> eadd, erdel;
+
+    void wipe() { *this = PTVal(); }
+
+    void map_flip_eager() {
+        if (eager) return;
+        for (size_t i = 0; i < docs.size(); ++i)
+            emap[docs[i]] = {tfs[i], lens[i]};  // arrival order: last wins
+        docs.clear(); tfs.clear(); lens.clear();
+        eager = true;
+    }
+
+    void roar_flip_eager() {
+        if (eager) return;
+        eadd = radd;
+        sorted_unique(eadd);
+        radd.clear();
+        eager = true;
+    }
+};
+
+struct PTable {
+    int strategy;  // 0 = map, 1 = roaringset
+    std::unordered_map<std::string, PTVal> data;
+    int64_t bytes = 0;
+};
+
+thread_local std::string g_pt_buf;
+
+inline std::string pt_key(const uint8_t* prefix, int64_t plen,
+                          const uint8_t* keys, const int64_t* koffs,
+                          int64_t i) {
+    std::string k((const char*)prefix, (size_t)plen);
+    k.append((const char*)(keys + koffs[i]), (size_t)(koffs[i + 1] - koffs[i]));
+    return k;
+}
+
+// canonical value -> msgpack (same document shapes as kv.py _pack_value)
+void pt_pack_value(const PTable* t, const PTVal& v, std::string& out) {
+    Mp mp(out);
+    if (v.tomb) {
+        mp.map_head(1);
+        mp.str("__tomb__");
+        mp.boolean(true);
+        return;
+    }
+    if (t->strategy == 0) {
+        mp.map_head(2);
+        mp.str("set");
+        if (v.eager) {
+            mp.map_head((uint32_t)v.emap.size());
+            for (auto& kv : v.emap) {
+                mp.uint((uint64_t)kv.first);
+                mp.arr_head(2);
+                mp.uint(kv.second.first);
+                mp.uint(kv.second.second);
+            }
+            mp.str("del");
+            mp.arr_head((uint32_t)v.edel.size());
+            for (int64_t d : v.edel) mp.uint((uint64_t)d);
+        } else {
+            // last-wins coalesce without mutating (reads must not disturb
+            // the lazy state another thread may append to later)
+            std::map<int64_t, std::pair<uint32_t, uint32_t>> m;
+            for (size_t i = 0; i < v.docs.size(); ++i)
+                m[v.docs[i]] = {v.tfs[i], v.lens[i]};
+            mp.map_head((uint32_t)m.size());
+            for (auto& kv : m) {
+                mp.uint((uint64_t)kv.first);
+                mp.arr_head(2);
+                mp.uint(kv.second.first);
+                mp.uint(kv.second.second);
+            }
+            mp.str("del");
+            mp.arr_head(0);
+        }
+    } else {
+        std::vector<uint64_t> add;
+        const std::vector<uint64_t>* addp;
+        const std::vector<uint64_t>* delp;
+        static const std::vector<uint64_t> kEmpty;
+        if (v.eager) {
+            addp = &v.eadd;
+            delp = &v.erdel;
+        } else {
+            add = v.radd;
+            sorted_unique(add);
+            addp = &add;
+            delp = &kEmpty;
+        }
+        std::string vadd, vdel;
+        varint_append(vadd, addp->data(), addp->size());
+        varint_append(vdel, delp->data(), delp->size());
+        mp.map_head(4);
+        mp.str("vadd");
+        mp.bin(vadd.data(), vadd.size());
+        mp.str("nadd");
+        mp.uint(addp->size());
+        mp.str("vdel");
+        mp.bin(vdel.data(), vdel.size());
+        mp.str("ndel");
+        mp.uint(delp->size());
+    }
+}
+
+}  // namespace
+
+void* wn_pt_new(int32_t strategy) {
+    PTable* t = new PTable();
+    t->strategy = strategy;
+    return t;
+}
+
+void wn_pt_free(void* h) { delete (PTable*)h; }
+
+int64_t wn_pt_bytes(void* h) { return ((PTable*)h)->bytes; }
+
+int64_t wn_pt_count(void* h) { return (int64_t)((PTable*)h)->data.size(); }
+
+// map strategy: batched column appends (the searchable-postings import
+// path). Effective key i = prefix + keys[koffs[i]:koffs[i+1]]; its
+// entries are docs/tfs/lens[entry_offs[i]:entry_offs[i+1]]. When
+// `frame` != 0, the matching "P" WAL frame payload is built into the
+// fetch buffer and its length returned.
+int64_t wn_pt_map_columns(void* h, const uint8_t* prefix, int64_t plen,
+                          const uint8_t* keys, const int64_t* koffs,
+                          int64_t nkeys, const int64_t* entry_offs,
+                          const int64_t* docs, const uint32_t* tfs,
+                          const uint32_t* lens, int32_t frame) {
+    PTable* t = (PTable*)h;
+    g_pt_buf.clear();
+    Mp mp(g_pt_buf);
+    if (frame) {
+        mp.map_head(1);
+        mp.str("P");
+        mp.arr_head((uint32_t)nkeys);
+    }
+    for (int64_t i = 0; i < nkeys; ++i) {
+        std::string k = pt_key(prefix, plen, keys, koffs, i);
+        int64_t lo = entry_offs[i], hi = entry_offs[i + 1];
+        PTVal& v = t->data[k];
+        if (v.tomb) v.wipe();  // write replaces tombstone (kv.py apply)
+        if (v.eager) {
+            for (int64_t e = lo; e < hi; ++e) {
+                v.emap[docs[e]] = {tfs[e], lens[e]};
+                v.edel.erase(docs[e]);
+            }
+        } else {
+            v.docs.insert(v.docs.end(), docs + lo, docs + hi);
+            v.tfs.insert(v.tfs.end(), tfs + lo, tfs + hi);
+            v.lens.insert(v.lens.end(), lens + lo, lens + hi);
+        }
+        t->bytes += (int64_t)k.size() + 64;
+        if (frame) {
+            mp.arr_head(4);
+            mp.bin(k.data(), k.size());
+            mp.bin(docs + lo, (size_t)(hi - lo) * sizeof(int64_t));
+            mp.bin(tfs + lo, (size_t)(hi - lo) * sizeof(uint32_t));
+            mp.bin(lens + lo, (size_t)(hi - lo) * sizeof(uint32_t));
+        }
+    }
+    return (int64_t)g_pt_buf.size();
+}
+
+// map strategy: batched per-key deletes of map entries (doc ids).
+void wn_pt_map_delete(void* h, const uint8_t* prefix, int64_t plen,
+                      const uint8_t* keys, const int64_t* koffs,
+                      int64_t nkeys, const int64_t* entry_offs,
+                      const int64_t* del_docs) {
+    PTable* t = (PTable*)h;
+    for (int64_t i = 0; i < nkeys; ++i) {
+        std::string k = pt_key(prefix, plen, keys, koffs, i);
+        PTVal& v = t->data[k];
+        if (v.tomb) v.wipe();
+        v.map_flip_eager();
+        for (int64_t e = entry_offs[i]; e < entry_offs[i + 1]; ++e) {
+            v.emap.erase(del_docs[e]);
+            v.edel.insert(del_docs[e]);
+        }
+        t->bytes += (int64_t)k.size() + 64;
+    }
+}
+
+// roaringset strategy: batched id adds (is_del=0) or removes (is_del=1).
+// Blocks need not be sorted; each is sorted+deduped here once. With
+// `frame` != 0 the "R" WAL frame payload lands in the fetch buffer.
+int64_t wn_pt_roar(void* h, const uint8_t* prefix, int64_t plen,
+                   const uint8_t* keys, const int64_t* koffs, int64_t nkeys,
+                   const int64_t* entry_offs, const uint64_t* ids,
+                   int32_t is_del, int32_t frame) {
+    PTable* t = (PTable*)h;
+    g_pt_buf.clear();
+    Mp mp(g_pt_buf);
+    if (frame) {
+        mp.map_head(1);
+        mp.str("R");
+        mp.arr_head((uint32_t)nkeys);
+    }
+    std::vector<uint64_t> blk;
+    for (int64_t i = 0; i < nkeys; ++i) {
+        std::string k = pt_key(prefix, plen, keys, koffs, i);
+        blk.assign(ids + entry_offs[i], ids + entry_offs[i + 1]);
+        sorted_unique(blk);
+        PTVal& v = t->data[k];
+        if (v.tomb) v.wipe();
+        if (!is_del && !v.eager) {
+            v.radd.insert(v.radd.end(), blk.begin(), blk.end());
+        } else {
+            v.roar_flip_eager();
+            if (is_del) {
+                v.erdel = set_union(v.erdel, blk);
+                v.eadd = set_diff(v.eadd, blk);
+            } else {
+                v.eadd = set_union(v.eadd, blk);
+                v.erdel = set_diff(v.erdel, blk);
+            }
+        }
+        t->bytes += (int64_t)k.size() + 64;
+        if (frame) {
+            std::string enc;
+            varint_append(enc, blk.data(), blk.size());
+            mp.arr_head(5);
+            mp.bin(k.data(), k.size());
+            if (is_del) {
+                mp.bin("", 0);
+                mp.uint(0);
+                mp.bin(enc.data(), enc.size());
+                mp.uint(blk.size());
+            } else {
+                mp.bin(enc.data(), enc.size());
+                mp.uint(blk.size());
+                mp.bin("", 0);
+                mp.uint(0);
+            }
+        }
+    }
+    return (int64_t)g_pt_buf.size();
+}
+
+void wn_pt_tomb(void* h, const uint8_t* key, int64_t klen) {
+    PTable* t = (PTable*)h;
+    PTVal& v = t->data[std::string((const char*)key, (size_t)klen)];
+    v.wipe();
+    v.tomb = true;
+    t->bytes += klen + 64;
+}
+
+// Packed view for reads/flush/cursors: every key in [start, stop) in
+// ascending order, emitted as [u32 klen][key][u32 vlen][msgpack value]
+// into the fetch buffer; returns total bytes. Pass nstart/nstop = -1
+// for unbounded. Values are the same msgpack documents kv.py
+// _unpack_value parses (tombstones as {"__tomb__": true}).
+int64_t wn_pt_items(void* h, const uint8_t* start, int64_t nstart,
+                    const uint8_t* stop, int64_t nstop) {
+    PTable* t = (PTable*)h;
+    std::vector<const std::string*> keys;
+    keys.reserve(t->data.size());
+    std::string s_start = nstart >= 0
+        ? std::string((const char*)start, (size_t)nstart) : std::string();
+    std::string s_stop = nstop >= 0
+        ? std::string((const char*)stop, (size_t)nstop) : std::string();
+    for (auto& kv : t->data) {
+        if (nstart >= 0 && kv.first < s_start) continue;
+        if (nstop >= 0 && kv.first >= s_stop) continue;
+        keys.push_back(&kv.first);
+    }
+    std::sort(keys.begin(), keys.end(),
+              [](const std::string* a, const std::string* b) { return *a < *b; });
+    g_pt_buf.clear();
+    std::string val;
+    for (const std::string* k : keys) {
+        val.clear();
+        pt_pack_value(t, t->data[*k], val);
+        uint32_t kl = (uint32_t)k->size(), vl = (uint32_t)val.size();
+        g_pt_buf.append((const char*)&kl, 4);
+        g_pt_buf.append(k->data(), k->size());
+        g_pt_buf.append((const char*)&vl, 4);
+        g_pt_buf.append(val.data(), val.size());
+    }
+    return (int64_t)g_pt_buf.size();
+}
+
+// Single-key packed lookup: returns value length (written to the fetch
+// buffer), or -1 when the key is absent.
+int64_t wn_pt_get(void* h, const uint8_t* key, int64_t klen) {
+    PTable* t = (PTable*)h;
+    auto it = t->data.find(std::string((const char*)key, (size_t)klen));
+    if (it == t->data.end()) return -1;
+    g_pt_buf.clear();
+    pt_pack_value(t, it->second, g_pt_buf);
+    return (int64_t)g_pt_buf.size();
+}
+
+void wn_pt_fetch(uint8_t* out) {
+    std::memcpy(out, g_pt_buf.data(), g_pt_buf.size());
+    g_pt_buf.clear();
+    g_pt_buf.shrink_to_fit();
+}
+
+// ---- HNSW graph walker ---------------------------------------------------
+// The graph-search hot loop (reference searchLayerByVectorWithDistancer,
+// adapters/repos/db/vector/hnsw/search.go:173-341) as a native walker over
+// a mirrored copy of the Python graph (engine/hnsw.py keeps the mirror
+// current through _set_links / set_vectors / tombstone calls; bulk paths
+// mark it dirty and re-upload in one batched sync). The Python walker at
+// ~240 QPS on a 1M graph was the serving bottleneck for
+// vectorIndexType: "hnsw"; the walk itself is heap + visited-epoch +
+// a d-wide distance per neighbor, which is exactly the shape one core
+// does well and a systolic array cannot (dependent pointer chasing).
+//
+// Metric ids: 0=l2-squared, 1=dot(-x·q), 2=cosine(1-x·q, pre-normalized),
+// 3=manhattan, 4=hamming-over-floats (reference hamming.go:18-27).
+
+namespace {
+
+struct HnswGraph {
+    int32_t dim = 0;
+    int32_t metric = 0;
+    int64_t cap = 0;
+    std::vector<float> vecs;                        // cap*dim
+    std::vector<uint8_t> tomb;                      // cap
+    std::vector<std::vector<std::vector<int32_t>>> links;  // [slot][layer]
+    std::vector<int64_t> visited;                   // epoch stamps
+    int64_t epoch = 0;
+
+    void ensure(int64_t need) {
+        if (need <= cap) return;
+        int64_t nc = cap > 0 ? cap : 64;
+        while (nc < need) nc *= 2;
+        vecs.resize((size_t)(nc * dim), 0.0f);
+        tomb.resize((size_t)nc, 0);
+        links.resize((size_t)nc);
+        visited.resize((size_t)nc, 0);
+        cap = nc;
+    }
+};
+
+#if defined(__x86_64__)
+// runtime-dispatched SIMD widths; x86-only — other arches take the
+// plain function (auto-vectorized at -O3), keeping the lib buildable
+__attribute__((target_clones("avx512f", "avx2", "default")))
+#endif
+float hnsw_dist(const HnswGraph* g, const float* q, int64_t slot) {
+    const float* x = g->vecs.data() + (size_t)slot * g->dim;
+    const int32_t d = g->dim;
+    float acc = 0.0f;
+    switch (g->metric) {
+        case 0: {
+            for (int32_t i = 0; i < d; ++i) {
+                float t = x[i] - q[i];
+                acc += t * t;
+            }
+            return acc;
+        }
+        case 1: {
+            for (int32_t i = 0; i < d; ++i) acc += x[i] * q[i];
+            return -acc;
+        }
+        case 2: {
+            for (int32_t i = 0; i < d; ++i) acc += x[i] * q[i];
+            return 1.0f - acc;
+        }
+        case 3: {
+            for (int32_t i = 0; i < d; ++i) acc += std::fabs(x[i] - q[i]);
+            return acc;
+        }
+        default: {
+            int32_t neq = 0;
+            for (int32_t i = 0; i < d; ++i) neq += (x[i] != q[i]) ? 1 : 0;
+            return (float)neq;
+        }
+    }
+}
+
+// (dist, slot) pairs; lexicographic pair order matches Python's heapq
+// tuple ordering for the candidate min-heap.
+using DS = std::pair<float, int32_t>;
+
+// Best-first ef-search on one layer. Entry points must be pre-stamped by
+// the caller with the current epoch. Appends results (tombstones
+// INCLUDED — callers filter, pruning here would disconnect regions
+// behind tombstones) to `out` sorted ascending; returns count.
+int64_t search_layer(HnswGraph* g, const float* q, int64_t ef, int32_t layer,
+                     const DS* eps, int64_t neps, std::vector<DS>& out) {
+    std::priority_queue<DS, std::vector<DS>, std::greater<DS>> cand;  // min
+    std::priority_queue<DS, std::vector<DS>, std::less<DS>> top;      // max
+    for (int64_t i = 0; i < neps; ++i) {
+        cand.push(eps[i]);
+        top.push(eps[i]);
+    }
+    const int64_t epoch = g->epoch;
+    while (!cand.empty()) {
+        DS c = cand.top();
+        if ((int64_t)top.size() >= ef && c.first > top.top().first) break;
+        cand.pop();
+        const auto& slot_layers = g->links[(size_t)c.second];
+        if (layer >= (int32_t)slot_layers.size()) continue;
+        const std::vector<int32_t>& neigh = slot_layers[(size_t)layer];
+        float worst = top.empty() ? 3.0e38f : top.top().first;
+        // the walk is memory-latency-bound at 1M+ slots (each unvisited
+        // neighbor's row is a cold cacheline); prefetch the whole
+        // frontier's rows before scoring (reference analog:
+        // asm/prefetch_amd64.s PREFETCHT0 during traversal)
+        for (int32_t ns : neigh) {
+            if (g->visited[(size_t)ns] != epoch) {
+                const float* row = g->vecs.data() + (size_t)ns * g->dim;
+                for (int32_t o = 0; o < g->dim; o += 16)
+                    __builtin_prefetch(row + o, 0, 1);
+            }
+        }
+        for (int32_t ns : neigh) {
+            if (g->visited[(size_t)ns] == epoch) continue;
+            g->visited[(size_t)ns] = epoch;
+            float nd = hnsw_dist(g, q, ns);
+            if ((int64_t)top.size() < ef || nd < worst) {
+                cand.emplace(nd, ns);
+                top.emplace(nd, ns);
+                if ((int64_t)top.size() > ef) top.pop();
+                worst = top.top().first;
+            }
+        }
+    }
+    int64_t n = (int64_t)top.size();
+    size_t base = out.size();
+    out.resize(base + (size_t)n);
+    for (int64_t i = n - 1; i >= 0; --i) {
+        out[base + (size_t)i] = top.top();
+        top.pop();
+    }
+    return n;
+}
+
+}  // namespace
+
+void* wn_hnsw_new(int32_t dim, int32_t metric) {
+    HnswGraph* g = new HnswGraph();
+    g->dim = dim;
+    g->metric = metric;
+    return g;
+}
+
+void wn_hnsw_free(void* h) { delete (HnswGraph*)h; }
+
+// Clear all graph state (vectors, links, tombstones) and reserve `cap`
+// slots — the first step of a batched full re-sync.
+void wn_hnsw_reset(void* h, int64_t cap) {
+    HnswGraph* g = (HnswGraph*)h;
+    g->vecs.clear();
+    g->tomb.clear();
+    g->links.clear();
+    g->visited.clear();
+    g->cap = 0;
+    g->epoch = 0;
+    g->ensure(cap);
+}
+
+void wn_hnsw_set_vectors(void* h, int64_t slot0, int64_t n, const float* v) {
+    HnswGraph* g = (HnswGraph*)h;
+    g->ensure(slot0 + n);
+    std::memcpy(g->vecs.data() + (size_t)slot0 * g->dim, v,
+                (size_t)n * g->dim * sizeof(float));
+}
+
+void wn_hnsw_set_links(void* h, int64_t slot, int32_t layer, int32_t cnt,
+                       const int32_t* neigh) {
+    HnswGraph* g = (HnswGraph*)h;
+    g->ensure(slot + 1);
+    auto& layers = g->links[(size_t)slot];
+    if ((int32_t)layers.size() <= layer) layers.resize((size_t)layer + 1);
+    layers[(size_t)layer].assign(neigh, neigh + cnt);
+}
+
+// Batched link upload for full syncs: nrec records, record i is
+// (slots[i], layers[i], counts[i]) with its neighbors consumed in order
+// from the concatenated `neigh` stream.
+void wn_hnsw_set_links_batch(void* h, int64_t nrec, const int64_t* slots,
+                             const int32_t* layers, const int32_t* counts,
+                             const int32_t* neigh) {
+    HnswGraph* g = (HnswGraph*)h;
+    int64_t off = 0;
+    for (int64_t i = 0; i < nrec; ++i) {
+        wn_hnsw_set_links(h, slots[i], layers[i], counts[i], neigh + off);
+        off += counts[i];
+    }
+    (void)g;
+}
+
+// Drop every layer's links for a slot (tombstone cleanup burns slots:
+// engine/hnsw.py cleanup_tombstones sets links[slot] = []).
+void wn_hnsw_clear_links(void* h, int64_t slot) {
+    HnswGraph* g = (HnswGraph*)h;
+    if (slot < g->cap) g->links[(size_t)slot].clear();
+}
+
+void wn_hnsw_set_tombstones(void* h, const int64_t* slots, int64_t n,
+                            int32_t val) {
+    HnswGraph* g = (HnswGraph*)h;
+    for (int64_t i = 0; i < n; ++i) {
+        g->ensure(slots[i] + 1);
+        g->tomb[(size_t)slots[i]] = (uint8_t)val;
+    }
+}
+
+// One-layer ef-search for the INSERT path (engine/hnsw.py _search_layer
+// dispatches here): entry points in, full candidate set out (tombstones
+// included — the insert heuristic links through them like the
+// reference). out_slots/out_d sized >= ef + neps.
+int64_t wn_hnsw_search_layer(void* h, const float* q, int64_t ef,
+                             int32_t layer, const int64_t* ep_slots,
+                             const float* ep_dists, int64_t neps,
+                             int64_t* out_slots, float* out_d) {
+    HnswGraph* g = (HnswGraph*)h;
+    g->epoch += 1;
+    std::vector<DS> eps((size_t)neps);
+    for (int64_t i = 0; i < neps; ++i) {
+        eps[(size_t)i] = {ep_dists[i], (int32_t)ep_slots[i]};
+        g->visited[(size_t)ep_slots[i]] = g->epoch;
+    }
+    std::vector<DS> out;
+    int64_t n = search_layer(g, q, ef, layer, eps.data(), neps, out);
+    for (int64_t i = 0; i < n; ++i) {
+        out_slots[i] = out[(size_t)i].second;
+        out_d[i] = out[(size_t)i].first;
+    }
+    return n;
+}
+
+// Fused query search: greedy descent from the entrypoint through the
+// upper layers (search.go:479 descent loop) then the layer-0 ef-search,
+// filtered to live (+allowed) slots, truncated to k. Returns the number
+// of results written.
+int64_t wn_hnsw_search(void* h, const float* q, int64_t k, int64_t ef,
+                       int64_t ep, int32_t max_level, const uint8_t* allow,
+                       int64_t* out_slots, float* out_d) {
+    HnswGraph* g = (HnswGraph*)h;
+    if (ep < 0 || ep >= g->cap) return 0;
+    float d = hnsw_dist(g, q, ep);
+    int32_t cur = (int32_t)ep;
+    for (int32_t layer = max_level; layer >= 1; --layer) {
+        bool improved = true;
+        while (improved) {
+            improved = false;
+            const auto& layers = g->links[(size_t)cur];
+            if (layer >= (int32_t)layers.size()) break;
+            const auto& neigh = layers[(size_t)layer];
+            if (neigh.empty()) break;
+            for (int32_t ns : neigh) {
+                float nd = hnsw_dist(g, q, ns);
+                if (nd < d) {
+                    d = nd;
+                    cur = ns;
+                    improved = true;
+                }
+            }
+        }
+    }
+    g->epoch += 1;
+    g->visited[(size_t)cur] = g->epoch;
+    DS ep0{d, cur};
+    std::vector<DS> cands;
+    search_layer(g, q, ef, 0, &ep0, 1, cands);
+    int64_t n = 0;
+    for (const DS& c : cands) {
+        if (g->tomb[(size_t)c.second]) continue;
+        if (allow != nullptr && !allow[(size_t)c.second]) continue;
+        out_slots[n] = c.second;
+        out_d[n] = c.first;
+        if (++n == k) break;
+    }
+    return n;
+}
+
+// Batch storobj frame encode — byte-identical to the Python codec
+// (weaviate_tpu_torch/storage/objects.py to_bytes; reference analog:
+// entities/storobj/storage_object.go:567 MarshalBinary). Per frame:
+//   u8 version=1 | u64 doc_id | u64 ctime_ms | u64 mtime_ms | 16B uuid |
+//   u32 n_vecs=1 | u16 name_len=0 | u32 dim | dim*f32 |
+//   u32 props_len | props msgpack (packed by the caller)
+// Covers the flagship import shape (exactly one unnamed vector); other
+// shapes keep the Python encoder. uuids arrive as concatenated canonical
+// strings (dashes optional); frame_offs[n+1] is precomputed by the caller
+// (fixed part 55 = 41 header + 4 n_vecs + 2 name_len + 4 dim + 4
+// props_len, plus dim*4 + props_len). Returns 0, or -(i+1) when object
+// i's uuid fails to parse (caller falls back to the Python path).
+int64_t wn_storobj_encode_batch(
+        const uint8_t* uuids, const int64_t* uoffs,
+        const uint8_t* props, const int64_t* poffs,
+        const float* vectors, int32_t dim,
+        const int64_t* doc_ids, const int64_t* created_ms,
+        const int64_t* updated_ms, int64_t n,
+        uint8_t* out, const int64_t* frame_offs) {
+    auto hexval = [](uint8_t c) -> int {
+        if (c >= '0' && c <= '9') return c - '0';
+        if (c >= 'a' && c <= 'f') return c - 'a' + 10;
+        if (c >= 'A' && c <= 'F') return c - 'A' + 10;
+        return -1;
+    };
+    for (int64_t i = 0; i < n; ++i) {
+        uint8_t* p = out + frame_offs[i];
+        *p++ = 1;  // version
+        uint64_t w;
+        w = (uint64_t)doc_ids[i];    memcpy(p, &w, 8); p += 8;
+        w = (uint64_t)created_ms[i]; memcpy(p, &w, 8); p += 8;
+        w = (uint64_t)updated_ms[i]; memcpy(p, &w, 8); p += 8;
+        const uint8_t* u = uuids + uoffs[i];
+        int64_t ulen = uoffs[i + 1] - uoffs[i];
+        int nyb = 0;
+        uint8_t cur = 0;
+        for (int64_t j = 0; j < ulen; ++j) {
+            uint8_t c = u[j];
+            if (c == '-') continue;
+            int v = hexval(c);
+            if (v < 0 || nyb >= 32) return -(i + 1);
+            if (nyb & 1) *p++ = (uint8_t)((cur << 4) | v);
+            else cur = (uint8_t)v;
+            ++nyb;
+        }
+        if (nyb != 32) return -(i + 1);
+        uint32_t u32 = 1;  memcpy(p, &u32, 4); p += 4;   // n_named_vectors
+        uint16_t u16 = 0;  memcpy(p, &u16, 2); p += 2;   // name_len ("")
+        u32 = (uint32_t)dim; memcpy(p, &u32, 4); p += 4;
+        memcpy(p, vectors + (size_t)i * (size_t)dim, (size_t)dim * 4);
+        p += (size_t)dim * 4;
+        u32 = (uint32_t)(poffs[i + 1] - poffs[i]);
+        memcpy(p, &u32, 4); p += 4;
+        memcpy(p, props + poffs[i], (size_t)u32); p += (size_t)u32;
+    }
+    return 0;
+}
+
+int64_t wn_varint_encode_many(const uint64_t* vals, const int64_t* offs,
+                              int64_t nblocks, uint8_t* out,
+                              int64_t* out_lens) {
+    uint8_t* p = out;
+    for (int64_t b = 0; b < nblocks; ++b) {
+        uint8_t* start = p;
+        uint64_t prev = 0;
+        for (int64_t i = offs[b]; i < offs[b + 1]; ++i) {
+            uint64_t d = vals[i] - prev;
+            prev = vals[i];
+            while (d >= 0x80) { *p++ = (uint8_t)(d | 0x80); d >>= 7; }
+            *p++ = (uint8_t)d;
+        }
+        out_lens[b] = (int64_t)(p - start);
+    }
+    return (int64_t)(p - out);
+}
+
+}  // extern "C"

@@ -19,6 +19,7 @@ import threading
 
 import numpy as np
 
+from weaviate_tpu_torch import native
 from weaviate_tpu_torch.engine.flat import FlatIndex
 from weaviate_tpu_torch.runtime import tracing
 from weaviate_tpu_torch.schema.config import CollectionConfig, VectorConfig
@@ -268,6 +269,27 @@ class Shard:
             object_puts: list[tuple[bytes, object]] = []
             uuid_keys = [o.uuid.encode() for o in objs]
             old_raws = self.docid.get_many(uuid_keys)
+            # the import's common shape (exactly one unnamed vector per
+            # object): every storobj value frame comes out of one native
+            # call; props are msgpacked here so the bytes match the
+            # per-object encoder exactly. Any other shape, or a uuid the
+            # fast parser rejects, keeps the per-object codec.
+            frames = None
+            single_vec = (objs and native.available() and all(
+                len(o.vectors) == 1 and "" in o.vectors for o in objs))
+            if single_vec:
+                import msgpack
+
+                vec_block = np.stack([np.asarray(o.vectors[""], dtype=np.float32)
+                                      for o in objs])
+                n_objs = len(objs)
+                frames = native.storobj_encode_batch(
+                    uuid_keys,
+                    [msgpack.packb(o.properties, use_bin_type=True) for o in objs],
+                    vec_block,
+                    np.arange(first_id, first_id + n_objs, dtype=np.int64),
+                    np.fromiter((o.creation_time_ms for o in objs), np.int64, n_objs),
+                    np.fromiter((o.last_update_time_ms for o in objs), np.int64, n_objs))
             # update path: every replaced doc's teardown runs batched
             updates = [(int(old_raw), obj.uuid)
                        for obj, old_raw in zip(objs, old_raws)
@@ -278,12 +300,16 @@ class Shard:
                 obj.doc_id = first_id + i
                 docid_puts.append((uuid_keys[i], obj.doc_id))
                 self._doc_to_uuid[obj.doc_id] = obj.uuid
-                object_puts.append((uuid_keys[i], obj.to_bytes()))
-                for vec_name, vec in obj.vectors.items():
-                    ids, vecs = vec_batches.setdefault(vec_name, ([], []))
-                    ids.append(obj.doc_id)
-                    vecs.append(np.asarray(vec, dtype=np.float32))
+                object_puts.append((
+                    uuid_keys[i], frames[i] if frames is not None else obj.to_bytes()))
+                if frames is None:
+                    for vec_name, vec in obj.vectors.items():
+                        ids, vecs = vec_batches.setdefault(vec_name, ([], []))
+                        ids.append(obj.doc_id)
+                        vecs.append(np.asarray(vec, dtype=np.float32))
                 doc_ids.append(obj.doc_id)
+            if frames is not None:
+                vec_batches[""] = (doc_ids, vec_block)
             # ordering invariant: inverted postings land BEFORE the objects
             # bucket (a crash in between leaves ghost postings, never
             # missing ones); the objects-bucket WAL is the commit point
@@ -294,7 +320,9 @@ class Shard:
             for vec_name, (ids, vecs) in vec_batches.items():
                 idx = self._ensure_vector_index(vec_name, len(vecs[0]))
                 if idx is not None:
-                    idx.add_batch(np.asarray(ids), np.stack(vecs))
+                    # the fast path hands a prebuilt [n, d] block
+                    block = vecs if isinstance(vecs, np.ndarray) else np.stack(vecs)
+                    idx.add_batch(np.asarray(ids), block)
                     self._maybe_compress(vec_name, idx)
         return doc_ids
 

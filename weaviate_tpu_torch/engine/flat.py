@@ -18,6 +18,7 @@ import threading
 
 import numpy as np
 
+from weaviate_tpu_torch import native
 from weaviate_tpu_torch.engine.quantized import QuantizedVectorStore
 from weaviate_tpu_torch.engine.store import DeviceVectorStore
 from weaviate_tpu_torch.runtime import hbm_ledger, tracing
@@ -339,8 +340,10 @@ class FlatIndex:
     def _allow_mask(self, allow_list):
         """Doc-id allow list -> slot mask over the store. A bool mask over
         doc-id space is gathered through the slot table; an array of doc
-        ids takes ``np.isin`` on it (the JAX package runs that membership
-        test in its native library for both forms — same mask)."""
+        ids takes a binary-search membership test over the slot table in
+        the native library (csrc/host/weaviate_native.cpp; numpy without
+        it). The JAX package turns the bool form into doc ids and tests
+        membership too: the same mask."""
         if allow_list is None:
             return None
         allow_list = np.asarray(allow_list)
@@ -351,7 +354,10 @@ class FlatIndex:
                 out = np.zeros(len(table), dtype=bool)
                 out[hit] = allow_list[table[hit]]
                 return out
-            return (table >= 0) & np.isin(table, np.unique(allow_list).astype(np.int64))
+            ids = np.unique(allow_list.astype(np.int64))
+            # negative ids match no slot; dropping them keeps the rest
+            # ascending as the unsigned ids the membership test searches
+            return native.membership(table, ids[ids >= 0])
 
     def _slot_to_id_safe(self, slots):
         clipped = np.clip(slots, 0, len(self._slot_to_id) - 1)

@@ -50,7 +50,8 @@ SIGNATURES = {
     "bm25_block": ("wtt_bm25_block",
                    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                     _P, _P]),
-    "bq_hamming_block": ("wtt_bq_hamming_block", [_P, _P, _I, _I, _I, _I, _P, _P]),
+    "bq_hamming_block": ("wtt_bq_hamming_block",
+                         [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]),
     "bq_mxu_block": ("wtt_bq_mxu_block",
                      [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P]),
     "pq4_lut_block": ("wtt_pq4_lut_block",

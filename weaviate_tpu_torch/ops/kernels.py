@@ -1082,29 +1082,85 @@ def bq_hamming_block_plain(q_bits: torch.Tensor, x_bits: torch.Tensor) -> torch.
     return out
 
 
+_BQ_HAM_OS = 68  # f32 stride of a query's rows in the kernel's output tile
+_BQ_MXU_OS = 72  # bf16 stride of a query's rows in the kernel's output tile
+
+
+def _bq_block_smem(qn: int, w: int, os_elems: int, out_bytes: int) -> int:
+    """Shared memory of the bq block kernels' tensor-core body (csrc
+    bq_block_tc.cuh ``tc_smem``): the query block's words and its all-ones
+    rows, the two warpgroups' row rings and output tiles (``os_elems``
+    elements of ``out_bytes`` a query), the popcounts, the mbarrier."""
+    w8 = _pad_to(max(w, 1), 8)
+    return ((qn + 16) * w8 * 4 + 2 * _BQ_TC_STAGES * _BQ_TC_TILE * w8 * 4
+            + 2 * qn * os_elems * out_bytes + qn * 4 + 16)
+
+
+def _bq_block_qblock(b: int, w: int, smem, most: int = BQ_TC_QBLOCKS[-1]) -> int:
+    """The tensor-core body's query block for ``b`` queries of ``w``
+    words: the smallest of BQ_TC_QBLOCKS that holds B, at most ``most``,
+    halved while ``smem(qn, w)`` exceeds the card's; 0 (the popcount
+    body) where even 8 queries do not fit."""
+    qn = next((n for n in BQ_TC_QBLOCKS if n >= min(b, most)), BQ_TC_QBLOCKS[-1])
+    while qn >= BQ_TC_QBLOCKS[0] and smem(qn, w) > _SMEM_MAX:
+        qn //= 2
+    return qn if qn >= BQ_TC_QBLOCKS[0] else 0
+
+
+def bq_hamming_smem(qn: int, w: int) -> int:
+    """Shared memory of ``bq_hamming_block``'s tensor-core body (f32
+    output tile)."""
+    return _bq_block_smem(qn, w, _BQ_HAM_OS, 4)
+
+
+# bq_hamming_block's largest query block: with its f32 output tile a block
+# of 128 takes one CTA an SM (133 KB at W = 24), 64 two, and two CTAs keep
+# more stores in flight: at [256, 24 words] x 1M, 0.4798 ms against 0.5522
+# (chip_smoke.py --block-times on an NVIDIA H100 80GB HBM3, 700 W; PERF.md)
+BQ_HAM_MAX_QBLOCK = 64
+
+
+def bq_hamming_qblock(b: int, w: int) -> int:
+    """The body ``bq_hamming_block`` launches for ``b`` queries of ``w``
+    words: the tensor-core body's query block (at most
+    BQ_HAM_MAX_QBLOCK), or 0 for the popcount body (W past ~100 words)."""
+    return _bq_block_qblock(b, w, bq_hamming_smem, BQ_HAM_MAX_QBLOCK)
+
+
+def bq_hamming_launch(q_bits: torch.Tensor, x_bits: torch.Tensor, qn: int) -> torch.Tensor:
+    """One launch of csrc/bq_hamming_block.cu on checked CUDA operands
+    with query block ``qn`` (``bq_hamming_qblock``'s choice, or 0 for the
+    popcount body). This is ``bq_hamming_block``'s launch, also called
+    directly to time another block."""
+    from weaviate_tpu_torch.ops import _build
+
+    q_bits, x_bits = q_bits.contiguous(), x_bits.contiguous()
+    (b, w), n = q_bits.shape, x_bits.shape[0]
+    qm = None if qn == 0 else bq_query_blocks(q_bits, qn)
+    out = torch.empty((b, n), dtype=torch.float32, device=x_bits.device)
+    vec4 = int(w % 4 == 0 and x_bits.data_ptr() % 16 == 0)
+    out16 = int(n % 4 == 0 and out.data_ptr() % 16 == 0)
+    rc = _build.kernel("bq_hamming_block")(
+        _ptr(qm), q_bits.data_ptr(), x_bits.data_ptr(), vec4, b, n, w, qn,
+        -(-b // (qn or BQ_QBLOCK)), out16, out.data_ptr(), _stream(x_bits.device))
+    _check_rc("bq_hamming_block", rc)
+    _count("bq_hamming_block")
+    return out
+
+
 def bq_hamming_block(q_bits: torch.Tensor, x_bits: torch.Tensor) -> torch.Tensor:
     """Exact hamming distances between packed sign words (reference
     ``pallas_kernels.bq_hamming_block``): q_bits [B, W] and x_bits [N, W]
     int32 tensors holding the uint32 words -> [B, N] f32 bit differences.
-    CUDA tensors launch csrc/bq_hamming_block.cu; CPU tensors take
-    ``bq_hamming_block_plain``."""
+    CUDA tensors launch csrc/bq_hamming_block.cu (its single-bit
+    tensor-core body, or the popcount body where ``bq_hamming_qblock``
+    says so); CPU tensors take ``bq_hamming_block_plain``."""
     _check_words("bq_hamming_block", "q_bits", q_bits)
     _check_words("bq_hamming_block", "x_bits", x_bits, q_bits.shape[1])
     _same_device("bq_hamming_block", q_bits, x_bits)
     if x_bits.device.type == "cpu":
         return bq_hamming_block_plain(q_bits, x_bits)
-    from weaviate_tpu_torch.ops import _build
-
-    q_bits, x_bits = q_bits.contiguous(), x_bits.contiguous()
-    (b, w), n = q_bits.shape, x_bits.shape[0]
-    out = torch.empty((b, n), dtype=torch.float32, device=x_bits.device)
-    vec4 = int(w % 4 == 0 and x_bits.data_ptr() % 16 == 0)
-    rc = _build.kernel("bq_hamming_block")(
-        q_bits.data_ptr(), x_bits.data_ptr(), vec4, b, n, w, out.data_ptr(),
-        _stream(x_bits.device))
-    _check_rc("bq_hamming_block", rc)
-    _count("bq_hamming_block")
-    return out
+    return bq_hamming_launch(q_bits, x_bits, bq_hamming_qblock(*q_bits.shape))
 
 
 # -- bq_mxu_block ----------------------------------------------------------------
@@ -1178,28 +1234,17 @@ def _bq_mxu_plain(q_words, qpop, x_bits, x_pop, valid):
     return out
 
 
-_BQ_MXU_OS = 72  # bf16 stride of a query's rows in the kernel's output tile
-
-
 def bq_mxu_smem(qn: int, w: int) -> int:
-    """Shared memory of ``bq_mxu_block``'s tensor-core body (csrc
-    ``tc_smem``): the query block's words and its all-ones rows, the two
-    warpgroups' row rings and output tiles, the popcounts, the mbarrier."""
-    w8 = _pad_to(max(w, 1), 8)
-    return ((qn + 16) * w8 * 4 + 2 * _BQ_TC_STAGES * _BQ_TC_TILE * w8 * 4
-            + 2 * qn * _BQ_MXU_OS * 2 + qn * 4 + 16)
+    """Shared memory of ``bq_mxu_block``'s tensor-core body (bf16 output
+    tile)."""
+    return _bq_block_smem(qn, w, _BQ_MXU_OS, 2)
 
 
 def bq_mxu_qblock(b: int, w: int) -> int:
     """The body ``bq_mxu_block`` launches for ``b`` queries of ``w``
-    words: the tensor-core body's query block (the smallest of
-    BQ_TC_QBLOCKS that holds B, at most 128, halved while its shared
-    memory exceeds the card's), or 0 for the popcount body, where even 8
-    queries do not fit (W past ~100 words)."""
-    qn = next((n for n in BQ_TC_QBLOCKS if n >= b), BQ_TC_QBLOCKS[-1])
-    while qn >= BQ_TC_QBLOCKS[0] and bq_mxu_smem(qn, w) > _SMEM_MAX:
-        qn //= 2
-    return qn if qn >= BQ_TC_QBLOCKS[0] else 0
+    words: the tensor-core body's query block, or 0 for the popcount body
+    (W past ~100 words)."""
+    return _bq_block_qblock(b, w, bq_mxu_smem)
 
 
 def bq_mxu_launch(q_words: torch.Tensor, qpop, x_bits: torch.Tensor,
