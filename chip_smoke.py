@@ -72,7 +72,11 @@ is downloaded), in phases:
    near_vector through the shard's query batcher, held to the serial path
    and to the plain recomputation, then deletes and queries again. The
    kernels' launch counters are reset just before this phase and read
-   just after it;
+   just after it. Before that, the filter's allow words as a CUDA store
+   packs them on the card are held bit for bit to numpy's packer at B =
+   1, 8 and 64, each way timed; after the two selections, the approx run
+   once more with the words packed on the host, as before the card
+   packer (the filtered p50 before and after, in one call);
 5. quantized index: the same corpus in a BQ FlatIndex, a BQ FlatIndex
    with a 128-bit sign prefix (two-stage scan) and a flat index that
    ``compress("pq")`` turns into 4-bit PQ on the card, 1,024 queries
@@ -118,8 +122,29 @@ is downloaded), in phases:
    (weaviate_tpu_torch/ops/conformance.py, bench.py's sec_conformance) at
    bench's 128 dims must return "ok", and must launch every kernel in
    CONFORMANCE_KERNELS.
+9. server: the port's ``Server`` serves the Database of phases 4-7 on
+   127.0.0.1 (ports from the OS, no telemetry; REST and GraphQL, and gRPC
+   where ``import grpc, google.protobuf`` works, else ``Server.assemble``
+   without the gRPC listener, said on its line). 9a runs right after
+   phase 4, before phase 6 compresses its collection: 1,024 GraphQL
+   nearVector queries at limit 100 (every 4th under the 10% filter: host
+   filter evaluation bounds those) from 8 client threads, and the same
+   through gRPC Search, each answer equal to the in-process
+   ``Collection.near_vector`` answer (ids and distance bits), then 64 of
+   them under selection "fused". 9b runs after phase 7: 128 nearVector
+   queries (half filtered) on each of phase 6's PQ and BQ collections and 64 hybrid queries
+   on phase 7's, held to the in-process answers (hybrid under phase 7's
+   tie rule), then the write path: 10,000 new 768-d objects through POST
+   /v1/batch/objects in batches of 1,000, 1,000 of them (chosen by seed)
+   read back with their vectors and found first by nearVector. Each half
+   computes its in-process answers first, then resets the launch counters,
+   runs its socket queries and reads them: 9a must launch distance_block,
+   fused_topk_pairs and fused_topk_scan, 9b bm25_block, distance_block,
+   bq_scan_reduce and pq4_scan_reduce. Each prints socket p50/p99/QPS
+   beside the in-process numbers, the import rate and the card's name and
+   power limit.
 
-Phases 5, 6, 7 and 8 each reset the launch counters as they start and read
+Phases 5, 6, 7, 8, 9a and 9b each reset the launch counters as they start and read
 them as they end: every kernel in QUANT_KERNELS must have run in phases 5
 and 6, and ``bm25_block`` and ``distance_block`` in phase 7, whose run (d)
 must launch ``fused_topk_scan``.
@@ -133,6 +158,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import http.client
 import json
 import re
 import shutil
@@ -1956,6 +1982,65 @@ def _filter_mask(torch, n_res, live, views_t):
     return live[None, :] & (~odd | (views_t[None, :] >= VIEWS_CUT))
 
 
+@contextlib.contextmanager
+def _host_packed_masks(K):
+    """Swap the flat store's mask packer for the host (numpy) one the
+    store used before packing moved to the card."""
+    from weaviate_tpu_torch.engine import store as S
+
+    card = S.batched_mask_operands
+
+    def host_packed(allow_mask, n_queries, capacity, device, owner=None):
+        with S.tracing.span("store.mask_pack", queries=n_queries):
+            return K.as_bits_tensor(
+                K.pack_allow_bitmask(allow_mask, K.mask_pad_cols(capacity)), device)
+
+    S.batched_mask_operands = host_packed
+    try:
+        yield
+    finally:
+        S.batched_mask_operands = card
+
+
+def _mask_pack_check(torch, K, shard, idx, where, rng) -> str:
+    """The card packer's words against numpy's on phase 4's filter (each
+    query's slot mask ANDed with a random 50% row), bit for bit, at B = 1,
+    8 and 64, and what each way takes: numpy's pack (+ the upload of the
+    words) against the upload of the bool rows + the card's pack."""
+    from weaviate_tpu_torch.engine import store as S
+
+    cap = idx.store.capacity
+    n_cols = K.mask_pad_cols(cap)
+    t0 = time.perf_counter()
+    doc_mask = shard.allow_mask(where)
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    slot_mask = idx._allow_mask(doc_mask)
+    translate_ms = (time.perf_counter() - t0) * 1e3
+    parts = [f"where() evaluated in {eval_ms:.1f} ms, translated to {cap} store slots in "
+             f"{translate_ms:.1f} ms"]
+    for b in (1, 8, 64):
+        rows = slot_mask[None, :] & (rng.random((b, cap)) < 0.5)
+        want = K.pack_allow_bitmask(rows, n_cols)
+        got = S.batched_mask_operands(rows, b, cap, "cuda")
+        if not np.array_equal(got.cpu().numpy().view(np.uint32), want):
+            raise AssertionError(f"card-packed allow words != numpy's at B = {b}")
+        host, card = [], []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            K.as_bits_tensor(K.pack_allow_bitmask(rows, n_cols), "cuda")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            S.batched_mask_operands(rows, b, cap, "cuda")
+            torch.cuda.synchronize()
+            host.append((t1 - t0) * 1e3)
+            card.append((time.perf_counter() - t1) * 1e3)
+        parts.append(f"B = {b}: bit for bit; numpy pack + upload {np.median(host):.2f} ms, "
+                     f"upload + card pack {np.median(card):.2f} ms")
+    return "; ".join(parts)
+
+
 def phase_end_to_end(torch, K, seed: int, rows: int, db) -> tuple[dict, dict]:
     """Returns phase 4's launch counts and the live collection's state,
     which phase 6 compresses and queries again."""
@@ -1994,6 +2079,7 @@ def phase_end_to_end(torch, K, seed: int, rows: int, db) -> tuple[dict, dict]:
             got = [[_row_of(r) for r in res] for res in results[s:s + BATCH]]
             _check_against_exact(torch, d_full, got, 10, what)
 
+    pack_text = _mask_pack_check(torch, K, shard, idx, where, rng)
     K.reset_launch_counts()  # the main path's run starts here
     timings = {}
     t1 = time.perf_counter()
@@ -2011,6 +2097,16 @@ def phase_end_to_end(torch, K, seed: int, rows: int, db) -> tuple[dict, dict]:
                 raise AssertionError(f"{selection}: concurrent result != serial path")
         check_exact(out, f"end to end {selection}")
         stats.append(f"{selection}: {_latency_stats(nq, lat, wall)}")
+    # the same approx run with the filter words packed on the host, as
+    # before the card packer: the filtered p50 before and after, one call
+    idx.store.selection = "approx"
+    with _host_packed_masks(K):
+        out, lat, wall = _run_clients(ask, nq)
+    for a, b in zip(serial, out):
+        if [r.uuid for r in a] != [r.uuid for r in b]:
+            raise AssertionError("host-packed: concurrent result != serial path")
+    stats.append(f"approx with the words packed on the host (numpy, as before): "
+                 f"{_latency_stats(nq, lat, wall)}")
     batcher = shard._query_batchers[""]
     # deletes, then queries again through the batcher, both selections
     gone = rng.choice(done, DELETES, replace=False)
@@ -2038,7 +2134,7 @@ def phase_end_to_end(torch, K, seed: int, rows: int, db) -> tuple[dict, dict]:
         f"{batcher.dispatches} batched dispatches for {batcher.batched_queries} "
         f"queries ({batcher.async_dispatches} async); {DELETES} deleted in "
         f"{timings['deletes']:.1f} s, {REQUERIES} queries per selection again, none "
-        f"returned; launches {counts}")
+        f"returned; launches {counts}; filter words: {pack_text}")
     for name in ("distance_block", "fused_topk_scan", "fused_topk_pairs"):
         if counts[name] <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
@@ -2569,8 +2665,10 @@ def import_times(torch, seed: int, n_docs: int, rows: int) -> list[str]:
     return parts
 
 
-def phase_hybrid(torch, K, seed: int, db, n_docs: int) -> dict:
-    """Phase 7. Returns its launch counts."""
+def phase_hybrid(torch, K, seed: int, db, n_docs: int) -> tuple[dict, dict]:
+    """Phase 7. Returns its launch counts and its collection's state
+    (collection, unit rows on the card, document frequencies), which
+    phase 9b queries again over the socket."""
     from weaviate_tpu_torch.filters import Filter, Operator
 
     dev = "cuda"
@@ -2749,7 +2847,7 @@ def phase_hybrid(torch, K, seed: int, db, n_docs: int) -> dict:
     for kn in ("bm25_block", "distance_block"):
         if counts[kn] <= 0:
             raise AssertionError(f"{kn} was not launched on the hybrid path")
-    return counts
+    return counts, dict(col=col, ref=ref, df=df)
 
 
 # -- where a fused hybrid dispatch's time goes ----------------------------------
@@ -3218,6 +3316,344 @@ def phase_conformance(K) -> dict:
     return counts
 
 
+# -- phase 9: the server over a real socket --------------------------------------
+
+SERVER_QUERIES = 1024     # 9a: GraphQL nearVector queries, every 4th filtered
+SERVER_FILTER_EVERY = 4   # 9a: host filter evaluation bounds the filtered ones
+SERVER_FUSED = 64         # 9a: of them again under selection "fused"
+SERVER_K = 100
+SERVER_QUANT = 128        # 9b: nearVector queries on each quantized collection, half filtered
+SERVER_HYBRID = 64        # 9b: hybrid queries on phase 7's collection
+WRITE_ROWS, WRITE_BATCH, READ_BACK = 10_000, 1_000, 1_000
+# kernels each half of the server phase must launch through the socket
+SERVER_KERNELS = {"9a": ("distance_block", "fused_topk_pairs", "fused_topk_scan"),
+                  "9b": ("bm25_block", "distance_block", "bq_scan_reduce",
+                         "pq4_scan_reduce")}
+
+
+def _grpc_present() -> bool:
+    try:
+        import google.protobuf  # noqa: F401
+        import grpc  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def start_server(db):
+    """The port's Server over phase 4's Database on 127.0.0.1, ports
+    chosen by the OS, no telemetry. Without grpcio the same assembly
+    serves REST alone (Server.assemble), and says so."""
+    from weaviate_tpu_torch.config import ServerConfig
+    from weaviate_tpu_torch.server import Server
+
+    cfg = ServerConfig(data_path=db.data_dir, host="127.0.0.1", rest_port=0, grpc_port=0,
+                       disable_telemetry=True)
+    srv = Server(cfg, device="cuda", db=db)
+    if _grpc_present():
+        srv.start()
+        log(f"phase 9 server: REST + GraphQL on {srv.rest.address}, gRPC on "
+            f":{srv.grpc.port} (grpcio present)")
+    else:
+        srv.assemble()
+        log(f"phase 9 server: grpc is absent (import grpc, google.protobuf failed): "
+            f"REST + GraphQL on {srv.rest.address} through Server.assemble, no gRPC "
+            "listener; nothing installed")
+    return srv
+
+
+def _gql(client, query: str, variables: dict) -> list:
+    out = client.graphql(query, variables)
+    if "errors" in out:
+        raise AssertionError(f"GraphQL errors: {out['errors'][:1]}")
+    return next(iter(out["data"]["Get"].values()))
+
+
+def _near_gql(limit: int, filtered: bool, key: str = "distance") -> str:
+    where = f", where: {{path: [\"views\"], operator: GreaterThanEqual, valueInt: {VIEWS_CUT}}}"
+    return (f"query Q($v: [Float]) {{ Get {{ %s(limit: {limit}, nearVector: {{vector: $v}}"
+            f"{where if filtered else ''}) {{ _additional {{ id {key} }} }} }} }}")
+
+
+def _timed_text(lat, wall, nq: int) -> str:
+    return (f"{nq / wall:.1f} QPS, p50 {np.percentile(lat, 50):.1f} ms, "
+            f"p99 {np.percentile(lat, 99):.1f} ms")
+
+
+def _socket_vs_inproc(col, client, queries, k: int, where, what: str,
+                      grpc_port=None, every: int = 2) -> tuple[list[str], dict]:
+    """``queries`` in process (CLIENTS threads through the batcher, the
+    reference) and then over the socket; query i carries ``where`` when
+    i % every == every - 1.
+    GraphQL answers must equal the in-process ones exactly (ids, distance
+    bits); so must gRPC's where grpcio is present. The reference runs
+    outside the caller's launch window: it returns the socket closures."""
+    nq = len(queries)
+    name = col.config.name
+    gql = {f: _near_gql(k, f) % name for f in (False, True)}
+
+    def filtered(i):
+        return i % every == every - 1
+
+    def inproc(i):
+        return [(r.uuid, r.distance) for r in
+                col.near_vector(queries[i], k=k, where=where if filtered(i) else None)]
+
+    ref, lat, wall = _run_clients(inproc, nq)
+    parts = [f"{what}: in process {_timed_text(lat, wall, nq)}"]
+
+    def over_graphql():
+        def ask(i):
+            rows = _gql(client, gql[filtered(i)], {"v": queries[i].tolist()})
+            return [(r["_additional"]["id"], r["_additional"]["distance"]) for r in rows]
+
+        out, lat, wall = _run_clients(ask, nq)
+        for i, (a, b) in enumerate(zip(ref, out)):
+            if a != b:
+                raise AssertionError(f"{what} query {i}: GraphQL answer != in-process answer")
+        return f"GraphQL over the socket {_timed_text(lat, wall, nq)}, identical"
+
+    def over_grpc():
+        import grpc
+
+        from weaviate_tpu_torch.api.grpc import v1_pb2 as pb
+
+        chan = grpc.insecure_channel(f"127.0.0.1:{grpc_port}")
+        search = chan.unary_unary("/weaviate.v1.Weaviate/Search",
+                                  request_serializer=pb.SearchRequest.SerializeToString,
+                                  response_deserializer=pb.SearchReply.FromString)
+
+        def ask(i):
+            req = pb.SearchRequest(collection=name, limit=k)
+            req.near_vector.vector_bytes = np.asarray(queries[i], np.float32).tobytes()
+            if filtered(i):
+                req.filters.operator = pb.Filters.OPERATOR_GREATER_THAN_EQUAL
+                req.filters.target.property = "views"
+                req.filters.value_int = VIEWS_CUT
+            req.metadata.uuid = True
+            req.metadata.distance = True
+            return [(r.metadata.id, r.metadata.distance) for r in search(req).results]
+
+        try:
+            out, lat, wall = _run_clients(ask, nq)
+        finally:
+            chan.close()
+        for i, (a, b) in enumerate(zip(ref, out)):
+            if [u for u, _ in a] != [u for u, _ in b] or \
+                    [np.float32(d) for _, d in a] != [np.float32(d) for _, d in b]:
+                raise AssertionError(f"{what} query {i}: gRPC answer != in-process answer")
+        return f"gRPC Search {_timed_text(lat, wall, nq)}, identical"
+
+    runs = {"graphql": over_graphql}
+    if grpc_port is not None:
+        runs["grpc"] = over_grpc
+    return parts, runs
+
+
+def phase_server_plain(torch, K, seed: int, srv, st4: dict) -> dict:
+    """Phase 9a, before phase 6 compresses phase 4's collection: GraphQL
+    (and gRPC) nearVector at limit 100, half under the 10% filter, held to
+    the in-process answers; then SERVER_FUSED of them under selection
+    "fused". Counts the socket runs' launches."""
+    from weaviate_tpu_torch.api.client import Client
+    from weaviate_tpu_torch.filters import Filter, Operator
+
+    dev = "cuda"
+    t0 = time.perf_counter()
+    col, ref = st4["col"], st4["ref"]
+    rng = np.random.default_rng([seed, 91])
+    where = Filter.where("views", Operator.GREATER_THAN_EQUAL, VIEWS_CUT)
+    queries = near_queries(seed + 91, rng.integers(0, len(ref), SERVER_QUERIES),
+                           lambda r: ref[torch.from_numpy(r).to(dev)].cpu().numpy())
+    client = Client(srv.rest.address, timeout=120.0)
+    grpc_port = srv.grpc.port if srv.grpc is not None else None
+    idx = next(iter(col.shards.values())).vector_indexes[""]
+    idx.store.selection = "approx"
+    mix = (f"every {SERVER_FILTER_EVERY}th under where(views >= {VIEWS_CUT}), 10%")
+    parts, runs = _socket_vs_inproc(col, client, queries, SERVER_K, where,
+                                    f"{SERVER_QUERIES} nearVector(limit {SERVER_K}), {mix}, "
+                                    "selection approx", grpc_port, SERVER_FILTER_EVERY)
+    idx.store.selection = "fused"
+    fparts, fruns = _socket_vs_inproc(col, client, queries[:SERVER_FUSED], SERVER_K, where,
+                                      f"{SERVER_FUSED} of them under selection fused",
+                                      every=SERVER_FILTER_EVERY)
+    idx.store.selection = "approx"
+    K.reset_launch_counts()  # phase 9a's socket window starts here
+    for fn in runs.values():
+        parts.append(fn())
+    idx.store.selection = "fused"
+    try:
+        fparts.append(fruns["graphql"]())
+    finally:
+        idx.store.selection = "approx"
+    counts = dict(K.launch_counts)  # ... and ends here
+    log(f"phase 9a server ({time.perf_counter() - t0:.1f} s), plain nearVector on phase 4's "
+        f"{len(ref)}-row collection over 127.0.0.1 from {CLIENTS} client threads "
+        f"({_smi_line()}): " + "; ".join(parts)
+        + " | " + "; ".join(fparts) + f"; launches through the socket {counts}")
+    _require_server_launches(counts, "9a")
+    return counts
+
+
+def _require_server_launches(counts: dict, part: str) -> None:
+    for name in SERVER_KERNELS[part]:
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} was not launched through the server in phase {part}")
+
+
+def _smi_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def _quant_queries(torch, col, seed: int, prefix: int, rows: int, tag: int) -> np.ndarray:
+    """SERVER_QUANT queries near stored rows of ``col`` (deleted rows are
+    skipped), read back through get_object."""
+    rng = np.random.default_rng([seed, tag])
+    vecs = []
+    for r in rng.permutation(rows):
+        obj = col.get_object(_uuid(prefix, int(r)))
+        if obj is not None:
+            vecs.append(obj.vector)
+        if len(vecs) == SERVER_QUANT:
+            break
+    base = np.stack(vecs).astype(np.float32)
+    base /= np.linalg.norm(base, axis=1, keepdims=True)
+    noise = rng.standard_normal(base.shape).astype(np.float32) * NEAR_NOISE
+    return base + noise
+
+
+def phase_server_rest(torch, K, seed: int, srv, db, st7: dict, rows: int) -> dict:
+    """Phase 9b, after phase 7: nearVector on phase 6's PQ and BQ
+    collections and hybrid on phase 7's, held to the in-process answers;
+    then the write path: WRITE_ROWS new objects through POST
+    /v1/batch/objects, READ_BACK of them read back and found first by
+    nearVector. Counts the socket runs' launches."""
+    from weaviate_tpu_torch.api.client import Client
+    from weaviate_tpu_torch.filters import Filter, Operator
+
+    t0 = time.perf_counter()
+    client = Client(srv.rest.address, timeout=120.0)
+    where = Filter.where("views", Operator.GREATER_THAN_EQUAL, VIEWS_CUT)
+    socket_runs, parts = [], []
+    for name, prefix, n_rows, tag in (("Wiki", 8000, rows, 92), ("WikiBQ", 8001,
+                                                                 BQ_E2E_ROWS, 93)):
+        col = db.get_collection(name)
+        kind = getattr(next(iter(col.shards.values())).vector_indexes[""].store,
+                       "quantization", "flat")
+        qs = _quant_queries(torch, col, seed, prefix, n_rows, tag)
+        p, r = _socket_vs_inproc(col, client, qs, 10, where,
+                                 f"{SERVER_QUANT} nearVector(limit 10), half filtered, on "
+                                 f"phase 6's {kind} collection {name}")
+        parts.append(p)
+        socket_runs.append(r["graphql"])
+    # hybrid: GraphQL against Collection.hybrid, phase 7's tie rule
+    fiqa = st7["col"]
+    hq = _fiqa_queries(seed + 9, st7["df"], True, SERVER_HYBRID)
+    rng = np.random.default_rng([seed, 94])
+    hv = near_queries(seed + 94, rng.integers(0, len(st7["ref"]), SERVER_HYBRID),
+                      lambda r: st7["ref"][torch.from_numpy(r).to("cuda")].cpu().numpy(),
+                      NEAR_NOISE)
+    fusion_arg = {"relativeScore": "relativeScoreFusion", "rankedFusion": "rankedFusion"}
+    hgql = ("query Q($v: [Float], $q: String, $a: Float) { Get { FiQA(limit: %d, "
+            "hybrid: {query: $q, alpha: $a, vector: $v, fusionType: %s}) "
+            "{ _additional { id score } } } }")
+
+    def hyb_inproc(i):
+        fusion, alpha = HYBRID_SETTINGS[i % 3]
+        return [(r.uuid, r.score) for r in fiqa.hybrid(hq[i], vector=hv[i], alpha=alpha,
+                                                       k=HYBRID_K, fusion=fusion)]
+
+    href, lat, wall = _run_clients(hyb_inproc, SERVER_HYBRID)
+    hparts = [f"{SERVER_HYBRID} hybrid(limit {HYBRID_K}) on phase 7's collection: in process "
+              f"{_timed_text(lat, wall, SERVER_HYBRID)}"]
+
+    def hyb_socket():
+        def ask(i):
+            fusion, alpha = HYBRID_SETTINGS[i % 3]
+            rows_ = _gql(client, hgql % (HYBRID_K, fusion_arg[fusion]),
+                         {"v": hv[i].tolist(), "q": hq[i], "a": alpha})
+            return [(r["_additional"]["id"], r["_additional"]["score"]) for r in rows_]
+
+        out, lat, wall = _run_clients(ask, SERVER_HYBRID)
+        same = 0
+        for i, (a, b) in enumerate(zip(href, out)):
+            if not _same_answer(b, a):
+                raise AssertionError(f"hybrid query {i}: GraphQL answer != in-process answer")
+            same += a == b
+        return (f"GraphQL over the socket {_timed_text(lat, wall, SERVER_HYBRID)}, "
+                f"{same} identical, {SERVER_HYBRID - same} equal under phase 7's tie rule")
+
+    K.reset_launch_counts()  # phase 9b's socket window starts here
+    for p, fn in zip(parts, socket_runs):
+        p.append(fn())
+    hparts.append(hyb_socket())
+    write_text = _server_writes(client, seed)
+    counts = dict(K.launch_counts)  # ... and ends here
+    log(f"phase 9b server ({time.perf_counter() - t0:.1f} s), quantized, hybrid and the "
+        f"write path over 127.0.0.1 from {CLIENTS} client threads ({_smi_line()}): "
+        + " | ".join("; ".join(p) for p in parts) + " | " + "; ".join(hparts)
+        + f" | {write_text}; launches through the socket {counts}")
+    _require_server_launches(counts, "9b")
+    return counts
+
+
+def _server_writes(client, seed: int) -> str:
+    """WRITE_ROWS 768-d objects through POST /v1/batch/objects in batches
+    of WRITE_BATCH; READ_BACK of them, chosen by seed, must come back from
+    GET /v1/objects/{class}/{id} with the stored vector and first from a
+    nearVector query on that vector."""
+    name = "ServerWrites"
+    client.create_class({"class": name, "vectorizer": "none", "vectorIndexType": "flat",
+                         "vectorIndexConfig": {"distance": METRIC},
+                         "properties": [{"name": "n", "dataType": ["int"]}]})
+    rng = np.random.default_rng([seed, 95])
+    vecs = rng.standard_normal((WRITE_ROWS, DIM)).astype(np.float32)
+    ids = [_uuid(8009, i) for i in range(WRITE_ROWS)]
+    # the request bodies are encoded before the clock starts: the rate is
+    # the server's (JSON decoding, validation, batch_put), not the client's
+    t0 = time.perf_counter()
+    bodies = [json.dumps({"objects": [
+        {"class": name, "id": ids[i], "properties": {"n": i}, "vector": vecs[i].tolist()}
+        for i in range(s, min(WRITE_ROWS, s + WRITE_BATCH))]}).encode()
+        for s in range(0, WRITE_ROWS, WRITE_BATCH)]
+    encode_s = time.perf_counter() - t0
+    host, port = client.addr.rsplit(":", 1)
+    t0 = time.perf_counter()
+    for body in bodies:
+        conn = http.client.HTTPConnection(host, int(port), timeout=300)
+        try:
+            conn.request("POST", "/v1/batch/objects", body=body,
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            res = json.loads(resp.read())
+        finally:
+            conn.close()
+        if resp.status != 200 or any(r["result"].get("status") != "SUCCESS" for r in res):
+            raise AssertionError(f"batch import failed: {resp.status} {res if resp.status != 200 else res[0]}")
+    import_s = time.perf_counter() - t0
+    pick = rng.choice(WRITE_ROWS, READ_BACK, replace=False)
+
+    def read(j):
+        i = int(pick[j])
+        got = client.request("GET", f"/v1/objects/{name}/{ids[i]}",
+                             params={"include": "vector"})
+        if not np.array_equal(np.asarray(got["vector"], np.float32), vecs[i]):
+            raise AssertionError(f"object {ids[i]} read back another vector")
+        rows = _gql(client, _near_gql(10, False) % name, {"v": vecs[i].tolist()})
+        if rows[0]["_additional"]["id"] != ids[i]:
+            raise AssertionError(f"nearVector on object {ids[i]}'s vector returned "
+                                 f"{rows[0]['_additional']['id']} first")
+        return True
+
+    _out, lat, wall = _run_clients(read, READ_BACK)
+    return (f"write path: {WRITE_ROWS} objects through POST /v1/batch/objects in batches of "
+            f"{WRITE_BATCH} in {import_s:.1f} s ({WRITE_ROWS / import_s:.0f} objects/s; the "
+            f"client encoded the bodies beforehand in {encode_s:.1f} s), {READ_BACK} read back with their vectors and found first by "
+            f"nearVector ({_timed_text(lat, wall, READ_BACK)} per read + query)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3325,26 +3761,35 @@ def main() -> int:
     log(f"card after phase 2 (SM clock, max SM clock, power, temperature): {card_clocks()}")
     phase_index(torch, args.seed, args.rows)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-    db = None
+    db = srv = None
     try:
         db = Database(tmp, device="cuda")
         # each path counts its own launches: phase 4 the plain one, phase 5
         # the quantized index, phase 6 the quantized collections, phase 7
-        # hybrid
+        # hybrid, phase 9a/9b the server's socket runs (the server serves
+        # phase 4's database from here on; 9a runs before phase 6
+        # compresses its collection)
         counts4, st4 = phase_end_to_end(torch, K, args.seed, args.rows, db)
+        srv = start_server(db)
+        counts9a = phase_server_plain(torch, K, args.seed, srv, st4)
         counts5 = phase_quantized_index(torch, K, args.seed, args.rows)
         counts6 = phase_quantized_end_to_end(torch, K, args.seed, db, st4)
-        counts7 = phase_hybrid(torch, K, args.seed, db, args.hybrid_docs)
+        counts7, st7 = phase_hybrid(torch, K, args.seed, db, args.hybrid_docs)
+        counts9b = phase_server_rest(torch, K, args.seed, srv, db, st7, args.rows)
     finally:
+        if srv is not None:
+            srv.stop()
         if db is not None:
             db.close()
         shutil.rmtree(tmp, ignore_errors=True)
     counts8 = phase_conformance(K)
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
-        # launches over the main paths: phases 4, 5, 6, 7 and 8, and phase
-        # 2's window for the two kernels that no path runs
-        launches = sum(c[name] for c in (counts4, counts5, counts6, counts7, counts8))
+        # launches over the main paths: phases 4, 5, 6, 7, 8 and the
+        # server's 9a and 9b, and phase 2's window for the two kernels that
+        # no path runs
+        launches = sum(c[name] for c in (counts4, counts5, counts6, counts7, counts8,
+                                         counts9a, counts9b))
         if name in PHASE2_PATH:
             launches += counts2[name]
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,

@@ -195,3 +195,22 @@ def test_empty_corpus_yields_unfilled_slots(rng):
     np.testing.assert_array_equal(gi.numpy(), np.asarray(ri))
     np.testing.assert_array_equal(gd.numpy(), np.asarray(rd))
     assert (gi == -1).all()
+
+
+@pytest.mark.parametrize("shape,n_cols", [
+    ((1, 512), None), ((1, 1), None), ((5, 513), None), ((3, 1300), 2048),
+    ((8, 4096), 4096), ((2, 700), 512), ((17, 9000), 16384)])
+@pytest.mark.parametrize("density", [0.0, 0.1, 0.5, 1.0])
+def test_device_packer_bit_identical_to_numpy(rng, monkeypatch, shape,
+                                              n_cols, density):
+    """The packer a CUDA store runs on the card (``pack_allow_bitmask_t``)
+    gives the numpy packer's words at ragged capacities ([1, 512] was the
+    PR 3 fault), explicit padding, truncation past ``n_cols``, full rows
+    (bit 31 set: word -1) and rows packed over several passes."""
+    monkeypatch.setattr(K, "_PACK_PASS_ELEMS", 3 * 1024)
+    allow = rng.random(shape) < density
+    want = K.pack_allow_bitmask(allow, n_cols)
+    assert np.array_equal(want, pk.pack_allow_bitmask(allow, n_cols))
+    got = K.pack_allow_bitmask_t(_t(allow), n_cols)
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy().view(np.uint32), want)

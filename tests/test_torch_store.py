@@ -155,15 +155,15 @@ def test_store_raises_without_cuda_when_device_unset():
 
 
 def test_unported_options_raise():
-    # quantization (item 9) is ported; epochs and the mesh are not, with
-    # or without it
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # quantization is ported; epochs (item 3) and the mesh (item 6) are
+    # not, with or without it
+    with pytest.raises(NotImplementedError, match="item 3"):
         TFlat(dim=4, epoch_rows=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         TFlat(dim=4, quantization="pq", epoch_rows=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         TStore(dim=4, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         TFlat(dim=4, quantization="bq", mesh=object(), device="cpu")
     # device hybrid (item 10) is ported: the async handle resolves to the
     # sync answer, and a pure-vector row of the drain to the plain search

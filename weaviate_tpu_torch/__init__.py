@@ -9,4 +9,6 @@ unless the caller passes ``device="cpu"``.
 
 from weaviate_tpu_torch.device import DEFAULT_DEVICE, resolve
 
+__version__ = "0.1.0"
+
 __all__ = ["DEFAULT_DEVICE", "resolve"]

@@ -7,7 +7,10 @@ state, objectVectorSearch scatter-gathers across shards and merges by
 distance; keyword (bm25) and hybrid search scatter-gather the same way,
 and a hybrid query on one shard runs as one fused device program.
 Replication, tenants, backup/offload, remote shards and epoch migration
-are later slices of the port.
+are later slices of the port (ROADMAP Queue 1 items 3 and 7). The query
+and write methods keep the JAX package's ``tenant`` and ``consistency``
+keywords, which a collection without tenants or replicas ignores, as the
+JAX one does.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ logger = logging.getLogger(__name__)
 
 
 class SearchResult:
-    __slots__ = ("uuid", "distance", "score", "object", "shard")
+    __slots__ = ("uuid", "distance", "score", "object", "shard",
+                 "rerank_score")
 
     def __init__(self, uuid, distance=None, score=None, object=None, shard=None):
         self.uuid = uuid
@@ -41,6 +45,7 @@ class SearchResult:
         self.score = score
         self.object = object
         self.shard = shard
+        self.rerank_score = None  # set by the reranker module path
 
     def __repr__(self):
         return f"SearchResult({self.uuid}, dist={self.distance}, score={self.score})"
@@ -77,23 +82,27 @@ class Collection:
     def __init__(self, data_dir: str, config: CollectionConfig,
                  sharding_state: ShardingState | None = None, mesh=None,
                  local_node: str = "node-0", on_sharding_change=None,
-                 sync_wal: bool | None = None, device=None):
+                 sync_wal: bool | None = None, memwatch=None,
+                 async_indexing: bool | None = None, device=None):
         config.validate()
         if config.multi_tenancy.enabled:
             raise NotImplementedError(
-                "multi-tenant collections: a later slice of the port")
+                "multi-tenant collections: ROADMAP Queue 1 item 7")
         if config.replication.factor > 1:
-            raise NotImplementedError(
-                "replication: a later slice of the port")
+            raise NotImplementedError("replication: ROADMAP Queue 1 item 7")
         if mesh is not None:
-            raise NotImplementedError("multi-device: ROADMAP Queue 1 item 13")
+            raise NotImplementedError("multi-device: ROADMAP Queue 1 item 6")
         self.config = config
         self.data_dir = data_dir
         self.mesh = None
         self.device = device
+        self.memwatch = memwatch
+        self.async_indexing = async_indexing  # None = env decides per shard
         self.local_node = local_node
         self.sync_wal = sync_wal  # None = shard reads PERSISTENCE_WAL_SYNC
         self._lock = threading.RLock()
+        # striped read-modify-write locks (PATCH, reference adds)
+        self._uuid_locks = [threading.RLock() for _ in range(64)]
         if sharding_state is None:
             sharding_state = ShardingState.create(
                 config.sharding.desired_count, nodes=[local_node],
@@ -107,6 +116,23 @@ class Collection:
                 self._load_shard(name)
         self._pool = ThreadPoolExecutor(max_workers=8,
                                         thread_name_prefix=f"{config.name}-search")
+
+    def uuid_lock(self, uuid: str) -> threading.RLock:
+        """Lock guarding read-modify-write of one object (sharded by uuid
+        hash; collisions just serialize two unrelated RMWs, never deadlock
+        since callers take at most one)."""
+        return self._uuid_locks[hash(uuid) % len(self._uuid_locks)]
+
+    def _is_local(self, shard_name: str) -> bool:
+        return self.local_node in self.sharding.nodes_for(shard_name)
+
+    def tenants(self) -> list[str]:
+        # multi-tenant collections raise at construction (item 7)
+        return []
+
+    def tenant_activity_snapshot(self) -> dict:
+        """Per-tenant read/write activity: none without tenants."""
+        return {}
 
     def apply_runtime_config(self) -> None:
         """Propagate runtime-mutable config (reference: UpdateUserConfig ->
@@ -150,16 +176,19 @@ class Collection:
             if name not in self.shards:
                 self.shards[name] = Shard(
                     self.data_dir, self.config, name, sync_wal=self.sync_wal,
-                    device=self.device)
+                    memwatch=self.memwatch,
+                    async_indexing=self.async_indexing, device=self.device)
             return self.shards[name]
 
-    def _target_shards(self) -> list[Shard]:
+    def _target_shards(self, tenant: str | None = None) -> list[Shard]:
         return [self._load_shard(n) for n in self.sharding.shard_names]
 
     # -- object CRUD ---------------------------------------------------------
 
     def put_object(self, properties: dict, vector=None, vectors: dict | None = None,
-                   uuid: str | None = None, creation_time_ms: int = 0) -> str:
+                   uuid: str | None = None, creation_time_ms: int = 0,
+                   tenant: str | None = None,
+                   consistency: str = "QUORUM") -> str:
         """``creation_time_ms``: carried through on updates so a re-put
         keeps the original creation stamp."""
         uuid = uuid or str(uuid_mod.uuid4())
@@ -176,7 +205,8 @@ class Collection:
         monitoring.objects_total.labels(self.config.name, "put").inc()
         return uuid
 
-    def batch_put(self, objects: list[dict]) -> list[dict]:
+    def batch_put(self, objects: list[dict], tenant: str | None = None,
+                  consistency: str = "QUORUM") -> list[dict]:
         """Batch import; per-object error reporting, not transactional
         (reference: usecases/objects/batch_add.go)."""
         results = []
@@ -213,17 +243,166 @@ class Collection:
                                   "error": str(e)}
         return results
 
-    def get_object(self, uuid: str) -> StorageObject | None:
+    def get_object(self, uuid: str, tenant: str | None = None,
+                   consistency: str | None = None) -> StorageObject | None:
         return self._load_shard(self.sharding.shard_for(uuid, None)).get_object(uuid)
 
-    def delete_object(self, uuid: str) -> bool:
+    def delete_object(self, uuid: str, tenant: str | None = None,
+                      consistency: str = "QUORUM") -> bool:
         ok = self._load_shard(self.sharding.shard_for(uuid, None)).delete_object(uuid)
         if ok:
             monitoring.objects_total.labels(self.config.name, "delete").inc()
         return ok
 
-    def object_count(self) -> int:
+    def object_count(self, tenant: str | None = None) -> int:
         return sum(s.object_count() for s in self._target_shards())
+
+    def batch_delete(self, where, tenant: str | None = None,
+                     dry_run: bool = False, verbose: bool = False,
+                     consistency: str = "QUORUM",
+                     max_matches: int = 10_000) -> dict:
+        """Delete all objects matching a filter (reference: batch_delete —
+        REST DELETE /v1/batch/objects and gRPC BatchDelete; match set capped
+        at QUERY_MAXIMUM_RESULTS like the reference's dryRun/match cap).
+        Returns {"matches", "successful", "failed", "objects": [...]}, where
+        ``objects`` is populated per-uuid only when ``verbose``."""
+        uuids: list[str] = []
+        for name in self.sharding.shard_names:
+            if len(uuids) >= max_matches:
+                break
+            shard = self._load_shard(name)
+            mask = shard.allow_mask(where) if where is not None else None
+            with shard._lock:
+                items = list(shard._doc_to_uuid.items())
+            for doc_id, uid in items:
+                if mask is not None and (doc_id >= len(mask)
+                                         or not mask[doc_id]):
+                    continue
+                uuids.append(uid)
+                if len(uuids) >= max_matches:
+                    break
+        result = {"matches": len(uuids), "successful": 0, "failed": 0,
+                  "objects": []}
+        for uid in uuids:
+            if dry_run:
+                ok, err = True, None
+            else:
+                try:
+                    ok = self.delete_object(uid)
+                    err = None if ok else "not found"
+                except Exception as e:  # per-object errors, not transactional
+                    ok, err = False, str(e)
+            result["successful" if ok else "failed"] += 1
+            if verbose:
+                entry = {"id": uid, "successful": ok}
+                if err:
+                    entry["error"] = err
+                result["objects"].append(entry)
+        return result
+
+    def iter_objects(self, tenant: str | None = None):
+        for shard in self._target_shards():
+            for key, raw in shard.objects.iter_items():
+                yield StorageObject.from_bytes(raw)
+
+    def fetch_objects(self, limit: int = 25, offset: int = 0,
+                      sort: list[dict] | None = None, where=None,
+                      tenant: str | None = None,
+                      after: str | None = None) -> list[StorageObject]:
+        """List objects with optional filter/sort/cursor (reference:
+        /v1/objects listing; sorter/objects_sorter.go; cursor via ?after=
+        which requires uuid order — sort and after are mutually exclusive,
+        as in the reference API)."""
+        from weaviate_tpu_torch.query.sorter import sort_objects
+
+        if after is not None and sort:
+            raise ValueError("'after' cursor cannot be combined with sort")
+        names = list(self.sharding.shard_names)
+        if sort:
+            # property sort needs the values: materialize candidates
+            objs: list[StorageObject] = []
+            for name in names:
+                shard = self._load_shard(name)
+                mask = shard.allow_mask(where) if where is not None else None
+                for _key, raw in shard.objects.iter_items():
+                    obj = StorageObject.from_bytes(raw)
+                    if mask is not None and (obj.doc_id >= len(mask)
+                                             or not mask[obj.doc_id]):
+                        continue
+                    objs.append(obj)
+            return sort_objects(objs, sort)[offset: offset + limit]
+        # uuid-ordered page: select uuids from the in-RAM docid map, only
+        # deserialize what is actually returned
+        candidates: list[tuple[str, str]] = []  # (uuid, shard name)
+        for name in names:
+            shard = self._load_shard(name)
+            mask = shard.allow_mask(where) if where is not None else None
+            with shard._lock:  # snapshot: writers mutate _doc_to_uuid
+                items = list(shard._doc_to_uuid.items())
+            for doc_id, uid in items:
+                if mask is not None and (doc_id >= len(mask)
+                                         or not mask[doc_id]):
+                    continue
+                if after is not None and uid <= after:
+                    continue
+                candidates.append((uid, name))
+        candidates.sort(key=lambda t: t[0])
+        page = candidates[offset: offset + limit]
+        out = []
+        for uid, name in page:
+            obj = self._load_shard(name).get_object(uid)
+            if obj is not None:
+                out.append(obj)
+        return out
+
+    # -- aggregation ---------------------------------------------------------
+
+    @_timed("aggregate")
+    def aggregate(self, properties: list[str] | None = None,
+                  group_by: str | None = None, where=None,
+                  tenant: str | None = None,
+                  requested: dict[str, list[str]] | None = None,
+                  near_vector=None, near_vec_name: str = "",
+                  near_max_distance: float | None = None,
+                  object_limit: int | None = None,
+                  top_occurrences_limit: int = 5) -> dict:
+        """Scatter-gather aggregation (reference: aggregator/aggregator.go →
+        per-shard fold, shard_combiner.go merge). With ``near_vector`` +
+        ``object_limit``, aggregates over the top-k of a vector search
+        instead of the whole (filtered) corpus (aggregator/hybrid.go)."""
+        from weaviate_tpu_torch.query.aggregator import (
+            aggregate_objects,
+            combine_partials,
+            finalize_aggregation,
+        )
+
+        if near_vector is not None:
+            k = object_limit or 100
+            hits = self.near_vector(near_vector, k=k, vec_name=near_vec_name,
+                                    include_objects=True, where=where,
+                                    max_distance=near_max_distance)
+            partials = [aggregate_objects((r.object for r in hits if r.object),
+                                          properties, group_by)]
+        else:
+            def one(name: str):
+                shard = self._load_shard(name)
+                mask = shard.allow_mask(where) if where is not None else None
+
+                def objs():
+                    for _key, raw in shard.objects.iter_items():
+                        obj = StorageObject.from_bytes(raw)
+                        if mask is not None and (obj.doc_id >= len(mask)
+                                                 or not mask[obj.doc_id]):
+                            continue
+                        yield obj
+
+                return aggregate_objects(objs(), properties, group_by)
+
+            names = list(self.sharding.shard_names)
+            partials = [one(names[0])] if len(names) == 1 else \
+                list(self._pool.map(tracing.propagate(one), names))
+        return finalize_aggregation(combine_partials(partials), requested,
+                                    top_occurrences_limit)
 
     # -- search --------------------------------------------------------------
 
@@ -295,7 +474,8 @@ class Collection:
                     include_objects: bool = True,
                     where=None, allow_list_by_shard: dict | None = None,
                     max_distance: float | None = None,
-                    autocut: int = 0) -> list[SearchResult]:
+                    autocut: int = 0,
+                    tenant: str | None = None) -> list[SearchResult]:
         """Scatter-gather nearVector: per-shard search (the ``where``
         filter evaluated per shard to an AllowList mask applied inside the
         device scan, ANDed with ``allow_list_by_shard``'s list), merged by
@@ -331,7 +511,8 @@ class Collection:
     def bm25(self, query: str, k: int = 10, properties: list[str] | None = None,
              include_objects: bool = True,
              allow_list_by_shard: dict | None = None,
-             where=None, autocut: int = 0) -> list[SearchResult]:
+             where=None, autocut: int = 0,
+             tenant: str | None = None) -> list[SearchResult]:
         """Scatter-gather keyword search; merge by score descending
         (reference: Index.objectSearch -> per-shard BM25 -> merge)."""
         names = list(self.sharding.shard_names)
@@ -372,7 +553,8 @@ class Collection:
                properties: list[str] | None = None, vec_name: str = "",
                fusion: str = "relativeScore", where=None,
                include_objects: bool = True,
-               autocut: int = 0) -> list[SearchResult]:
+               autocut: int = 0,
+               tenant: str | None = None) -> list[SearchResult]:
         """Hybrid sparse+dense search (reference: hybrid/searcher.go:74 runs
         both legs in parallel, then fuses). ``alpha`` weighs the dense leg
         (0 = pure BM25, 1 = pure vector). ``vector=None`` degrades to
@@ -492,7 +674,7 @@ class Collection:
                      k: int = 10, properties: list[str] | None = None,
                      vec_name: str = "", fusion: str = "relativeScore",
                      where=None, include_objects: bool = True,
-                     autocut: int = 0):
+                     autocut: int = 0, tenant: str | None = None):
         """Dispatch-only twin of ``hybrid``: returns a
         ``DeviceResultHandle`` resolving to the same ``list[SearchResult]``.
         On the device path the copy to the host waits for ``.result()``;

@@ -15,22 +15,35 @@ import threading
 from weaviate_tpu_torch.db.collection import Collection
 from weaviate_tpu_torch.db.sharding import ShardingState
 from weaviate_tpu_torch.device import resolve
-from weaviate_tpu_torch.schema.config import CollectionConfig
+from weaviate_tpu_torch.schema.config import CollectionConfig, Property
 from weaviate_tpu_torch.storage.kv import KVStore
+
+MULTI_TENANCY = "multi-tenancy: ROADMAP Queue 1 item 7"
 
 
 class Database:
     def __init__(self, data_dir: str = "./data", mesh=None,
-                 local_node: str = "node-0", sync_wal: bool | None = None,
-                 device=None):
+                 local_node: str = "node-0", start_cycles: bool = False,
+                 maintenance_interval: float = 5.0,
+                 memory_monitor=None, async_indexing: bool | None = None,
+                 sync_wal: bool | None = None, device=None):
         if mesh is not None:
-            raise NotImplementedError("multi-device: ROADMAP Queue 1 item 13")
+            raise NotImplementedError("multi-device: ROADMAP Queue 1 item 6")
         # resolved once, up front: no CUDA and no device= raises here,
         # before anything touches the data directory
         self.device = resolve(device)
         self.data_dir = data_dir
         self.mesh = None
+        # incident flight-recorder snapshots (tailboard) follow the data
+        # dir of the most recently opened database
+        from weaviate_tpu_torch.runtime import driftwatch, tailboard
+        from weaviate_tpu_torch.runtime.hbm_ledger import ledger
+
+        tailboard.set_data_dir(data_dir)
+        driftwatch.set_data_dir(data_dir)
+        ledger.set_host_count(1)
         self.local_node = local_node
+        self.async_indexing = async_indexing  # None = env decides per shard
         if sync_wal is None:
             from weaviate_tpu_torch.config import _flag
 
@@ -42,13 +55,36 @@ class Database:
                                      sync_wal=self.sync_wal)
         self._schema = self._schema_store.bucket("classes", "replace")
         self.collections: dict[str, Collection] = {}
+        from weaviate_tpu_torch.runtime.cyclemanager import CycleManager
+        from weaviate_tpu_torch.runtime.memwatch import MemoryMonitor
+
+        self.memwatch = memory_monitor or MemoryMonitor()
+        # background maintenance (reference: cyclemanager drives LSM
+        # flush/compaction); off by default so embedded/test use stays
+        # deterministic — the server entry point enables it. The JAX
+        # package also registers the epoch policy (ROADMAP Queue 1 item
+        # 3) and the driftwatch canaries (item 8); neither is ported.
+        self.cycles = CycleManager()
+        self.cycles.register("lsm-maintenance", self._maintenance_cycle,
+                             maintenance_interval)
+        if start_cycles:
+            self.cycles.start()
         self._load_existing()
+
+    def _maintenance_cycle(self) -> bool:
+        did = False
+        for col in list(self.collections.values()):
+            for shard in list(col.shards.values()):
+                did = shard.maintenance() or did
+        return did
 
     def _new_collection(self, config: CollectionConfig, sharding_state=None):
         return Collection(self.data_dir, config, sharding_state=sharding_state,
                           local_node=self.local_node,
                           on_sharding_change=self._persist,
-                          sync_wal=self.sync_wal, device=self.device)
+                          sync_wal=self.sync_wal, memwatch=self.memwatch,
+                          async_indexing=self.async_indexing,
+                          device=self.device)
 
     def _load_existing(self):
         for key in self._schema.keys():
@@ -69,6 +105,36 @@ class Database:
             self.collections[config.name] = col
             self._persist(col)
             return col
+
+    def delete_collection(self, name: str) -> bool:
+        with self._lock:
+            col = self.collections.pop(name, None)
+            if col is None:
+                return False
+            col.close()
+            self._schema.delete(name.encode())
+            import shutil
+
+            # exact-case path (matches Shard dir layout): names differing
+            # only in case are distinct collections
+            shutil.rmtree(os.path.join(self.data_dir, name),
+                          ignore_errors=True)
+            return True
+
+    def add_property(self, collection: str, prop: Property):
+        """Schema evolution (reference: ADD_PROPERTY FSM op; auto-schema
+        uses this too)."""
+        with self._lock:
+            col = self.get_collection(collection)
+            prop.validate()
+            # case-insensitive duplicate check, matching
+            # CollectionConfig.validate() — a case-variant duplicate would
+            # persist fine but make the schema unloadable on restart
+            if any(p.name.lower() == prop.name.lower()
+                   for p in col.config.properties):
+                raise ValueError(f"property {prop.name!r} already exists")
+            col.config.properties.append(prop)
+            self._persist(col)
 
     def _persist(self, col: Collection):
         self._schema.put(
@@ -127,8 +193,8 @@ class Database:
             cur = self.get_collection(new_cfg.name).config
             if new_cfg.replication.factor != cur.replication.factor:
                 raise NotImplementedError(
-                    "replication factor changes (the scaler): a later "
-                    "slice of the port, with replication")
+                    "replication factor changes (the scaler): ROADMAP "
+                    "Queue 1 item 7")
 
             def apply(cfg):
                 cfg.description = new_cfg.description
@@ -183,6 +249,34 @@ class Database:
             raise KeyError(f"collection {name!r} does not exist")
         return col
 
+    def list_collections(self) -> list[str]:
+        return sorted(self.collections)
+
+    def schema_dict(self) -> dict:
+        return {name: col.config.to_dict()
+                for name, col in sorted(self.collections.items())}
+
+    # -- tenants (creating a multi-tenant collection raises, so every
+    #    collection here has none) ----------------------------------------
+
+    def add_tenants(self, collection: str, tenants: list[str]):
+        self.get_collection(collection)
+        raise NotImplementedError(MULTI_TENANCY)
+
+    def update_tenant_status(self, collection: str,
+                             tenants: list[dict]) -> None:
+        self.get_collection(collection)
+        raise NotImplementedError(MULTI_TENANCY)
+
+    def remove_tenants(self, collection: str, tenants: list[str]):
+        self.get_collection(collection)
+        raise NotImplementedError(MULTI_TENANCY)
+
+    def set_offload_backend(self, backend) -> None:
+        """The FROZEN tenant tier ships offloaded tenants to a backup
+        backend; there are no tenants here."""
+        raise NotImplementedError(f"OFFLOAD_BACKEND: {MULTI_TENANCY}")
+
     # -- lifecycle -----------------------------------------------------------
 
     def flush(self):
@@ -190,6 +284,7 @@ class Database:
             col.flush()
 
     def close(self):
+        self.cycles.stop()
         with self._lock:
             for col in self.collections.values():
                 col.close()

@@ -40,9 +40,9 @@ BUCKET_META = "meta"  # counters, checkpoints
 
 # index types that have a port, and the ROADMAP rows of the others
 _NOT_PORTED = {
-    "hnsw": "HNSW: ROADMAP Queue 1 item 12",
-    "ivf": "IVF: ROADMAP Queue 1 item 11",
-    "dynamic": "dynamic flat->IVF: ROADMAP Queue 1 item 11",
+    "hnsw": "HNSW: ROADMAP Queue 1 item 5",
+    "ivf": "IVF: ROADMAP Queue 1 item 4",
+    "dynamic": "dynamic flat->IVF: ROADMAP Queue 1 item 4",
 }
 
 
@@ -80,11 +80,23 @@ def _make_vector_index(vc: VectorConfig, dim: int, device=None):
 
 class Shard:
     def __init__(self, data_dir: str, collection: CollectionConfig, name: str,
-                 mesh=None, sync_wal: bool | None = None, device=None):
+                 mesh=None, memwatch=None, async_indexing: bool | None = None,
+                 sync_wal: bool | None = None, device=None):
         if mesh is not None:
-            raise NotImplementedError("multi-device: ROADMAP Queue 1 item 13")
+            raise NotImplementedError("multi-device: ROADMAP Queue 1 item 6")
         self.name = name
         self.device = device
+        self.memwatch = memwatch
+        # ASYNC_INDEXING (reference env gate, repo.go/index_queue.go):
+        # imports enqueue vectors; a background worker drains into the
+        # vector index. Off by default — searches stay read-your-writes
+        # either way (the queued tail is brute-forced on the host).
+        if async_indexing is None:
+            async_indexing = os.environ.get(
+                "ASYNC_INDEXING", "").lower() in ("true", "1", "on",
+                                                  "enabled")
+        self.async_indexing = async_indexing
+        self._index_queues: dict[str, "IndexQueue"] = {}
         # PERSISTENCE_WAL_SYNC: fsync every acked write's WAL frame
         if sync_wal is None:
             from weaviate_tpu_torch.config import _flag
@@ -130,6 +142,16 @@ class Shard:
         self.meta = self.store.bucket(BUCKET_META, "replace")
         # deletion tombstones (uuid -> mtime ms), as the JAX shard keeps
         self.tombstones = self.store.bucket("tombstones", "replace")
+        # optional per-shard device-memory quota
+        # (WEAVIATE_TPU_SHARD_HBM_LIMIT_BYTES). The JAX package relieves
+        # it by migrating epochs (ROADMAP Queue 1 item 3); without that
+        # rescue hook a write past it is refused, as the JAX shard
+        # refuses when its hook is unset.
+        try:
+            self.shard_hbm_limit = int(os.environ.get(
+                "WEAVIATE_TPU_SHARD_HBM_LIMIT_BYTES", "0") or 0)
+        except ValueError:
+            self.shard_hbm_limit = 0
         self._counter = self.meta.get(b"doc_counter") or 0
         self.read_only = bool(self.meta.get(b"read_only") or False)
         self.mesh = None
@@ -255,11 +277,19 @@ class Shard:
             last = {o.uuid: i for i, o in enumerate(objs)}
             objs = [objs[i] for i in sorted(last.values())]
         doc_ids: list[int] = []
+        gate = self.memwatch is not None or self.shard_hbm_limit
+        if gate:
+            nbytes = sum(int(np.asarray(v).nbytes)
+                         for o in objs for v in o.vectors.values())
         with self._lock:
             if self.read_only:
                 raise ShardReadOnlyError(
                     f"shard {self.name!r} is read-only (status READONLY)")
             self._validate_vectors(objs)
+            if gate:
+                # refuse BEFORE mutating anything (reference memwatch
+                # CheckAlloc semantics): vectors land in device memory
+                self._admit_device_bytes(nbytes)
             vec_batches: dict[str, tuple[list[int], list[np.ndarray]]] = {}
             # doc ids for the whole batch come from one counter bump
             first_id = self._counter
@@ -319,9 +349,13 @@ class Shard:
             self.objects.put_many(object_puts)
             for vec_name, (ids, vecs) in vec_batches.items():
                 idx = self._ensure_vector_index(vec_name, len(vecs[0]))
-                if idx is not None:
-                    # the fast path hands a prebuilt [n, d] block
-                    block = vecs if isinstance(vecs, np.ndarray) else np.stack(vecs)
+                if idx is None:
+                    continue
+                # the fast path hands a prebuilt [n, d] block
+                block = vecs if isinstance(vecs, np.ndarray) else np.stack(vecs)
+                if self.async_indexing:
+                    self._index_queue(vec_name, idx).push(np.asarray(ids), block)
+                else:
                     idx.add_batch(np.asarray(ids), block)
                     self._maybe_compress(vec_name, idx)
         return doc_ids
@@ -360,10 +394,22 @@ class Shard:
                 ))
         return b
 
+    def _index_queue(self, vec_name: str, idx):
+        q = self._index_queues.get(vec_name)
+        if q is None:
+            from weaviate_tpu_torch.runtime.index_queue import IndexQueue
+
+            q = IndexQueue(idx)
+            self._index_queues[vec_name] = q
+        return q
+
     def _delete_docs_batch(self, pairs: list[tuple[int, str]]) -> None:
         """Tear down replaced docs: one vector-index delete, one batched
         object fetch, one inverted unindex pass."""
         doc_ids = [d for d, _u in pairs]
+        for q in self._index_queues.values():
+            for d in doc_ids:
+                q.delete(d)  # drop any queued insert for this doc
         for idx in self.vector_indexes.values():
             if idx is not None:
                 idx.delete(*doc_ids)
@@ -391,6 +437,8 @@ class Shard:
             self.tombstones.put(uuid.encode(),
                                 tombstone_ms or int(_time.time() * 1000))
             doc_id = int(raw)
+            for q in self._index_queues.values():
+                q.delete(doc_id)  # drop any queued insert for this doc
             for idx in self.vector_indexes.values():
                 if idx is not None:
                     idx.delete(doc_id)
@@ -400,6 +448,18 @@ class Shard:
             return True
 
     # -- read path -----------------------------------------------------------
+
+    def put_object(self, obj: StorageObject) -> int:
+        """Insert or update (reference: shard_write_put.go:218
+        putObjectLSM); updates get a fresh doc id."""
+        return self.put_object_batch([obj])[0]
+
+    def exists(self, uuid: str) -> bool:
+        return self.docid.get(uuid.encode()) is not None
+
+    def object_by_doc_id(self, doc_id: int) -> StorageObject | None:
+        uuid = self._doc_to_uuid.get(int(doc_id))
+        return None if uuid is None else self.get_object(uuid)
 
     def get_object(self, uuid: str) -> StorageObject | None:
         raw = self.objects.get(uuid.encode())
@@ -430,15 +490,50 @@ class Shard:
     def vector_search(self, query: np.ndarray, k: int, vec_name: str = "",
                       allow_list: np.ndarray | None = None):
         """(doc_ids, dists) for the shard-local search (reference:
-        shard_read.go ObjectVectorSearch)."""
+        shard_read.go ObjectVectorSearch). With async indexing on, queued
+        (not-yet-indexed) vectors are brute-forced and merged so the path
+        stays read-your-writes (reference: index queue search over the
+        unindexed tail)."""
         idx = self.vector_indexes.get(vec_name)
         if idx is None:
             return np.empty(0, np.int64), np.empty(0, np.float32)
         with tracing.span("shard.vector_search", shard=self.name, k=k,
                           filtered=allow_list is not None):
-            if self.dynamic_batching and query.ndim == 1:
-                return self._batched_search(vec_name, idx, query, k, allow_list)
-            return idx.search_by_vector(query, k, allow_list=allow_list)
+            return self._vector_search_traced(idx, query, k, vec_name,
+                                              allow_list)
+
+    def _vector_search_traced(self, idx, query, k, vec_name, allow_list):
+        # snapshot BEFORE the index search: every queued vector is either
+        # in the snapshot or already drained into the index by the time
+        # the index search runs — the union misses nothing (the reverse
+        # order races a drain finishing between the two reads)
+        queued = self._queued_candidates(vec_name, query, allow_list)
+        if self.dynamic_batching and query.ndim == 1:
+            ids, dists = self._batched_search(vec_name, idx, query, k,
+                                              allow_list)
+        else:
+            ids, dists = idx.search_by_vector(query, k, allow_list=allow_list)
+        if queued is None:
+            return ids, dists
+        q_ids, q_dists = queued
+        cat_ids = np.concatenate([np.asarray(ids, np.int64), q_ids])
+        cat_d = np.concatenate([np.asarray(dists, np.float32), q_dists])
+        order = np.argsort(cat_d, kind="stable")
+        # dedup (a drain may have landed an in-flight vector in the index
+        # between the index search and the snapshot), best distance first
+        seen: set = set()
+        out_ids, out_d = [], []
+        for j in order:
+            did = int(cat_ids[j])
+            if did in seen:
+                continue
+            seen.add(did)
+            out_ids.append(did)
+            out_d.append(float(cat_d[j]))
+            if len(out_ids) == k:
+                break
+        return (np.asarray(out_ids, np.int64),
+                np.asarray(out_d, np.float32))
 
     def vector_search_batch(self, queries: np.ndarray, k: int,
                             vec_name: str = ""):
@@ -451,26 +546,111 @@ class Shard:
             return (np.full((b, k), -1, np.int64),
                     np.full((b, k), np.inf, np.float32),
                     np.zeros(b, np.int64))
+        queue = self._index_queues.get(vec_name)
+        pending = queue.snapshot() if queue is not None else []
         ids, dists = idx.search_by_vector_batch(queries, k)
-        return self._finish_batch_results(ids, dists)
+        return self._finish_batch_results(ids, dists, pending, queries,
+                                          idx.metric, k)
 
     def vector_search_batch_async(self, queries: np.ndarray, k: int,
                                   vec_name: str = ""):
         """Dispatch-only twin of ``vector_search_batch``: a
         ``DeviceResultHandle`` resolving to the same (ids, dists, counts),
-        or None when the shard has no index for ``vec_name``."""
+        or None when the shard has no index for ``vec_name``. The
+        queued-tail snapshot is taken BEFORE the index dispatch (the
+        ordering of ``_vector_search_traced``) and merged in the handle's
+        host finish step."""
         idx = self.vector_indexes.get(vec_name)
         if idx is None:
             return None
+        queue = self._index_queues.get(vec_name)
+        pending = queue.snapshot() if queue is not None else []
+        queries = np.asarray(queries, np.float32)
         return idx.search_by_vector_batch_async(queries, k).map(
-            lambda res: self._finish_batch_results(*res))
+            lambda res, _p=pending, _q=queries, _m=idx.metric:
+            self._finish_batch_results(*res, _p, _q, _m, k))
 
-    @staticmethod
-    def _finish_batch_results(ids, dists):
+    def _finish_batch_results(self, ids, dists, pending, queries,
+                              metric: str, k: int):
+        """Host half shared by the sync and pipelined batch paths:
+        merge the queued (not-yet-indexed) tail, count live rows."""
+        b = len(queries)
         ids = np.asarray(ids, np.int64)
         dists = np.asarray(dists, np.float32)
+        if pending:
+            q_ids = np.asarray([d for d, _ in pending], np.int64)
+            q_vecs = np.stack([v for _, v in pending]).astype(np.float32)
+            qd = self._host_pairwise(np.asarray(queries, np.float32),
+                                     q_vecs, metric)  # [B, nq]
+            cat_ids = np.concatenate(
+                [ids, np.broadcast_to(q_ids, (b, len(q_ids)))], axis=1)
+            cat_d = np.concatenate([dists, qd.astype(np.float32)], axis=1)
+            order = np.argsort(cat_d, axis=1, kind="stable")
+            out_i = np.full((b, k), -1, np.int64)
+            out_d = np.full((b, k), np.inf, np.float32)
+            for r in range(b):
+                seen: set = set()
+                n = 0
+                for j in order[r]:
+                    did = int(cat_ids[r, j])
+                    if did < 0 or did in seen:
+                        continue
+                    seen.add(did)
+                    out_i[r, n] = did
+                    out_d[r, n] = cat_d[r, j]
+                    n += 1
+                    if n == k:
+                        break
+            ids, dists = out_i, out_d
         counts = (ids >= 0).sum(axis=1).astype(np.int64)
         return ids, dists, counts
+
+    @staticmethod
+    def _host_pairwise(qs: np.ndarray, vecs: np.ndarray,
+                       metric: str) -> np.ndarray:
+        """[B, n] host-BLAS distances of the queued tail (it is small and
+        its length changes every drain tick: no device dispatch)."""
+        if metric in ("cosine", "cosine-dot"):
+            def unit(a):
+                n = np.linalg.norm(a, axis=-1, keepdims=True)
+                return a / np.where(n > 1e-30, n, 1.0)
+
+            return 1.0 - unit(qs) @ unit(vecs).T
+        if metric == "dot":
+            return -(qs @ vecs.T)
+        if metric == "hamming":
+            return (qs[:, None, :] != vecs[None, :, :]).sum(-1).astype(
+                np.float32)
+        if metric == "manhattan":
+            return np.abs(qs[:, None, :] - vecs[None, :, :]).sum(-1)
+        sq = (qs ** 2).sum(-1)[:, None] + (vecs ** 2).sum(-1)[None, :]
+        return sq - 2.0 * (qs @ vecs.T)
+
+    def _queued_candidates(self, vec_name: str, query: np.ndarray,
+                           allow_list: np.ndarray | None):
+        queue = self._index_queues.get(vec_name)
+        if queue is None:
+            return None
+        pending = queue.snapshot()
+        if not pending:
+            return None
+        ids = np.asarray([d for d, _ in pending], dtype=np.int64)
+        vecs = np.stack([v for _, v in pending]).astype(np.float32)
+        if allow_list is not None:
+            allow = np.asarray(allow_list)
+            if allow.dtype == np.bool_:
+                keep = (ids < len(allow)) & allow[
+                    np.clip(ids, 0, len(allow) - 1)]
+            else:
+                keep = np.isin(ids, allow.astype(np.int64))
+            ids, vecs = ids[keep], vecs[keep]
+            if not len(ids):
+                return None
+        metric = getattr(self.vector_indexes.get(vec_name), "metric",
+                         "l2-squared")
+        q = np.asarray(query, np.float32)
+        d = self._host_pairwise(q[None, :], vecs, metric)[0]
+        return ids, d.astype(np.float32)
 
     def bm25_search(self, query: str, k: int = 10,
                     properties: list[str] | None = None,
@@ -497,6 +677,10 @@ class Shard:
         return allow_mask
 
     # -- hybrid dataplane ------------------------------------------------------
+
+    def _queued_tail(self, vec_name: str) -> bool:
+        queue = self._index_queues.get(vec_name)
+        return queue is not None and bool(queue.snapshot())
 
     def _hybrid_index(self, vec_name: str):
         """The vector index for ``vec_name`` iff it can run the fused
@@ -548,11 +732,13 @@ class Shard:
         hybrid traffic through the shard's QueryBatcher. Returns
         (doc_ids, fused_scores) or None when the device path can't serve
         this query — callers then run the host reference path
-        (text/hybrid.py). The JAX package also declines while vectors
-        wait in its index queue; the port has no index queue, so every
-        acknowledged vector is in the dense leg."""
+        (text/hybrid.py)."""
         idx = self._hybrid_index(vec_name)
         if idx is None or vector is None:
+            return None
+        if self._queued_tail(vec_name):
+            # queued (not-yet-indexed) vectors are invisible to the
+            # device dense leg; the host path brute-forces that tail
             return None
         allow_mask = self._norm_allow(allow_mask)
         with tracing.span("shard.hybrid_search", shard=self.name, k=k,
@@ -604,7 +790,7 @@ class Shard:
         ``.result()``. None = host fallback (same conditions as the sync
         path)."""
         idx = self._hybrid_index(vec_name)
-        if idx is None or vector is None:
+        if idx is None or vector is None or self._queued_tail(vec_name):
             return None
         allow_mask = self._norm_allow(allow_mask)
         op = self._hybrid_operand(idx, query, k, alpha, fusion,
@@ -635,13 +821,101 @@ class Shard:
                 return compute_allow_mask(where, self._inverted,
                                           self.doc_id_space)
 
+    def set_read_only(self, value: bool) -> None:
+        """Persisted so a restart keeps the freeze (reference persists
+        shard status)."""
+        with self._lock:
+            self.read_only = bool(value)
+            self.meta.put(b"read_only", bool(value))
+
+    def _admit_device_bytes(self, nbytes: int) -> None:
+        """Both admission gates, typed 507 on either: the device-global
+        watermark (memwatch) and the per-shard quota (ledger bytes vs
+        ``shard_hbm_limit``)."""
+        what = f"import {self.collection_name}/{self.name}"
+        if self.memwatch is not None:
+            self.memwatch.check_device_alloc(nbytes, what=what)
+        if self.shard_hbm_limit and self.over_shard_limit(nbytes):
+            from weaviate_tpu_torch.runtime.hbm_ledger import ledger
+            from weaviate_tpu_torch.runtime.memwatch import \
+                InsufficientMemoryError
+
+            used = ledger.shard_bytes(self.collection_name, self.name)
+            high = (self.memwatch.high_watermark
+                    if self.memwatch is not None else 0.9)
+            raise InsufficientMemoryError(
+                f"device allocation of {nbytes} bytes ({what}) would "
+                f"exceed {high:.0%} of shard HBM quota "
+                f"{self.shard_hbm_limit} (ledger usage {used})",
+                projected=used + int(nbytes),
+                budget=self.shard_hbm_limit, source="ledger")
+
+    def over_shard_limit(self, extra: int = 0) -> bool:
+        """Is this shard's ledger footprint (+``extra``) past its quota
+        watermark?"""
+        if not self.shard_hbm_limit:
+            return False
+        from weaviate_tpu_torch.runtime.hbm_ledger import ledger
+
+        high = (self.memwatch.high_watermark
+                if self.memwatch is not None else 0.9)
+        used = ledger.shard_bytes(self.collection_name, self.name)
+        return used + int(extra) > self.shard_hbm_limit * high
+
     # -- maintenance ---------------------------------------------------------
 
     def flush(self):
+        for name, q in self._index_queues.items():
+            if not q.wait_idle(timeout=30.0):
+                logger.warning(
+                    "shard %s/%s: index queue %r still has %d queued "
+                    "vectors after 30s — flush() returns with the vector "
+                    "index lagging the object store",
+                    self.collection_name, self.name, name, q.size())
         for b in (self.objects, self.docid, self.meta):
             b.flush()
 
+    def maintenance(self, compact_above: int = 4) -> bool:
+        """One background cycle: flush dirty memtables, compact segment
+        stacks past the threshold (reference: store_cyclecallbacks.go),
+        and publish the vector indexes' gauges. Returns True when work
+        was done (cyclemanager backoff signal)."""
+        from weaviate_tpu_torch.runtime.metrics import (
+            lsm_segment_count, vector_index_compressed,
+            vector_index_hbm_bytes, vector_index_tombstones)
+
+        did = False
+        for b in self.store.buckets():
+            # sealed-memtable flush + threshold compaction, all off the
+            # write path (reference: store_cyclecallbacks.go)
+            if b.maintain(compact_above=compact_above):
+                did = True
+            lsm_segment_count.labels(
+                f"{self.collection_name}/{self.name}/{b.name}"
+            ).set(b.segment_count)
+        for vec_name, idx in self.vector_indexes.items():
+            if idx is None:
+                continue
+            labels = (self.collection_name, self.name, vec_name or "default")
+            store = getattr(idx, "store", None)
+            live = len(idx)
+            total = getattr(store, "count", live) if store is not None \
+                else live
+            vector_index_tombstones.labels(*labels).set(max(total - live, 0))
+            vector_index_compressed.labels(*labels).set(
+                1 if getattr(idx, "compressed", False) else 0)
+            hbm = 0
+            for arr_name in ("vectors", "valid", "sq_norms", "codes",
+                             "rescore_rows"):
+                arr = getattr(store, arr_name, None)
+                if arr is not None and hasattr(arr, "nbytes"):
+                    hbm += int(arr.nbytes)
+            vector_index_hbm_bytes.labels(*labels).set(hbm)
+        return did
+
     def close(self):
+        for q in self._index_queues.values():
+            q.stop()
         for b in self._query_batchers.values():
             b.stop()
         self.store.close()

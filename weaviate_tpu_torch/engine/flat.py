@@ -55,7 +55,7 @@ class FlatIndex:
                  selection: str = "approx", epoch_rows: int = 0,
                  device=None, **quant_kwargs):
         if epoch_rows:
-            raise NotImplementedError("epoch stores: ROADMAP Queue 1 item 7")
+            raise NotImplementedError("epoch stores: ROADMAP Queue 1 item 3")
         self.dim = dim
         self.metric = metric
         if quantization:
@@ -391,7 +391,7 @@ class FlatIndex:
     @classmethod
     def restore(cls, snap: dict, mesh=None, **kwargs) -> "FlatIndex":
         if snap.get("epoch_rows"):
-            raise NotImplementedError("epoch stores: ROADMAP Queue 1 item 7")
+            raise NotImplementedError("epoch stores: ROADMAP Queue 1 item 3")
         idx = cls.__new__(cls)
         idx.dim = snap["dim"]
         idx.metric = snap["metric"]

@@ -19,8 +19,8 @@ rescore modes pick where full-precision candidates come from:
   (``ops/candidates.gather_rescore_topk``).
 - ``"none"``: codes only. Results are code-distance ordered.
 
-The mesh (row-sharded) form is ROADMAP Queue 1 item 13, the epoch store's
-``epoch_scan`` Queue 1 item 7.
+The mesh (row-sharded) form is ROADMAP Queue 1 item 6, the epoch store's
+``epoch_scan`` Queue 1 item 3.
 """
 
 from __future__ import annotations

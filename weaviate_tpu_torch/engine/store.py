@@ -12,7 +12,7 @@ with ``index_copy_`` / ``index_fill_`` — no copy, no realloc per insert.
 Deletes flip ``valid`` bits (tombstones); the mask is applied inside the
 scan so dead slots never win. Capacity grows by power-of-two
 re-allocation. One device only: the mesh (row-sharded) form of the JAX
-store is ROADMAP Queue 1 item 13.
+store is ROADMAP Queue 1 item 6.
 """
 
 from __future__ import annotations
@@ -28,13 +28,14 @@ from weaviate_tpu_torch.device import resolve
 from weaviate_tpu_torch.ops.candidates import shared_candidates_topk
 from weaviate_tpu_torch.ops.distances import normalize
 from weaviate_tpu_torch.ops.kernels import (KERNEL_METRICS, as_bits_tensor,
-                                            mask_pad_cols, pack_allow_bitmask)
+                                            mask_pad_cols, pack_allow_bitmask,
+                                            pack_allow_bitmask_t)
 from weaviate_tpu_torch.ops.topk import chunked_topk_distances
 from weaviate_tpu_torch.runtime import hbm_ledger, tracing, transfer
 from weaviate_tpu_torch.runtime.transfer import DeviceResultHandle
 
 _DEFAULT_CHUNK = 8192
-_MULTI_DEVICE = "multi-device: ROADMAP Queue 1 item 13"
+_MULTI_DEVICE = "multi-device: ROADMAP Queue 1 item 6"
 
 
 def _next_pow2(n: int) -> int:
@@ -77,13 +78,21 @@ def normalize_allow_mask(allow_mask, n_queries: int, keep_rows: bool = False):
 
 def batched_mask_operands(allow_mask, n_queries: int, capacity: int, device,
                           owner: dict | None = None):
-    """[B, capacity] per-query mask -> packed allow words on the device
-    (32x smaller transfer than the bool mask), under a
-    ``store.mask_pack`` span. ``owner`` labels the transient device
-    buffer in the memory ledger (tracked for the buffer's lifetime)."""
+    """[B, capacity] per-query mask -> packed allow words on the device,
+    under a ``store.mask_pack`` span. A CUDA store uploads the bool rows
+    and packs them on the card (``pack_allow_bitmask_t``); a CPU store
+    packs with numpy (``pack_allow_bitmask``). Both give the same words.
+    ``owner`` labels the transient device buffer in the memory ledger
+    (tracked for the buffer's lifetime)."""
     with tracing.span("store.mask_pack", queries=n_queries):
-        bits = as_bits_tensor(
-            pack_allow_bitmask(allow_mask, mask_pad_cols(capacity)), device)
+        n_cols = mask_pad_cols(capacity)
+        if torch.device(device).type == "cuda":
+            rows = torch.from_numpy(
+                np.ascontiguousarray(allow_mask, dtype=bool)).to(device)
+            bits = pack_allow_bitmask_t(rows, n_cols)
+        else:
+            bits = as_bits_tensor(pack_allow_bitmask(allow_mask, n_cols),
+                                  device)
         hbm_ledger.ledger.track("allow_bitmask", bits, **(owner or {}))
         return bits
 

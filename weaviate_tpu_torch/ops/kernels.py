@@ -138,20 +138,43 @@ def pack_allow_bitmask(allow, n_cols: int | None = None) -> np.ndarray:
     return packed.view("<u4").astype(np.uint32).reshape(b, n_cols // 32)
 
 
-def pack_allow_bitmask_t(allow: torch.Tensor) -> torch.Tensor:
-    """Tensor twin of ``pack_allow_bitmask``: [B, C] bool -> int32
-    [B, mask_pad_cols(C) // 32] holding the same 32-bit words (torch
-    keeps them as int32; the kernels read them as uint32)."""
+#: bit j of a word as an int32 weight (bit 31 is int32's sign bit)
+_BIT_WEIGHTS = [1 << j for j in range(31)] + [-(1 << 31)]
+#: elements of the [rows, n_cols] int32 intermediate per packing pass
+_PACK_PASS_ELEMS = 1 << 26
+
+
+def pack_allow_bitmask_t(allow: torch.Tensor,
+                         n_cols: int | None = None) -> torch.Tensor:
+    """Tensor twin of ``pack_allow_bitmask``, packed where ``allow``
+    lies (the card, for a CUDA tensor): [B, C] bool -> int32
+    [B, n_cols // 32] holding the same 32-bit words (torch keeps them as
+    int32; the kernels read them as uint32). Columns past C pack as 0;
+    ``n_cols`` defaults to ``mask_pad_cols(C)``.
+
+    Each word is the int32 sum of its allowed bits' weights: the bits
+    are distinct, so the sum is their OR and never carries. Rows go in
+    passes of at most ``_PACK_PASS_ELEMS`` int32 intermediates."""
+    if allow.ndim == 1:
+        allow = allow[None, :]
     b, c = allow.shape
-    n_cols = mask_pad_cols(c)
-    a = torch.zeros((b, n_cols), dtype=torch.int64, device=allow.device)
-    a[:, :c] = allow.to(torch.int64)
-    a = a.reshape(b, n_cols // MASK_BLOCK, 32, _MASK_WORDS)
-    shifts = torch.arange(32, dtype=torch.int64, device=allow.device)
-    words = (a << shifts[None, None, :, None]).sum(dim=2)
-    # the sum is < 2**32; fold into int32's range keeping the bit pattern
-    words = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
-    return words.to(torch.int32).reshape(b, n_cols // 32)
+    if n_cols is None:
+        n_cols = mask_pad_cols(c)
+    keep = min(c, n_cols)
+    weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.int32,
+                           device=allow.device)[None, None, :, None]
+    out = torch.empty((b, n_cols // 32), dtype=torch.int32,
+                      device=allow.device)
+    rows = max(1, _PACK_PASS_ELEMS // n_cols)
+    for r0 in range(0, b, rows):
+        r1 = min(b, r0 + rows)
+        a = torch.zeros((r1 - r0, n_cols), dtype=torch.int32,
+                        device=allow.device)
+        a[:, :keep] = allow[r0:r1, :keep]
+        a = a.reshape(r1 - r0, n_cols // MASK_BLOCK, 32, _MASK_WORDS)
+        out[r0:r1] = (a * weights).sum(dim=2, dtype=torch.int32).reshape(
+            r1 - r0, n_cols // 32)
+    return out
 
 
 def as_bits_tensor(bits, device) -> torch.Tensor:

@@ -776,14 +776,27 @@ OPENMETRICS_CONTENT_TYPE = \
 
 def scrape(openmetrics: bool = False) -> tuple[bytes, str]:
     """One metrics scrape, shared by the REST /v1/metrics route and the
-    monitoring port: run the read-point refresh (per-host GPU memory
-    attribution), then render the negotiated exposition. Returns
-    ``(body, content_type)``; the refresh is best-effort — a broken
+    monitoring port: run the read-point refreshes (benchkeeper verdict
+    pickup, per-host GPU memory attribution, tailboard fold + SLO burn
+    gauges), then render the negotiated exposition. Returns
+    ``(body, content_type)``; every refresh is best-effort — a broken
     helper must never fail a scrape."""
+    try:
+        from weaviate_tpu_torch.runtime import perfgate
+
+        perfgate.refresh()
+    except Exception:
+        pass
     try:
         from weaviate_tpu_torch.runtime.hbm_ledger import ledger
 
         ledger.refresh_host_gauge()
+    except Exception:
+        pass
+    try:
+        from weaviate_tpu_torch.runtime import tailboard
+
+        tailboard.scrape_refresh()
     except Exception:
         pass
     body = registry.expose(openmetrics=openmetrics).encode()

@@ -13,6 +13,11 @@ of ``weaviate_tpu/runtime/tracing.py`` the flat query path calls).
   ``transfer.d2h`` span.
 - ``propagate`` / ``capture`` / ``run_in`` carry the request context onto
   worker threads (contextvars do not flow into them).
+- Finished traces land in a ring (``recent_traces``, GET
+  /v1/debug/traces), feed the tailboard's keep-at-completion decision and
+  the structured slow-query log. The W3C traceparent helpers and remote
+  segments of the JAX module ride the cluster transport (ROADMAP Queue 1
+  item 7).
 
 Every finished span also feeds the ``weaviate_tpu_span_duration_seconds``
 histogram (runtime/metrics.py).
@@ -22,10 +27,14 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import logging
 import os
 import random
 import threading
 import time
+from collections import deque
+
+slow_logger = logging.getLogger("weaviate_tpu_torch.slow_query")
 
 # active (trace, span) for this context; None outside a request
 _current: contextvars.ContextVar = contextvars.ContextVar(
@@ -161,27 +170,56 @@ def should_sample() -> bool:
 _slow_threshold: float | None = None  # seconds; 0 = disabled; None = unread
 
 
+def _compute_slow_threshold() -> float:
+    from weaviate_tpu_torch.config import _flag
+
+    if not _flag(os.environ, "QUERY_SLOW_LOG_ENABLED"):
+        return 0.0
+    raw = os.environ.get("QUERY_SLOW_LOG_THRESHOLD", "2s").strip()
+    try:
+        if raw.endswith("ms"):
+            return float(raw[:-2]) / 1000.0
+        if raw.endswith("s"):
+            return float(raw[:-1])
+        return float(raw)
+    except ValueError:
+        return 2.0
+
+
 def get_slow_threshold() -> float:
     """QUERY_SLOW_LOG_ENABLED / QUERY_SLOW_LOG_THRESHOLD, read once
     (seconds; 0 = disabled)."""
     global _slow_threshold
     if _slow_threshold is None:
-        from weaviate_tpu_torch.config import _flag
-
-        if not _flag(os.environ, "QUERY_SLOW_LOG_ENABLED"):
-            _slow_threshold = 0.0
-        else:
-            raw = os.environ.get("QUERY_SLOW_LOG_THRESHOLD", "2s").strip()
-            try:
-                if raw.endswith("ms"):
-                    _slow_threshold = float(raw[:-2]) / 1000.0
-                elif raw.endswith("s"):
-                    _slow_threshold = float(raw[:-1])
-                else:
-                    _slow_threshold = float(raw)
-            except ValueError:
-                _slow_threshold = 2.0
+        _slow_threshold = _compute_slow_threshold()
     return _slow_threshold
+
+
+def reset_policy_for_tests() -> None:
+    """Re-read TRACE_SAMPLE_RATE / slow-log env on next use."""
+    global _sample_every, _slow_threshold, _sample_counter
+    _sample_every = None
+    _slow_threshold = None
+    _sample_counter = 0
+
+
+# -- finished-trace ring buffer -----------------------------------------------
+
+_RING_SIZE = 256
+_ring: deque = deque(maxlen=_RING_SIZE)
+_ring_lock = threading.Lock()
+
+
+def recent_traces(limit: int = 50) -> list[dict]:
+    """Newest-first finished traces for GET /v1/debug/traces."""
+    with _ring_lock:
+        items = list(_ring)
+    return items[::-1][: max(0, limit)]
+
+
+def clear_traces() -> None:
+    with _ring_lock:
+        _ring.clear()
 
 
 # -- span plumbing ------------------------------------------------------------
@@ -216,6 +254,48 @@ def trace(name: str, force: bool = False, **attrs):
     finally:
         _finish(tr, root)
         _current.reset(token)
+        _finalize(tr, root)
+
+
+def _finalize(tr: Trace, root: Span) -> None:
+    d = tr.to_dict()
+    with _ring_lock:
+        _ring.append(d)
+    # tail-based retention: the keep/drop decision happens at COMPLETION
+    # — inside an edge timeline the tailboard attaches this trace and
+    # decides when the timeline closes (status known); outside one it
+    # makes a standalone slow/fault decision
+    try:
+        from weaviate_tpu_torch.runtime import tailboard
+
+        tailboard.on_trace_complete(d, root.name, root.duration_ms)
+    except Exception:  # observability must never fail the request
+        pass
+    threshold = get_slow_threshold()
+    took = root.duration_ms / 1000.0
+    if threshold > 0 and took >= threshold:
+        # structured slowlog: one machine-parseable line AND an entry in
+        # the flight recorder's slowlog ring (/v1/debug/flight)
+        record = {
+            "trace_id": tr.trace_id,
+            "root": root.name,
+            "duration_ms": round(root.duration_ms, 3),
+            "threshold_ms": round(threshold * 1000.0, 3),
+            "spans": [
+                {"name": s["name"],
+                 "duration_ms": round(s["duration_ms"], 3)}
+                for s in sorted(tr.spans,
+                                key=lambda s: -s["duration_ms"])[:8]],
+        }
+        import json as _json
+
+        slow_logger.warning("slow_query %s", _json.dumps(record))
+        try:
+            from weaviate_tpu_torch.runtime import tailboard
+
+            tailboard.slow_root(record)
+        except Exception:
+            pass
 
 
 class _SpanCM:
@@ -275,6 +355,27 @@ def record_span(name: str, start_s: float, end_s: float, **attrs) -> None:
 
 def is_active() -> bool:
     return _current.get() is not None
+
+
+def is_sampled() -> bool:
+    cur = _current.get()
+    return cur is not None and cur[0].sampled
+
+
+def current_timing() -> list[dict]:
+    """Spans recorded so far in the live trace (for per-query
+    ``_debug.timing`` response breakdowns; the root is still open)."""
+    cur = _current.get()
+    if cur is None:
+        return []
+    tr, _ = cur
+    with tr._lock:
+        return sorted(list(tr.spans), key=lambda s: s["start_ms"])
+
+
+def current_trace_id() -> str | None:
+    cur = _current.get()
+    return None if cur is None else cur[0].trace_id
 
 
 # -- device-time attribution --------------------------------------------------
