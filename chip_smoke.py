@@ -67,7 +67,7 @@ is downloaded), in phases:
    group of 8192-row chunks, fused_topk_pairs per group) and "fused" (fused_topk_scan + fused_topk_pairs),
    held to an exact plain recomputation (recall@10 / @100 must be 1.0),
    plus per-query filters (bitmask path) and a shared 0.5% filter
-   (gathered path);
+   (gathered path); then phase 10 (below) on its rows;
 4. end to end: Database -> Collection.batch_put -> 8 client threads of
    near_vector through the shard's query batcher, held to the serial path
    and to the plain recomputation, then deletes and queries again. The
@@ -142,12 +142,38 @@ is downloaded), in phases:
    fused_topk_pairs and fused_topk_scan, 9b bm25_block, distance_block,
    bq_scan_reduce and pq4_scan_reduce. Each prints socket p50/p99/QPS
    beside the in-process numbers, the import rate and the card's name and
-   power limit.
+   power limit. 9c, right after 9a: the same gRPC queries through the
+   native data plane (weaviate_tpu_torch/dataplane.py over
+   csrc/host/dataplane.cpp, g++ and the system libnghttp2.so.14), served
+   as the Server serves it under WEAVIATE_TPU_NATIVE_DATAPLANE=1, each
+   answer equal to 9a's in-process one, at least 3/4 of them on the C++
+   fast path (the filtered quarter takes the Python handlers), beside 9a's
+   Python gRPC figures, then a round of the plane's native load
+   generator; it must launch distance_block and fused_topk_pairs. Without
+   libnghttp2.so.14 on the machine it prints that one fact (a missing
+   system library, not the device or a kernel) and the run goes on.
+10. epochs, right after phase 3: phase 3's rows and deletes in a
+   FlatIndex cut into 8 sealed epochs (engine/epochs.py; 131,072 rows
+   each at 1M rows), 256 queries at k 10 and 100, approx and fused,
+   unfiltered and under per-query 10% filters, every answer bit for bit
+   phase 3's single buffer's (fused_topk_pairs must merge the epochs in
+   every fused dispatch); 30% of the rows of three epochs deleted,
+   ``maintain()`` compacting them (their ledger bytes and
+   torch.cuda.memory_allocated before and after) and the answers again;
+   BQ and 4-bit PQ epoch indexes against single quantized stores on the
+   same rows (one codebook), bit for bit; a 2-shard Database collection of
+   200,000 rows with epoch_rows 32,768 whose shard quota makes the last
+   imports migrate an epoch to the sibling, every acknowledged write held
+   exactly once and read back, nearVector answers equal to an exact
+   recomputation. It must launch distance_block, fused_topk_scan,
+   fused_topk_pairs, bq_scan_reduce and pq4_scan_reduce. Then
+   fused_topk_pairs is held to its plain version and timed at the epoch
+   merge's shapes [256 / 8, 8 x k], k = 10 and 100, beside torch.topk.
 
-Phases 5, 6, 7, 8, 9a and 9b each reset the launch counters as they start and read
-them as they end: every kernel in QUANT_KERNELS must have run in phases 5
-and 6, and ``bm25_block`` and ``distance_block`` in phase 7, whose run (d)
-must launch ``fused_topk_scan``.
+Phases 5, 6, 7, 8, 9a, 9b, 9c and 10 each reset the launch counters as they start
+and read them as they end: every kernel in QUANT_KERNELS must have run in
+phases 5 and 6, and ``bm25_block`` and ``distance_block`` in phase 7,
+whose run (d) must launch ``fused_topk_scan``.
 
 It prints one line per phase, then a JSON line of per-kernel numbers, and
 as its last line ``{"ok": true, "device": {...}}``. Any failure exits
@@ -158,8 +184,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import http.client
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -1823,7 +1851,9 @@ def _check_against_exact(torch, d_full, got_ids, k, what):
     return r
 
 
-def phase_index(torch, seed: int, rows: int) -> None:
+def phase_index(torch, seed: int, rows: int) -> dict:
+    """Phase 3. Returns its index, rows (host and unit rows on the card),
+    queries and deleted rows, which phase 10's epoch index is held to."""
     from weaviate_tpu_torch.engine.flat import FlatIndex
 
     dev = "cuda"
@@ -1831,9 +1861,11 @@ def phase_index(torch, seed: int, rows: int) -> None:
     rng = np.random.default_rng([seed, 3])
     idx = FlatIndex(dim=DIM, metric=METRIC, chunk_size=CHUNK, device=dev)
     ref = torch.empty((rows, DIM), dtype=torch.float32, device=dev)
+    corpus = np.empty((rows, DIM), dtype=np.float32)
     t0 = time.perf_counter()
     for s in range(0, rows, ADD_BATCH):
         v = clustered(seed, s, min(ADD_BATCH, rows - s), cent)
+        corpus[s:s + len(v)] = v
         idx.add_batch(np.arange(s, s + len(v)), v)
         ref[s:s + len(v)] = torch.nn.functional.normalize(torch.from_numpy(v).to(dev), dim=1)
     idx.store.flush_staged()
@@ -1891,8 +1923,8 @@ def phase_index(torch, seed: int, rows: int) -> None:
     log(f"phase 3 index: FlatIndex(device='cuda') {rows} x {DIM} {METRIC} f32; "
         + "; ".join(parts) + "; per-query 10% filters (bitmask) and a shared 0.5% "
         "filter (gathered) recall@10 1.0 for both selections")
-    del idx, ref
-    torch.cuda.empty_cache()
+    idx.store.selection = "approx"
+    return dict(idx=idx, ref=ref, corpus=corpus, queries=queries, deleted=deleted)
 
 
 def _collection(db, name: str, quantization: str | None = None):
@@ -3327,6 +3359,7 @@ SERVER_HYBRID = 64        # 9b: hybrid queries on phase 7's collection
 WRITE_ROWS, WRITE_BATCH, READ_BACK = 10_000, 1_000, 1_000
 # kernels each half of the server phase must launch through the socket
 SERVER_KERNELS = {"9a": ("distance_block", "fused_topk_pairs", "fused_topk_scan"),
+                  "9c": ("distance_block", "fused_topk_pairs"),
                   "9b": ("bm25_block", "distance_block", "bq_scan_reduce",
                          "pq4_scan_reduce")}
 
@@ -3381,13 +3414,14 @@ def _timed_text(lat, wall, nq: int) -> str:
 
 
 def _socket_vs_inproc(col, client, queries, k: int, where, what: str,
-                      grpc_port=None, every: int = 2) -> tuple[list[str], dict]:
+                      grpc_port=None, every: int = 2) -> tuple[list[str], dict, list]:
     """``queries`` in process (CLIENTS threads through the batcher, the
     reference) and then over the socket; query i carries ``where`` when
     i % every == every - 1.
     GraphQL answers must equal the in-process ones exactly (ids, distance
     bits); so must gRPC's where grpcio is present. The reference runs
-    outside the caller's launch window: it returns the socket closures."""
+    outside the caller's launch window: it returns the socket closures,
+    and the in-process answers."""
     nq = len(queries)
     name = col.config.name
     gql = {f: _near_gql(k, f) % name for f in (False, True)}
@@ -3447,14 +3481,16 @@ def _socket_vs_inproc(col, client, queries, k: int, where, what: str,
     runs = {"graphql": over_graphql}
     if grpc_port is not None:
         runs["grpc"] = over_grpc
-    return parts, runs
+    return parts, runs, ref
 
 
-def phase_server_plain(torch, K, seed: int, srv, st4: dict) -> dict:
+def phase_server_plain(torch, K, seed: int, srv, st4: dict) -> tuple[dict, dict]:
     """Phase 9a, before phase 6 compresses phase 4's collection: GraphQL
     (and gRPC) nearVector at limit 100, half under the 10% filter, held to
     the in-process answers; then SERVER_FUSED of them under selection
-    "fused". Counts the socket runs' launches."""
+    "fused". Counts the socket runs' launches; returns them, and the
+    queries with their in-process answers and the gRPC run's figures,
+    which phase 9c sends through the native plane."""
     from weaviate_tpu_torch.api.client import Client
     from weaviate_tpu_torch.filters import Filter, Operator
 
@@ -3470,17 +3506,17 @@ def phase_server_plain(torch, K, seed: int, srv, st4: dict) -> dict:
     idx = next(iter(col.shards.values())).vector_indexes[""]
     idx.store.selection = "approx"
     mix = (f"every {SERVER_FILTER_EVERY}th under where(views >= {VIEWS_CUT}), 10%")
-    parts, runs = _socket_vs_inproc(col, client, queries, SERVER_K, where,
+    parts, runs, ref9 = _socket_vs_inproc(col, client, queries, SERVER_K, where,
                                     f"{SERVER_QUERIES} nearVector(limit {SERVER_K}), {mix}, "
                                     "selection approx", grpc_port, SERVER_FILTER_EVERY)
     idx.store.selection = "fused"
-    fparts, fruns = _socket_vs_inproc(col, client, queries[:SERVER_FUSED], SERVER_K, where,
+    fparts, fruns, _ = _socket_vs_inproc(col, client, queries[:SERVER_FUSED], SERVER_K, where,
                                       f"{SERVER_FUSED} of them under selection fused",
                                       every=SERVER_FILTER_EVERY)
     idx.store.selection = "approx"
     K.reset_launch_counts()  # phase 9a's socket window starts here
-    for fn in runs.values():
-        parts.append(fn())
+    socket = {name: fn() for name, fn in runs.items()}
+    parts += socket.values()
     idx.store.selection = "fused"
     try:
         fparts.append(fruns["graphql"]())
@@ -3492,7 +3528,7 @@ def phase_server_plain(torch, K, seed: int, srv, st4: dict) -> dict:
         f"({_smi_line()}): " + "; ".join(parts)
         + " | " + "; ".join(fparts) + f"; launches through the socket {counts}")
     _require_server_launches(counts, "9a")
-    return counts
+    return counts, dict(queries=queries, ref=ref9, grpc=socket.get("grpc"))
 
 
 def _require_server_launches(counts: dict, part: str) -> None:
@@ -3543,7 +3579,7 @@ def phase_server_rest(torch, K, seed: int, srv, db, st7: dict, rows: int) -> dic
         kind = getattr(next(iter(col.shards.values())).vector_indexes[""].store,
                        "quantization", "flat")
         qs = _quant_queries(torch, col, seed, prefix, n_rows, tag)
-        p, r = _socket_vs_inproc(col, client, qs, 10, where,
+        p, r, _ = _socket_vs_inproc(col, client, qs, 10, where,
                                  f"{SERVER_QUANT} nearVector(limit 10), half filtered, on "
                                  f"phase 6's {kind} collection {name}")
         parts.append(p)
@@ -3654,6 +3690,478 @@ def _server_writes(client, seed: int) -> str:
             f"nearVector ({_timed_text(lat, wall, READ_BACK)} per read + query)")
 
 
+# -- phase 9c: the native gRPC data plane -----------------------------------------
+
+PLANE_FAST_SHARE = 0.75    # of 9c's queries the C++ fast path must serve at least
+PLANE_BENCH_MS = 3000      # one round of the plane's native load generator
+PLANE_BENCH_CONNS, PLANE_BENCH_STREAMS = CLIENTS, 4
+
+
+def _libnghttp2() -> str:
+    """What the dynamic loader knows of libnghttp2 (``ldconfig -p``)."""
+    out = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True,
+                         timeout=60).stdout
+    return "; ".join(ln.strip() for ln in out.splitlines() if "nghttp2" in ln) or "none"
+
+
+def phase_server_plane(torch, K, srv, st4: dict, st9a: dict) -> dict:
+    """Phase 9c, right after 9a: the server's gRPC served through the
+    native data plane, as ``Server`` serves it under
+    WEAVIATE_TPU_NATIVE_DATAPLANE=1 (``Server._start_grpc``), beside the
+    Python gRPC server 9a used. 9a's SERVER_QUERIES nearVector queries at
+    limit 100 from CLIENTS threads (every SERVER_FILTER_EVERY-th under the
+    10% filter, which the plane hands to the Python handlers), each answer
+    equal to 9a's in-process one; at least PLANE_FAST_SHARE of them served
+    by the C++ fast path; then one round of the plane's native load
+    generator. Counts the launches of both. Without libnghttp2.so.14 on
+    the machine it says so and launches nothing: a missing system
+    library, not the device or a kernel; with it, a plane that does not
+    build or start fails the run."""
+    import grpc
+
+    from weaviate_tpu_torch import dataplane
+    from weaviate_tpu_torch.api.grpc import v1_pb2 as pb
+    from weaviate_tpu_torch.api.grpc.native_plane import NativeDataPlane
+
+    lib = _libnghttp2()
+    if "libnghttp2.so.14" not in lib:
+        log(f"phase 9c native plane: this machine has no libnghttp2.so.14 (ldconfig -p: "
+            f"{lib}), a missing system library; the Python gRPC server serves (phase 9a)")
+        return dict.fromkeys(K.launch_counts, 0)
+    t0 = time.perf_counter()
+    flag = os.environ.get("WEAVIATE_TPU_NATIVE_DATAPLANE")
+    os.environ["WEAVIATE_TPU_NATIVE_DATAPLANE"] = "1"
+    try:
+        plane = srv._start_grpc()
+    finally:
+        if flag is None:
+            del os.environ["WEAVIATE_TPU_NATIVE_DATAPLANE"]
+        else:
+            os.environ["WEAVIATE_TPU_NATIVE_DATAPLANE"] = flag
+    if not isinstance(plane, NativeDataPlane):
+        raise AssertionError(f"libnghttp2.so.14 is present ({lib}) but the server serves "
+                             f"{type(plane).__name__}: the plane did not build or start")
+    built = (f"built in {dataplane.build_seconds:.1f} s" if dataplane.build_seconds is not None
+             else "already built")
+    col, queries, ref = st4["col"], st9a["queries"], st9a["ref"]
+    name = col.config.name
+    chan = grpc.insecure_channel(f"127.0.0.1:{plane.port}")
+    try:
+        search = chan.unary_unary("/weaviate.v1.Weaviate/Search",
+                                  request_serializer=pb.SearchRequest.SerializeToString,
+                                  response_deserializer=pb.SearchReply.FromString)
+
+        def request(i):
+            req = pb.SearchRequest(collection=name, limit=SERVER_K, uses_123_api=True)
+            req.near_vector.vector_bytes = np.asarray(queries[i], np.float32).tobytes()
+            if i % SERVER_FILTER_EVERY == SERVER_FILTER_EVERY - 1:
+                req.filters.operator = pb.Filters.OPERATOR_GREATER_THAN_EQUAL
+                req.filters.target.property = "views"
+                req.filters.value_int = VIEWS_CUT
+            req.metadata.uuid = True
+            req.metadata.distance = True
+            return req
+
+        # the first Search of a collection takes the fallback and registers
+        # it; the reply cache then warms on its own thread: both timed
+        t1 = time.perf_counter()
+        search(request(0), timeout=120)
+        if not plane.wait_registered(name, 60.0):
+            raise AssertionError(f"the plane did not register {name}")
+        plane.warm_collection(name)
+        warm_s = time.perf_counter() - t1
+        cache0 = plane.dp.cache_stats()
+        f0, b0 = plane.dp.stats()
+
+        def ask(i):
+            return [(r.metadata.id, r.metadata.distance)
+                    for r in search(request(i), timeout=120).results]
+
+        K.reset_launch_counts()  # phase 9c's window starts here
+        out, lat, wall = _run_clients(ask, len(queries))
+        f1, b1 = plane.dp.stats()
+        cache1 = plane.dp.cache_stats()
+        head = pb.SearchRequest(collection=name, limit=SERVER_K, uses_123_api=True)
+        head.metadata.uuid = True
+        head.metadata.distance = True
+        bench = dataplane.bench(plane.port, PLANE_BENCH_CONNS, PLANE_BENCH_STREAMS,
+                                PLANE_BENCH_MS, DIM, head.SerializeToString())
+        counts = dict(K.launch_counts)  # ... and ends here
+    finally:
+        chan.close()
+        plane.stop()
+    for i, (a, b) in enumerate(zip(ref, out)):
+        if [u for u, _ in a] != [u for u, _ in b] or \
+                [np.float32(d) for _, d in a] != [np.float32(d) for _, d in b]:
+            raise AssertionError(f"9c query {i}: the plane's answer != the in-process answer")
+    fast, fallback = f1 - f0, b1 - b0
+    if fast < PLANE_FAST_SHARE * len(queries):
+        raise AssertionError(f"9c: the C++ fast path served {fast} of {len(queries)} queries")
+    if bench["errors"] or bench["done"] <= 0:
+        raise AssertionError(f"9c: the native load generator failed: {bench}")
+    log(f"phase 9c native plane ({time.perf_counter() - t0:.1f} s; {_smi_line()}): "
+        f"libnghttp2 {lib}; plane library {built}; served by Server._start_grpc under "
+        f"WEAVIATE_TPU_NATIVE_DATAPLANE=1 on :{plane.port}; registration + reply cache warm "
+        f"of {cache0['entries']} objects {warm_s:.1f} s; {len(queries)} gRPC "
+        f"nearVector(limit {SERVER_K}) from {CLIENTS} client threads, every "
+        f"{SERVER_FILTER_EVERY}th under where(views >= {VIEWS_CUT}): "
+        f"{_timed_text(lat, wall, len(queries))}, identical to the in-process answers; "
+        f"fast path {fast}, fallback {fallback}; reply cache hits "
+        f"{cache1['hits'] - cache0['hits']}, misses {cache1['misses'] - cache0['misses']} | "
+        f"9a through the Python gRPC server: {st9a['grpc']} | native load generator "
+        f"({PLANE_BENCH_CONNS} connections x {PLANE_BENCH_STREAMS} streams, "
+        f"{PLANE_BENCH_MS} ms, random vectors, limit {SERVER_K}): {bench['done']} "
+        f"requests, {bench['qps']:.1f} QPS, p50 {bench['p50_ms']:.1f} ms, p99 "
+        f"{bench['p99_ms']:.1f} ms, {bench['errors']} errors; launches through the plane "
+        f"{counts}")
+    _require_server_launches(counts, "9c")
+    return counts
+
+
+# -- phase 10: the epoch store ------------------------------------------------------
+
+EPOCH_COUNT = 8               # index level: the rows in 8 epochs (131,072 rows,
+                              # 16 chunks, each at 1M rows)
+EPOCH_QUERIES = 256
+EPOCH_FILTER = 0.10           # per-query filters' selectivity
+EPOCH_DELETE_FRAC = 0.30      # of the live rows of three epochs: two full ones
+                              # and the last (1, 4 and 7 of 8)
+EPOCH_COL_ROWS = 200_000      # collection level: 2 shards
+EPOCH_COL_EPOCH_ROWS = 32_768
+EPOCH_COL_QUOTA_AT = 180_000  # rows imported when shard-0's quota is set at its usage
+EPOCH_COL_QUERIES = 64
+PQ_TRAIN_ROWS = 65_536
+EPOCH_KERNELS = ("distance_block", "fused_topk_scan", "fused_topk_pairs",
+                 "bq_scan_reduce", "pq4_scan_reduce")
+
+
+def _bits_equal(got, want, what: str) -> None:
+    """(d, i) pairs: ids equal and distances equal bit for bit."""
+    (gd, gi), (wd, wi) = got, want
+    gd, wd = np.asarray(gd, np.float32), np.asarray(wd, np.float32)
+    if not np.array_equal(np.asarray(gi), np.asarray(wi)):
+        raise AssertionError(f"{what}: {int((np.asarray(gi) != np.asarray(wi)).sum())} ids "
+                             "differ from the single buffer's")
+    if not np.array_equal(gd.view(np.int32), wd.view(np.int32)):
+        raise AssertionError(f"{what}: distances differ from the single buffer's bits "
+                             f"(max {float(np.nanmax(np.abs(gd - wd)))})")
+
+
+def _epoch_bytes(ledger, owner) -> dict:
+    """Ledger bytes per epoch of ``owner``'s index: {eid: bytes}."""
+    out = {}
+    for comp, b in ledger.shard_component_bytes(*owner).items():
+        if "@e" in comp:
+            eid = int(comp.rsplit("@e", 1)[1])
+            out[eid] = out.get(eid, 0) + b
+    return out
+
+
+def _epoch_rows(rows: int) -> int:
+    """The power of two that cuts ``rows`` into EPOCH_COUNT epochs."""
+    return 1 << (-(-rows // EPOCH_COUNT) - 1).bit_length()
+
+
+def phase_epochs(torch, K, seed: int, rows: int, st3: dict) -> dict:
+    """Phase 10, the epoch store at full width. Index level: phase 3's
+    rows and deletes in a FlatIndex whose epoch_rows cuts them into
+    EPOCH_COUNT sealed epochs (131,072 at 1M rows), EPOCH_QUERIES of phase 3's queries at k 10 and 100,
+    selections approx and fused, unfiltered and under per-query 10%
+    filters, every answer bit for bit phase 3's single buffer's; then 30%
+    of the rows of three epochs deleted from both, ``maintain()`` (the
+    epochs' ledger bytes and torch.cuda.memory_allocated before and after)
+    and the same answers again; then BQ and 4-bit PQ epoch indexes on the
+    same rows against single quantized stores built as phase 5's (one
+    codebook), bit for bit. Collection level: a 2-shard Database
+    collection of EPOCH_COL_ROWS rows with epoch_rows EPOCH_COL_EPOCH_ROWS
+    whose shard-0 quota is set at its usage at EPOCH_COL_QUOTA_AT rows, so
+    that the last imports migrate epochs; every acknowledged write read
+    back exactly once, nearVector answers equal to an exact
+    recomputation. The single-buffer references' launches are subtracted
+    from the phase's count (the path is the epoch stores'). Then
+    fused_topk_pairs timed at the merge shapes [256 / 8, 8 x k]."""
+    from weaviate_tpu_torch.db import Database
+    from weaviate_tpu_torch.engine.flat import FlatIndex
+    from weaviate_tpu_torch.filters import Filter, Operator
+    from weaviate_tpu_torch.runtime import hbm_ledger
+    from weaviate_tpu_torch.runtime.hbm_ledger import ledger
+    from weaviate_tpu_torch.runtime.metrics import epoch_migrations
+    from weaviate_tpu_torch.schema.config import (CollectionConfig, Property,
+                                                  ShardingConfig, VectorConfig,
+                                                  VectorIndexConfig)
+
+    dev = "cuda"
+    t0 = time.perf_counter()
+    idx, corpus, deleted = st3["idx"], st3["corpus"], st3["deleted"]
+    qb = st3["queries"][:EPOCH_QUERIES]
+    gen = torch.Generator(device=dev).manual_seed(seed + 10)
+    masks = (torch.rand((EPOCH_QUERIES, idx.store.capacity), device=dev, generator=gen)
+             < EPOCH_FILTER).cpu().numpy()
+    yard = dict.fromkeys(K.launch_counts, 0)  # the references' launches, not the path's
+    merges = {"dispatches": 0, "pairs": 0}    # fused epoch dispatches, their merges' launches
+    parts = []
+
+    def reference(fn):
+        before = dict(K.launch_counts)
+        out = fn()
+        for kn, c in K.launch_counts.items():
+            yard[kn] += c - before[kn]
+        return out
+
+    def timed(fn):
+        """fn's answer and the ms of its second call (the first warms it)."""
+        fn()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t1) * 1e3
+
+    def flat_answer(index, filtered, k):
+        if filtered:
+            return index.store.search_async(qb, k, masks).result()
+        ids, d = index.search_by_vector_batch_async(qb, k).result()
+        return d, ids
+
+    def flat_runs(eidx, what):
+        es = eidx.epoch_store
+        times = []
+        for sel in ("approx", "fused"):
+            idx.store.selection = es.selection = sel
+            for k in (10, TOP_K):
+                for filtered in (False, True):
+                    want, t_s = reference(lambda: timed(lambda: flat_answer(idx, filtered, k)))
+                    before = dict(K.launch_counts)
+                    got, t_e = timed(lambda: flat_answer(eidx, filtered, k))
+                    if sel == "fused":
+                        merges["dispatches"] += 2
+                        merges["pairs"] += (K.launch_counts["fused_topk_pairs"]
+                                            - before["fused_topk_pairs"]
+                                            - (K.launch_counts["fused_topk_scan"]
+                                               - before["fused_topk_scan"]))
+                    run = f"{sel} k={k}" + (" filtered" if filtered else "")
+                    _bits_equal(got, want, f"{what} {run}")
+                    times.append(f"{run} {t_e:.1f} / {t_s:.1f}")
+        idx.store.selection = es.selection = "approx"
+        return (f"{what}: 8 runs (approx / fused x k 10 / {TOP_K} x unfiltered / per-query "
+                f"{EPOCH_FILTER:.0%} filters) bit for bit the single buffer's; "
+                f"{EPOCH_QUERIES}-query batch ms, epochs / one buffer (second call, host "
+                "clock): " + ", ".join(times))
+
+    K.reset_launch_counts()  # phase 10's run starts here
+    # -- index level ---------------------------------------------------------
+    owner = ("Phase10", "index")
+    t1 = time.perf_counter()
+    with hbm_ledger.owner(*owner):
+        eidx = FlatIndex(dim=DIM, metric=METRIC, chunk_size=CHUNK,
+                         epoch_rows=_epoch_rows(rows), device=dev)
+    for s in range(0, rows, ADD_BATCH):
+        eidx.add_batch(np.arange(s, min(rows, s + ADD_BATCH)), corpus[s:s + ADD_BATCH])
+    eidx.delete(*deleted.tolist())
+    es = eidx.epoch_store
+    es.seal_active()
+    torch.cuda.synchronize()
+    stats = [e for e in es.epoch_stats() if e["rows"]]
+    parts.append(f"index: {rows} rows in {len(stats)} sealed epochs of "
+                 f"{[e['rows'] for e in stats]} rows (capacity {es.capacity}) built in "
+                 f"{time.perf_counter() - t1:.1f} s, {len(deleted)} deleted as phase 3")
+    parts.append(flat_runs(eidx, "before deletes"))
+    n_sealed = len(stats)
+    cut = (1, n_sealed // 2, n_sealed - 1)
+    doomed = np.concatenate([
+        np.sort(np.random.default_rng([seed, 10, eid]).choice(
+            es.live_globals_of(eid), int(es.epochs[eid].live_count() * EPOCH_DELETE_FRAC),
+            replace=False)) for eid in cut])
+    eidx.delete(*doomed.tolist())
+    idx.delete(*doomed.tolist())
+    gc.collect()
+    torch.cuda.synchronize()
+    b_before, a_before = _epoch_bytes(ledger, owner), torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    if not es.maintain():
+        raise AssertionError("maintain() did nothing after the deletes")
+    torch.cuda.synchronize()
+    maintain_s = time.perf_counter() - t1
+    gc.collect()
+    b_after, a_after = _epoch_bytes(ledger, owner), torch.cuda.memory_allocated()
+    if es.compactions_total != len(cut):
+        raise AssertionError(f"{es.compactions_total} epochs compacted, not {len(cut)}")
+    freed = sum(b_before[e] - b_after[e] for e in cut)
+    if freed <= 0:
+        raise AssertionError("compaction released no ledger bytes of its epochs")
+    parts.append(
+        f"{len(doomed)} rows deleted ({EPOCH_DELETE_FRAC:.0%} of epochs "
+        f"{list(cut)}), maintain() {maintain_s:.2f} s compacted "
+        f"{es.compactions_total} epochs: ledger bytes "
+        + ", ".join(f"e{e} {b_before[e]} -> {b_after[e]}" for e in cut)
+        + f" ({freed} released), the other epochs unchanged "
+        f"({sum(b_before.values()) - freed == sum(b_after.values())}); "
+        f"torch.cuda.memory_allocated {a_before} -> {a_after}")
+    parts.append(flat_runs(eidx, "after the compaction"))
+    del eidx, es
+    # -- quantized epochs against single quantized stores ---------------------
+    for quant in ("bq", "pq4"):
+        t1 = time.perf_counter()
+        kw = {"quantization": "bq" if quant == "bq" else "pq"}
+        single = reference(lambda: FlatIndex(dim=DIM, metric=METRIC, chunk_size=CHUNK,
+                                             device=dev, **kw))
+        if quant == "pq4":
+            reference(lambda: single.store.train(corpus[:PQ_TRAIN_ROWS]))
+            kw["codebook"] = single.store.codebook
+        eq = FlatIndex(dim=DIM, metric=METRIC, chunk_size=CHUNK,
+                       epoch_rows=_epoch_rows(rows), device=dev, **kw)
+        for s in range(0, rows, ADD_BATCH):
+            ids_ = np.arange(s, min(rows, s + ADD_BATCH))
+            reference(lambda: single.add_batch(ids_, corpus[s:s + ADD_BATCH]))
+            eq.add_batch(ids_, corpus[s:s + ADD_BATCH])
+        for ix in (single, eq):
+            ix.delete(*deleted.tolist())
+        build_s = time.perf_counter() - t1
+        times = []
+        for sel, k, filtered in (("approx", 10, False), ("approx", TOP_K, False),
+                                 ("fused", 10, False), ("approx", 10, True)):
+            single.store.selection = eq.store.selection = sel
+            want, t_s = reference(lambda: timed(lambda: flat_answer(single, filtered, k)))
+            got, t_e = timed(lambda: flat_answer(eq, filtered, k))
+            run = f"{sel} k={k}" + (" filtered" if filtered else "")
+            _bits_equal(got, want, f"{quant} {run}")
+            times.append(f"{run} {t_e:.1f} / {t_s:.1f}")
+        parts.append(f"{quant}: epoch index and single store on the same rows (one "
+                     f"codebook) built in {build_s:.1f} s; bit for bit the single store's "
+                     f"(one host rescore after the merge); {EPOCH_QUERIES}-query batch ms, "
+                     "epochs / single (second call, host clock): " + ", ".join(times))
+        del single, eq
+        torch.cuda.empty_cache()
+    # -- collection level ----------------------------------------------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_epochs_")
+    db = Database(tmp, device=dev)
+    try:
+        col = db.create_collection(CollectionConfig(
+            name="EpochWiki",
+            properties=[Property(name="category", data_type="text"),
+                        Property(name="views", data_type="int")],
+            vectors=[VectorConfig(index=VectorIndexConfig(
+                index_type="flat", metric=METRIC, epoch_rows=EPOCH_COL_EPOCH_ROWS))],
+            sharding=ShardingConfig(desired_count=2)))
+        cent = centers(seed + 10)
+        rng = np.random.default_rng([seed, 10])
+        ref = torch.empty((EPOCH_COL_ROWS, DIM), dtype=torch.float32, device=dev)
+        rows_host = np.empty((EPOCH_COL_ROWS, DIM), dtype=np.float32)
+        acked = []
+        quota = None
+        t1 = time.perf_counter()
+        for s in range(0, EPOCH_COL_ROWS, IMPORT_BATCH):
+            if s == EPOCH_COL_QUOTA_AT:
+                fat = col.shards["shard-0"]
+                quota = ledger.shard_bytes("EpochWiki", "shard-0")
+                fat.shard_hbm_limit = quota  # over its 90% watermark from here on
+                before_mig = epoch_migrations.labels("EpochWiki", "shard-0").value
+            n = min(IMPORT_BATCH, EPOCH_COL_ROWS - s)
+            v = rows_host[s:s + n] = clustered(seed + 10, s, n, cent)
+            res = col.batch_put([
+                {"uuid": _uuid(8010, s + i),
+                 "properties": {"category": f"cat{(s + i) % 100}",
+                                "views": int(rng.integers(0, 100))},
+                 "vector": v[i]} for i in range(n)])
+            acked += [r["uuid"] for r in res if r["status"] == "SUCCESS"]
+            ref[s:s + n] = torch.nn.functional.normalize(torch.from_numpy(v).to(dev), dim=1)
+        import_s = time.perf_counter() - t1
+        migrated = epoch_migrations.labels("EpochWiki", "shard-0").value - before_mig
+        if len(acked) != EPOCH_COL_ROWS:
+            raise AssertionError(f"{EPOCH_COL_ROWS - len(acked)} writes were not acknowledged")
+        if migrated < 1:
+            raise AssertionError("no epoch migrated under shard-0's quota")
+        held = [set(col.shards[n_]._doc_to_uuid.values()) for n_ in ("shard-0", "shard-1")]
+        if held[0] & held[1] or held[0] | held[1] != set(acked) or \
+                sum(len(h) for h in held) != len(acked):
+            raise AssertionError("an acknowledged write is lost or held twice")
+        moved = [u for u in acked if col.shards["shard-0"].migrated_to(u)]
+        sample = np.random.default_rng([seed, 11]).choice(len(acked), 1000, replace=False)
+        for u in [acked[j] for j in sample] + moved[:1000]:
+            obj = col.get_object(u)
+            if obj is None or not np.array_equal(np.asarray(obj.vector, np.float32),
+                                                 rows_host[_row_of(obj)]):
+                raise AssertionError(f"{u} did not read back")
+        rows_q = rng.integers(0, EPOCH_COL_ROWS, EPOCH_COL_QUERIES)
+        qs = near_queries(seed + 10, rows_q, lambda r: ref[torch.from_numpy(r).to(dev)]
+                          .cpu().numpy(), NEAR_NOISE)
+        where = Filter.where("views", Operator.GREATER_THAN_EQUAL, VIEWS_CUT)
+        res, lat, wall = _run_clients(
+            lambda i: col.near_vector(qs[i], k=10, include_objects=False), len(qs))
+        qn = torch.nn.functional.normalize(torch.from_numpy(qs).to(dev), dim=1)
+        live = torch.ones(EPOCH_COL_ROWS, dtype=torch.bool, device=dev)
+        d_full = reference(lambda: _exact_distances(torch, qn, ref, live[None, :]))
+        for r_ in res:
+            if len({x.uuid for x in r_}) != len(r_):
+                raise AssertionError("a nearVector answer holds one object twice")
+        _check_against_exact(torch, d_full, [[_row_of(x) for x in r_] for r_ in res], 10,
+                             "epoch collection nearVector")
+        filt = col.near_vector(qs[0], k=10, where=where, include_objects=True)
+        if any(x.object.properties["views"] < VIEWS_CUT for x in filt):
+            raise AssertionError("the filtered nearVector returned a disallowed object")
+        shard_stats = {n_: [(e["rows"], e["live"]) for e in
+                            col.shards[n_].vector_indexes[""].epoch_store.epoch_stats()]
+                       for n_ in ("shard-0", "shard-1")}
+        parts.append(
+            f"collection: 2 shards, epoch_rows {EPOCH_COL_EPOCH_ROWS}, {EPOCH_COL_ROWS} "
+            f"objects through batch_put in {import_s:.1f} s ({EPOCH_COL_ROWS / import_s:.0f} "
+            f"objects/s), shard-0's quota set at its usage {quota} bytes at "
+            f"{EPOCH_COL_QUOTA_AT} rows: {int(migrated)} epoch migrations "
+            f"({len(moved)} objects) to shard-1, shard-0 now "
+            f"{ledger.shard_bytes('EpochWiki', 'shard-0')} bytes; every acknowledged write "
+            f"held exactly once ({len(held[0])} + {len(held[1])}), 1000 sampled and "
+            f"{min(1000, len(moved))} migrated read back with their vectors; "
+            f"{EPOCH_COL_QUERIES} nearVector(k=10) from {CLIENTS} clients "
+            f"{_timed_text(lat, wall, len(qs))}, recall@10 1.0 against the exact "
+            f"recomputation; epochs (rows, live) {shard_stats}")
+        del d_full, ref
+    finally:
+        db.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = {kn: c - yard[kn] for kn, c in K.launch_counts.items()}  # ... and ends here
+    if merges["pairs"] != merges["dispatches"] or not merges["dispatches"]:
+        raise AssertionError(f"merge_epoch_topk launched fused_topk_pairs {merges['pairs']} "
+                             f"times in {merges['dispatches']} fused dispatches")
+    log(f"phase 10 epochs ({time.perf_counter() - t0:.1f} s; {_smi_line()}): "
+        + " | ".join(parts) + f" | merge_epoch_topk launched fused_topk_pairs once in each "
+        f"of the {merges['dispatches']} fused dispatches; launches {counts}")
+    for name in EPOCH_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} was not launched in phase 10")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def merge_times(torch, K) -> dict:
+    """fused_topk_pairs at the epoch merge's shapes [256 / 8, 8 x k] for
+    k = 10 and 100 (8 epochs of k survivors each): held to its plain
+    version, timed from a CUDA graph beside torch.topk and the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    out = {}
+    for b in (256, 8):
+        for k in (10, TOP_K):
+            m = 8 * k
+            sets = [(torch.rand((b, m), device="cuda", generator=gen),
+                     torch.randint(0, 1 << 20, (b, m), device="cuda", dtype=torch.int32,
+                                   generator=gen)) for _ in range(8)]
+            v, i = sets[0]
+            kd, ki = K.fused_topk_pairs(v, i, k)
+            pd, pi = K.fused_topk_pairs_plain(v, i, k)
+            if not (torch.equal(kd, pd) and torch.equal(ki, pi)):
+                raise AssertionError(f"fused_topk_pairs [{b},{m}] k={k} != its plain version")
+            ms = graph_ms(torch, K, [lambda v=v, i=i: K.fused_topk_pairs(v, i, k)
+                                     for v, i in sets])
+            lib = graph_ms(torch, K, [lambda v=v: torch.topk(v, k, dim=1, largest=False)
+                                      for v, _ in sets])
+            bm, by = _pairs_bound(b, m, k)
+            out[f"[{b},{m}] k={k}"] = dict(ms=ms, library_ms=lib, bound_ms=bm, bound_by=by)
+    log("phase 10 merge shapes: fused_topk_pairs equal to its plain version at "
+        + "; ".join(f"{s}: kernel {o['ms']:.4f} ms, torch.topk {o['library_ms']:.4f} ms, "
+                    f"bound {o['bound_ms']:.5f} ms ({o['bound_by']}, "
+                    f"{o['bound_ms'] / o['ms']:.1%})" for s, o in out.items())
+        + " (CUDA graph of launches over 8 operand sets)")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3759,19 +4267,27 @@ def main() -> int:
         return 0
     numbers, counts2 = phase_kernels(torch, K, args.seed)
     log(f"card after phase 2 (SM clock, max SM clock, power, temperature): {card_clocks()}")
-    phase_index(torch, args.seed, args.rows)
+    st3 = phase_index(torch, args.seed, args.rows)
+    counts10 = phase_epochs(torch, K, args.seed, args.rows, st3)
+    del st3
+    gc.collect()
+    torch.cuda.empty_cache()
+    merge_times(torch, K)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     db = srv = None
     try:
         db = Database(tmp, device="cuda")
         # each path counts its own launches: phase 4 the plain one, phase 5
         # the quantized index, phase 6 the quantized collections, phase 7
-        # hybrid, phase 9a/9b the server's socket runs (the server serves
-        # phase 4's database from here on; 9a runs before phase 6
-        # compresses its collection)
+        # hybrid, phase 9a/9b the server's socket runs and 9c the native
+        # plane's (the server serves phase 4's database from here on; 9a
+        # and 9c run before phase 6 compresses its collection), phase 10
+        # (above) the epoch stores
         counts4, st4 = phase_end_to_end(torch, K, args.seed, args.rows, db)
         srv = start_server(db)
-        counts9a = phase_server_plain(torch, K, args.seed, srv, st4)
+        counts9a, st9a = phase_server_plain(torch, K, args.seed, srv, st4)
+        counts9c = (phase_server_plane(torch, K, srv, st4, st9a) if srv.grpc is not None
+                    else dict.fromkeys(K.launch_counts, 0))
         counts5 = phase_quantized_index(torch, K, args.seed, args.rows)
         counts6 = phase_quantized_end_to_end(torch, K, args.seed, db, st4)
         counts7, st7 = phase_hybrid(torch, K, args.seed, db, args.hybrid_docs)
@@ -3785,11 +4301,11 @@ def main() -> int:
     counts8 = phase_conformance(K)
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
-        # launches over the main paths: phases 4, 5, 6, 7, 8 and the
-        # server's 9a and 9b, and phase 2's window for the two kernels that
-        # no path runs
+        # launches over the main paths: phases 4, 5, 6, 7, 8, the server's
+        # 9a, 9b and 9c and the epochs' 10, and phase 2's window for the
+        # two kernels that no path runs
         launches = sum(c[name] for c in (counts4, counts5, counts6, counts7, counts8,
-                                         counts9a, counts9b))
+                                         counts9a, counts9b, counts9c, counts10))
         if name in PHASE2_PATH:
             launches += counts2[name]
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,

@@ -451,6 +451,51 @@ def test_loader_builds_the_ports_own_source():
             assert not any(n.split(".")[0] == "weaviate_tpu" for n in names)
 
 
+def test_dataplane_loader_builds_the_ports_own_source():
+    """The data plane's loader (weaviate_tpu_torch/dataplane.py) compiles
+    the port's csrc/host/dataplane.cpp into build/torch_native/ under a
+    hashed name, linking the system libnghttp2.so.14; its source is the
+    JAX package's but for its comments, and the loader never names the
+    JAX package's library."""
+    from weaviate_tpu_torch import dataplane as tdp
+
+    host = os.path.join(REPO, "weaviate_tpu_torch", "csrc", "host")
+    assert tdp.SRC == os.path.join(host, "dataplane.cpp")
+    path = tdp.library_path()
+    assert os.path.dirname(path) == tnative.BUILD_DIR
+    assert re.fullmatch(r"dataplane-[0-9a-f]{12}\.so", os.path.basename(path))
+    assert "-l:libnghttp2.so.14" in tdp.LINK
+
+    def code(p):
+        return [ln for ln in open(p).read().splitlines() if not ln.lstrip().startswith("//")]
+    assert code(tdp.SRC) == code(os.path.join(REPO, "csrc", "dataplane.cpp"))
+    assert open(os.path.join(host, "nghttp2_abi.h")).read() == \
+        open(os.path.join(REPO, "csrc", "nghttp2_abi.h")).read()
+    if tdp.available():
+        assert os.path.exists(path)
+    src = open(tdp.__file__).read()
+    assert "weaviate_tpu/native" not in src
+    assert "libwvdataplane" not in src
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names = [a.name for a in node.names] + [getattr(node, "module", None) or ""]
+            assert not any(n.split(".")[0] == "weaviate_tpu" for n in names)
+    # in a fresh process with the JAX package blocked, the plane maps the
+    # port's library and never the JAX package's
+    code_ = ("import sys; sys.modules['jax'] = None; sys.modules['weaviate_tpu'] = None\n"
+             "from weaviate_tpu_torch import dataplane\n"
+             "ok = dataplane.available()\n"
+             "maps = open('/proc/self/maps').read()\n"
+             "print(ok, dataplane.library_path() in maps, 'libwvdataplane' in maps)\n")
+    env = dict(os.environ)
+    env.pop("WEAVIATE_TPU_NO_NATIVE", None)
+    out = subprocess.run([sys.executable, "-c", code_], capture_output=True, text=True,
+                         timeout=600, cwd=REPO, env=env)
+    assert out.returncode == 0, out.stderr
+    ok = tdp.available()
+    assert out.stdout.split() == [str(ok), str(ok), "False"]
+
+
 def test_loader_opens_no_jax_library(tmp_path):
     """In a fresh process with the JAX package blocked, the port's library
     loads and the only native library mapped is the port's."""

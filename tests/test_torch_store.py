@@ -155,12 +155,13 @@ def test_store_raises_without_cuda_when_device_unset():
 
 
 def test_unported_options_raise():
-    # quantization is ported; epochs (item 3) and the mesh (item 6) are
-    # not, with or without it
-    with pytest.raises(NotImplementedError, match="item 3"):
-        TFlat(dim=4, epoch_rows=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        TFlat(dim=4, quantization="pq", epoch_rows=64, device="cpu")
+    # quantization and epochs are ported; the mesh (item 6) is not, with
+    # or without them
+    assert TFlat(dim=4, epoch_rows=64, device="cpu").epoch_store is not None
+    assert TFlat(dim=4, quantization="pq", epoch_rows=64,
+                 device="cpu").epoch_store.quantization == "pq"
+    with pytest.raises(NotImplementedError, match="item 6"):
+        TFlat(dim=4, epoch_rows=64, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 6"):
         TStore(dim=4, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 6"):

@@ -1,24 +1,30 @@
 """Carry the JAX package's state into the port.
 
 ``store_from_jax_snapshot`` / ``quantized_store_from_jax_snapshot`` /
-``flat_from_jax_snapshot`` take the numpy dicts that the JAX package's
-``DeviceVectorStore.snapshot()``, ``QuantizedVectorStore.snapshot()`` and
+``epoch_store_from_jax_snapshot`` / ``flat_from_jax_snapshot`` take the
+numpy dicts that the JAX package's ``DeviceVectorStore.snapshot()``,
+``QuantizedVectorStore.snapshot()``, ``EpochStore.snapshot()`` and
 ``FlatIndex.snapshot()`` return (plain numpy and Python values — this
 module imports nothing of the JAX package) and build the port's store /
 index from them on ``device``. A quantized snapshot carries its PQ
 codebook ([m, 16, ds] f32) and, for a codes-only store, its codes and sign
-prefix, so the port scans the very same codes. On-disk state needs no
-conversion: the storage layer is the same code, so ``db.Database`` opens a
-data directory the JAX package wrote.
+prefix, so the port scans the very same codes; ``pq_codebook`` carries a
+codebook alone (its centroids as numpy), for a store built beside the
+JAX one. On-disk state needs no conversion: the storage layer is the same
+code, so ``db.Database`` opens a data directory the JAX package wrote.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from weaviate_tpu_torch.device import resolve
+from weaviate_tpu_torch.engine.epochs import EpochStore
 from weaviate_tpu_torch.engine.flat import FlatIndex
 from weaviate_tpu_torch.engine.quantized import QuantizedVectorStore
 from weaviate_tpu_torch.engine.store import DeviceVectorStore
+from weaviate_tpu_torch.ops.pq import PQCodebook
 
 
 def _host_snapshot(snap: dict) -> dict:
@@ -48,9 +54,23 @@ def quantized_store_from_jax_snapshot(snap: dict, device=None,
     return QuantizedVectorStore.restore(_host_snapshot(snap), device=device, **kwargs)
 
 
+def pq_codebook(centroids, device=None) -> PQCodebook:
+    """The port's ``PQCodebook`` from a codebook's centroids ([m, k, ds],
+    e.g. ``np.asarray(jax_store.codebook.centroids)``)."""
+    return PQCodebook(torch.from_numpy(np.array(
+        centroids, dtype=np.float32)).to(resolve(device)))
+
+
+def epoch_store_from_jax_snapshot(snap: dict, device=None, **kwargs) -> EpochStore:
+    """The port's ``EpochStore`` from the JAX epoch store's snapshot: the
+    same global slots, re-split by the same ``epoch_rows``, and the same
+    quantization and codebook."""
+    return EpochStore.restore(_host_snapshot(snap), device=device, **kwargs)
+
+
 def flat_from_jax_snapshot(snap: dict, device=None, **kwargs) -> FlatIndex:
     """The port's ``FlatIndex`` (store + id<->slot tables) from the JAX
-    ``FlatIndex.snapshot()``, plain or quantized."""
+    ``FlatIndex.snapshot()``, plain, quantized or epoch-backed."""
     out = _host_snapshot(snap)
     out["slot_to_id"] = np.asarray(snap["slot_to_id"], dtype=np.int64)
     return FlatIndex.restore(out, device=device, **kwargs)

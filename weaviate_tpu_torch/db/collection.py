@@ -5,12 +5,14 @@ no tenants).
 Reference: adapters/repos/db/index.go — putObject routes by sharding
 state, objectVectorSearch scatter-gathers across shards and merges by
 distance; keyword (bm25) and hybrid search scatter-gather the same way,
-and a hybrid query on one shard runs as one fused device program.
-Replication, tenants, backup/offload, remote shards and epoch migration
-are later slices of the port (ROADMAP Queue 1 items 3 and 7). The query
-and write methods keep the JAX package's ``tenant`` and ``consistency``
-keywords, which a collection without tenants or replicas ignores, as the
-JAX one does.
+and a hybrid query on one shard runs as one fused device program. Under
+a shard's memory quota the coldest sealed epoch of an epoch-backed index
+migrates to a sibling shard on this node behind durable routing markers
+(``migrate_epoch``). Replication, tenants, backup/offload and remote
+shards — the cross-node half of epoch migration among them — are a later
+slice of the port (ROADMAP Queue 1 item 7). The query and write methods
+keep the JAX package's ``tenant`` and ``consistency`` keywords, which a
+collection without tenants or replicas ignores, as the JAX one does.
 """
 
 from __future__ import annotations
@@ -101,6 +103,15 @@ class Collection:
         self.local_node = local_node
         self.sync_wal = sync_wal  # None = shard reads PERSISTENCE_WAL_SYNC
         self._lock = threading.RLock()
+        # reentrancy guard of the epoch memory-pressure rescue (a
+        # migration's target-side ingest runs admission too)
+        self._rescue_tls = threading.local()
+        # at most ONE epoch migration in flight per collection: the mover
+        # holds the SOURCE shard's lock across ingest + cutover, and
+        # serializing migrations means one thread at most ever nests two
+        # shard locks (no ABBA). RLock: a rescue fired from a migration's
+        # own target-side admission re-enters.
+        self._migrate_lock = threading.RLock()
         # striped read-modify-write locks (PATCH, reference adds)
         self._uuid_locks = [threading.RLock() for _ in range(64)]
         if sharding_state is None:
@@ -174,10 +185,16 @@ class Collection:
         # Shard objects (two WALs, two doc counters) for one shard
         with self._lock:
             if name not in self.shards:
-                self.shards[name] = Shard(
+                shard = Shard(
                     self.data_dir, self.config, name, sync_wal=self.sync_wal,
                     memwatch=self.memwatch,
                     async_indexing=self.async_indexing, device=self.device)
+                # admission rescue: compact tombstone-heavy epochs, then
+                # migrate the coldest sealed epoch to a sibling with
+                # headroom, BEFORE a 507 latches
+                shard.memory_rescue = (
+                    lambda s=shard: self._rescue_shard(s))
+                self.shards[name] = shard
             return self.shards[name]
 
     def _target_shards(self, tenant: str | None = None) -> list[Shard]:
@@ -200,10 +217,17 @@ class Collection:
             obj.vector = np.asarray(vector, dtype=np.float32)
         for name, vec in (vectors or {}).items():
             obj.vectors[name] = np.asarray(vec, dtype=np.float32)
-        shard_name = self.sharding.shard_for(uuid, None)
-        self._load_shard(shard_name).put_object_batch([obj])
+        self._write_to_shard(self.sharding.shard_for(uuid, None), [obj])
         monitoring.objects_total.labels(self.config.name, "put").inc()
         return uuid
+
+    def _write_to_shard(self, shard_name: str, objs: list[StorageObject]) -> None:
+        shard = self._load_shard(shard_name)
+        shard.put_object_batch(objs)
+        # clean any migrated sibling copy AFTER the fresh write landed: a
+        # 507 or crash before the write must leave the old copy intact
+        # (present twice is deduped; lost is lost)
+        self._unmigrate(shard, objs)
 
     def batch_put(self, objects: list[dict], tenant: str | None = None,
                   consistency: str = "QUORUM") -> list[dict]:
@@ -230,7 +254,7 @@ class Collection:
                                 "error": str(e)})
         for shard_name, objs in by_shard.items():
             try:
-                self._load_shard(shard_name).put_object_batch(objs)
+                self._write_to_shard(shard_name, objs)
                 monitoring.objects_total.labels(self.config.name, "put"
                                                 ).inc(len(objs))
             except MemoryError:
@@ -245,11 +269,30 @@ class Collection:
 
     def get_object(self, uuid: str, tenant: str | None = None,
                    consistency: str | None = None) -> StorageObject | None:
-        return self._load_shard(self.sharding.shard_for(uuid, None)).get_object(uuid)
+        name = self.sharding.shard_for(uuid, None)
+        shard = self._load_shard(name)
+        obj = shard.get_object(uuid)
+        if obj is None:
+            # epoch migration moved this object to a sibling: the durable
+            # marker keeps the routing right
+            dst = shard.migrated_to(uuid)
+            if dst and dst != name and self._is_local(dst):
+                return self._load_shard(dst).get_object(uuid)
+        return obj
 
     def delete_object(self, uuid: str, tenant: str | None = None,
                       consistency: str = "QUORUM") -> bool:
-        ok = self._load_shard(self.sharding.shard_for(uuid, None)).delete_object(uuid)
+        name = self.sharding.shard_for(uuid, None)
+        shard = self._load_shard(name)
+        ok = shard.delete_object(uuid)
+        # a migrated copy (or the crash window's second copy) lives at the
+        # marker's destination: delete it too so no copy remains, and
+        # drop the marker
+        dst = shard.migrated_to(uuid)
+        if dst and dst != name and self._is_local(dst):
+            ok = self._load_shard(dst).delete_object(uuid) or ok
+        if dst:
+            shard.clear_migrated(uuid)
         if ok:
             monitoring.objects_total.labels(self.config.name, "delete").inc()
         return ok
@@ -418,7 +461,10 @@ class Collection:
     @staticmethod
     def _merge_by_distance(gathered: list[list], k: int) -> list:
         """Cross-shard reduce: each shard's list is already ascending;
-        a stable merge keeps the first shard's entry on ties."""
+        a stable merge keeps the first shard's entry on ties. An epoch
+        migration's crash window can leave an object on two shards for a
+        while: it is never served twice (dedup by uuid, the best distance
+        first, over a merge of 2k so the k contract holds)."""
         lists = [g for g in gathered if g]
         if not lists:
             return []
@@ -433,8 +479,19 @@ class Collection:
                 d[li, pos] = r.distance
                 idx[li, pos] = len(flat)
                 flat.append(r)
-        _, out_i = native.merge_topk_host(d, idx, k=min(k, len(flat)))
-        return [flat[i] for i in out_i.tolist() if i >= 0]
+        _, out_i = native.merge_topk_host(d, idx, k=min(2 * k, len(flat)))
+        out, seen = [], set()
+        for i in out_i.tolist():
+            if i < 0:
+                continue
+            r = flat[i]
+            if r.uuid in seen:
+                continue
+            seen.add(r.uuid)
+            out.append(r)
+            if len(out) == k:
+                break
+        return out
 
     @staticmethod
     def _and_masks(a, b) -> np.ndarray:
@@ -695,6 +752,201 @@ class Collection:
         return DeviceResultHandle.ready(self.hybrid(
             query, vector, alpha, k, properties, vec_name, fusion, where,
             include_objects, autocut))
+
+    # -- epoch migration -----------------------------------------------------
+
+    def _unmigrate(self, shard: Shard, objs) -> None:
+        """A re-put at an object's ring home supersedes its migrated copy:
+        delete the sibling's copy and drop the routing marker, AFTER the
+        fresh write landed (a failed re-put must never have destroyed the
+        only copy first). Free when the shard never migrated anything."""
+        if shard._migrated_count <= 0:
+            return
+        for obj in objs:
+            dst = shard.migrated_to(obj.uuid)
+            if dst and dst != shard.name and self._is_local(dst):
+                self._load_shard(dst).delete_object(obj.uuid)
+            if dst:
+                shard.clear_migrated(obj.uuid)
+
+    def _sibling_with_headroom(self, src_name: str) -> str | None:
+        """The local sibling shard with the most memory headroom (the
+        smallest ledger footprint): the migration target. None when this
+        collection has no other local shard with room."""
+        from weaviate_tpu_torch.runtime.hbm_ledger import ledger
+
+        def over_quota(name: str) -> bool:
+            # from shards already loaded only: a cold shard holds no device
+            # tensors, and building shards mid-rescue is exactly wrong
+            # under memory pressure
+            sh = self.shards.get(name)
+            return sh is not None and sh.over_shard_limit()
+
+        best, best_bytes = None, None
+        for name in self.sharding.shard_names:
+            if name == src_name or not self._is_local(name):
+                continue
+            if over_quota(name):
+                continue  # no headroom there either
+            b = ledger.shard_bytes(self.config.name, name)
+            if best_bytes is None or b < best_bytes:
+                best, best_bytes = name, b
+        if best is None:
+            return None
+        if over_quota(src_name):
+            # quota pressure: any sibling under its quota IS headroom
+            return best
+        # otherwise only a meaningfully lighter sibling: moving between
+        # two equally full shards would bounce the epoch back next cycle
+        src_bytes = ledger.shard_bytes(self.config.name, src_name)
+        return best if best_bytes < src_bytes else None
+
+    def _remote_sibling_with_headroom(self, src_name: str) -> str | None:
+        """The cross-NODE half of epoch migration (a sibling placed on a
+        lighter node, shipped over the shard RPC) needs the cluster, ROADMAP
+        Queue 1 item 7. The port has no remote shard client: it finds no
+        remote sibling, and says so when one exists."""
+        remote = [n for n in self.sharding.shard_names
+                  if n != src_name and not self._is_local(n)]
+        if remote:
+            logger.info("epoch migration %s/%s: no local sibling with "
+                        "headroom; siblings %s are on other nodes, and "
+                        "cross-node migration is ROADMAP Queue 1 item 7",
+                        self.config.name, src_name, remote)
+        return None
+
+    def migrate_epoch(self, src_name: str, vec_name: str = "",
+                      dst_name: str | None = None) -> int:
+        """Migrate the coldest sealed epoch of ``src_name``'s epoch-backed
+        index to a sibling shard with headroom: the epoch's objects read
+        from the source's LSM store, a durable ingest at the target
+        (``Shard.put_object_batch``: the vectors land in the target's own
+        epochs), then the source cutover (``Shard.migrate_out``) and the
+        epoch's memory released (``drop_epoch``). Every object is served
+        EXACTLY once whatever the crash point: the routing markers go
+        first, the ring copy answers until the cutover, the marker after
+        it, and the window where both copies exist is deduped by uuid in
+        the merge. Returns the objects moved (0 = nothing to do).
+        Single-replica collections without tenants only."""
+        if (self.config.replication.factor > 1
+                or self.config.multi_tenancy.enabled
+                or not self._is_local(src_name)):
+            return 0
+        src = self._load_shard(src_name)
+        moved_total = 0
+        with self._migrate_lock:
+            for name, idx in list(src.vector_indexes.items()):
+                if vec_name and name != vec_name:
+                    continue
+                es = getattr(idx, "epoch_store", None)
+                if es is None:
+                    continue
+                eid = es.coldest_sealed()
+                if eid is None:
+                    continue
+                dst = dst_name or self._sibling_with_headroom(src_name)
+                if dst is None and dst_name is None:
+                    dst = self._remote_sibling_with_headroom(src_name)
+                if dst is None or dst == src_name:
+                    return moved_total
+                if not self._is_local(dst):
+                    logger.warning(
+                        "epoch migration %s/%s -> %s: the target is on "
+                        "another node; cross-node migration is ROADMAP "
+                        "Queue 1 item 7", self.config.name, src_name, dst)
+                    return moved_total
+                moved_total += self._migrate_one(src, idx, es, eid, dst)
+        return moved_total
+
+    def _migrate_one(self, src: Shard, idx, es, eid: int, dst: str) -> int:
+        """Move one epoch. Caller holds ``_migrate_lock``. The SOURCE
+        shard's lock spans serialize -> target ingest -> cutover, so a
+        concurrent put or delete of a moving uuid cannot land in the
+        unsynchronized window (the cutover would erase it, or the target's
+        old copy resurrect it); writers to the source queue behind the
+        move, for one epoch's ingest at most."""
+        from weaviate_tpu_torch.runtime import faultline
+
+        src_name = src.name
+        with src._lock:
+            doc_ids = idx.epoch_doc_ids(eid)
+            if not len(doc_ids):
+                es.drop_epoch(eid)
+                return 0
+            objs = [o for o in src.objects_by_doc_ids(doc_ids)
+                    if o is not None]
+            if not objs:
+                return 0
+            # 1) the durable routing markers FIRST: from here on deletes
+            #    and re-puts of a moving uuid reach BOTH sides wherever a
+            #    kill lands
+            src.mark_migrating([o.uuid for o in objs], dst)
+            faultline.fire("epoch.migrate.pre_ingest", shard=src_name,
+                           epoch=eid, docs=len(doc_ids))
+            try:
+                # 2) durable ingest at the target (fresh doc ids there)
+                self._load_shard(dst).put_object_batch(objs)
+            except MemoryError:
+                # the sibling hit ITS watermark: nothing was cut over and
+                # nothing landed there, so the markers come back off
+                for o in objs:
+                    src.clear_migrated(o.uuid)
+                logger.warning(
+                    "epoch migration %s/%s e%d -> %s aborted: target at "
+                    "watermark", self.config.name, src_name, eid, dst)
+                return 0
+            faultline.fire("epoch.migrate.post_ingest", shard=src_name,
+                           epoch=eid)
+            # 3) the source cutover (markers already durable)
+            src.migrate_out([o.uuid for o in objs], dst)
+            faultline.fire("epoch.migrate.post_cutover", shard=src_name,
+                           epoch=eid)
+            # 4) the now all-tombstone epoch's memory goes with its
+            #    ledger finalizers
+            es.drop_epoch(eid)
+            es.migrations_total += 1
+        monitoring.epoch_migrations.labels(self.config.name, src_name).inc()
+        logger.info("epoch migration: %s/%s e%d -> %s (%d objects)",
+                    self.config.name, src_name, eid, dst, len(objs))
+        return len(objs)
+
+    def epoch_maintenance(self) -> bool:
+        """One background policy cycle (the database's
+        ``epoch-maintenance`` cycle, which alone runs epoch upkeep):
+        per-shard seal / drop / compact — deletes give memory back here,
+        which relieves the device-global watermark — then migrate the
+        coldest sealed epoch off any shard over its per-shard quota to a
+        sibling with headroom instead of letting the quota 507 writes (a
+        local move cannot lower device-global use: the shards share the
+        card)."""
+        did = False
+        with self._lock:
+            shards = list(self.shards.values())
+        for shard in shards:
+            did = shard.epoch_maintenance() or did
+        for shard in shards:
+            if shard.over_shard_limit():
+                did = self.migrate_epoch(shard.name) > 0 or did
+        return did
+
+    def _rescue_shard(self, shard: Shard) -> bool:
+        """Synchronous memory-pressure rescue (``shard.memory_rescue``):
+        compact first — tombstone-heavy epochs give bytes back without
+        moving anything — then migrate the coldest sealed epoch to a
+        sibling with headroom. Runs once on the importing thread before
+        admission re-checks; the thread-local guard stops a migration's
+        own target-side ingest (which runs admission too) from cascading
+        rescues across the shards."""
+        if getattr(self._rescue_tls, "active", False):
+            return False
+        self._rescue_tls.active = True
+        try:
+            did = shard.epoch_maintenance()
+            if shard.over_shard_limit():
+                did = self.migrate_epoch(shard.name) > 0 or did
+            return did
+        finally:
+            self._rescue_tls.active = False
 
     # -- maintenance ---------------------------------------------------------
 

@@ -62,10 +62,16 @@ class Database:
         # background maintenance (reference: cyclemanager drives LSM
         # flush/compaction); off by default so embedded/test use stays
         # deterministic — the server entry point enables it. The JAX
-        # package also registers the epoch policy (ROADMAP Queue 1 item
-        # 3) and the driftwatch canaries (item 8); neither is ported.
+        # package also registers the driftwatch canaries (ROADMAP Queue 1
+        # item 8), which are not ported.
         self.cycles = CycleManager()
         self.cycles.register("lsm-maintenance", self._maintenance_cycle,
+                             maintenance_interval)
+        # the epoch policy: seal / compact / drop device epochs (deletes
+        # give memory back, which relieves the device-global watermark)
+        # and, at a shard's quota watermark, migrate its coldest sealed
+        # epoch to a sibling with headroom instead of refusing writes
+        self.cycles.register("epoch-maintenance", self._epoch_cycle,
                              maintenance_interval)
         if start_cycles:
             self.cycles.start()
@@ -76,6 +82,12 @@ class Database:
         for col in list(self.collections.values()):
             for shard in list(col.shards.values()):
                 did = shard.maintenance() or did
+        return did
+
+    def _epoch_cycle(self) -> bool:
+        did = False
+        for col in list(self.collections.values()):
+            did = col.epoch_maintenance() or did
         return did
 
     def _new_collection(self, config: CollectionConfig, sharding_state=None):

@@ -1,5 +1,6 @@
 """Shard: the unit of storage + indexing (port of ``weaviate_tpu/db/shard.py``
-for flat (plain or BQ/PQ-quantized) and noop vector indexes on one device).
+for flat (plain or BQ/PQ-quantized, one buffer or a stack of epochs) and
+noop vector indexes on one device).
 
 Owns an LSM KV store (objects bucket + docid mappings), one vector index
 per named vector, and the inverted index behind filters. Write path:
@@ -142,11 +143,19 @@ class Shard:
         self.meta = self.store.bucket(BUCKET_META, "replace")
         # deletion tombstones (uuid -> mtime ms), as the JAX shard keeps
         self.tombstones = self.store.bucket("tombstones", "replace")
+        # epoch-migration routing overrides (uuid -> destination shard),
+        # durable in the meta bucket; the in-memory count keeps the common
+        # case (no migration ever) a free check on reads and puts
+        self._migrated_count = sum(
+            1 for k in self.meta.keys() if k.startswith(b"migrated:"))
+        # memory-pressure rescue hook (db/collection.py wires it to epoch
+        # compaction + migration): called once when admission would 507,
+        # then admission re-checks before it refuses
+        self.memory_rescue = None
         # optional per-shard device-memory quota
-        # (WEAVIATE_TPU_SHARD_HBM_LIMIT_BYTES). The JAX package relieves
-        # it by migrating epochs (ROADMAP Queue 1 item 3); without that
-        # rescue hook a write past it is refused, as the JAX shard
-        # refuses when its hook is unset.
+        # (WEAVIATE_TPU_SHARD_HBM_LIMIT_BYTES): the watermark epoch
+        # migration exists for — moving the coldest sealed epoch to a
+        # sibling relieves THIS shard's ledger footprint
         try:
             self.shard_hbm_limit = int(os.environ.get(
                 "WEAVIATE_TPU_SHARD_HBM_LIMIT_BYTES", "0") or 0)
@@ -281,6 +290,24 @@ class Shard:
         if gate:
             nbytes = sum(int(np.asarray(v).nbytes)
                          for o in objs for v in o.vectors.values())
+            # optimistic rescue pass OUTSIDE the shard lock, so the hook
+            # (epoch compaction, then migrating the coldest sealed epoch
+            # to a sibling: db/collection.py) can touch sibling shards
+            # without a lock cycle; the authoritative check re-runs under
+            # the lock below. A read-only shard skips it and refuses
+            # with ShardReadOnlyError, not 507.
+            if not self.read_only:
+                try:
+                    self._admit_device_bytes(nbytes)
+                except MemoryError:
+                    if self.memory_rescue is None:
+                        raise
+                    try:
+                        self.memory_rescue()
+                    except Exception:  # noqa: BLE001 — best effort; the
+                        logger.exception(  # typed 507 below is the answer
+                            "shard %s/%s: memory-pressure rescue failed",
+                            self.collection_name, self.name)
         with self._lock:
             if self.read_only:
                 raise ShardReadOnlyError(
@@ -381,8 +408,7 @@ class Shard:
                 QueryBatcher(
                     idx.search_by_vector_batch,
                     supports_filter_batching=idx.supports_batched_filters,
-                    # the single-device store has the solo gathered cutover
-                    capacity_fn=lambda i=idx: i.store.capacity,
+                    capacity_fn=lambda i=idx: self._gathered_capacity(i),
                     async_batch_fn=(idx.search_by_vector_batch_async
                                     if self.async_pipeline else None),
                     # fused sparse+dense drain: hybrid rows ride the
@@ -393,6 +419,34 @@ class Shard:
                            "tenant": self._tenant_label()},
                 ))
         return b
+
+    @staticmethod
+    def _gathered_capacity(idx) -> int:
+        """The batcher's selectivity cutover: the store's capacity when it
+        has a solo gathered path, else 0 (never solo). One epoch at slot 0
+        IS a single store and keeps the cutover; a multi-epoch stack has
+        no host-remap solo path, so a selective filter rides the batched
+        bitmask there. Resolved per call: compress() swaps the store."""
+        es = getattr(idx, "epoch_store", None)
+        if es is not None:
+            return es.capacity if (not es.quantization
+                                   and es.epoch_count == 1) else 0
+        return idx.store.capacity
+
+    def epoch_token(self, vec_name: str = ""):
+        """A token that changes whenever the vector space's contents or
+        epoch layout change (per-epoch rows and live counts, the index
+        length): the key a canary's cached ground truth is held against
+        (driftwatch's canaries are ROADMAP Queue 1 item 8). None without
+        an index."""
+        idx = self.vector_indexes.get(vec_name)
+        if idx is None:
+            return None
+        es = getattr(idx, "epoch_store", None)
+        if es is not None:
+            return (tuple((e["epoch"], e["rows"], e["live"])
+                          for e in es.epoch_stats()), len(idx))
+        return (len(idx),)
 
     def _index_queue(self, vec_name: str, idx):
         q = self._index_queues.get(vec_name)
@@ -852,7 +906,7 @@ class Shard:
 
     def over_shard_limit(self, extra: int = 0) -> bool:
         """Is this shard's ledger footprint (+``extra``) past its quota
-        watermark?"""
+        watermark? The epoch policy migrates when this trips."""
         if not self.shard_hbm_limit:
             return False
         from weaviate_tpu_torch.runtime.hbm_ledger import ledger
@@ -861,6 +915,75 @@ class Shard:
                 if self.memwatch is not None else 0.9)
         used = ledger.shard_bytes(self.collection_name, self.name)
         return used + int(extra) > self.shard_hbm_limit * high
+
+    # -- epoch migration (db/collection.py orchestrates) ----------------------
+
+    def migrated_to(self, uuid: str) -> str | None:
+        """Destination shard of a migrated object, or None. The durable
+        marker keeps uuid routing correct after an epoch moved its objects
+        to a sibling; the in-memory count makes this free when no
+        migration ever happened."""
+        if self._migrated_count <= 0:
+            return None
+        v = self.meta.get(b"migrated:" + uuid.encode())
+        if v is None:
+            return None
+        return v.decode() if isinstance(v, (bytes, bytearray)) else str(v)
+
+    def clear_migrated(self, uuid: str) -> None:
+        """Drop a routing override (the object was re-put or deleted at
+        its ring home)."""
+        with self._lock:
+            if self.meta.get(b"migrated:" + uuid.encode()) is not None:
+                self.meta.delete(b"migrated:" + uuid.encode())
+                self._migrated_count = max(0, self._migrated_count - 1)
+
+    def mark_migrating(self, uuids: list[str], dst_name: str) -> None:
+        """Write the routing markers durably (one WAL frame) BEFORE the
+        destination ingest: a kill anywhere after this leaves every copy
+        findable — GETs prefer the ring copy and follow the marker only on
+        a miss, deletes and re-puts clean BOTH sides through it, search
+        dedups by uuid. A marker to a copy that never landed is harmless
+        for the same reasons."""
+        with self._lock:
+            keys = [b"migrated:" + u.encode() for u in uuids]
+            fresh = sum(1 for k in keys if self.meta.get(k) is None)
+            self.meta.put_many([(k, dst_name) for k in keys])
+            # re-marking an interrupted move must not inflate the count
+            self._migrated_count += fresh
+
+    def migrate_out(self, uuids: list[str], dst_name: str) -> int:
+        """Source-side cutover AFTER the destination acknowledged the
+        ingest (``mark_migrating`` wrote the markers before it): remove
+        the objects — batched index tombstones, inverted unindex, docid
+        and objects deletes. A kill before this leaves an object present
+        twice (never lost; the markers reach both copies); after it, reads
+        route through the markers to the destination."""
+        with self._lock:
+            keys = [u.encode() for u in uuids]
+            pairs = []
+            for u, k in zip(uuids, keys):
+                raw = self.docid.get(k)
+                if raw is not None:
+                    pairs.append((int(raw), u))
+            if pairs:
+                self._delete_docs_batch(pairs)
+            self.docid.delete_many(keys)
+            self.objects.delete_many(keys)
+            return len(pairs)
+
+    def epoch_maintenance(self) -> bool:
+        """Run the epoch policy for every epoch-backed index of this
+        shard: seal full active epochs, drop empty sealed ones, fold
+        tombstone-heavy ones (their memory goes back through the ledger
+        finalizers). Returns True when it did work (the cyclemanager's
+        backoff signal)."""
+        did = False
+        for idx in self.vector_indexes.values():
+            es = getattr(idx, "epoch_store", None)
+            if es is not None:
+                did = es.maintain() or did
+        return did
 
     # -- maintenance ---------------------------------------------------------
 
@@ -905,11 +1028,15 @@ class Shard:
             vector_index_compressed.labels(*labels).set(
                 1 if getattr(idx, "compressed", False) else 0)
             hbm = 0
-            for arr_name in ("vectors", "valid", "sq_norms", "codes",
-                             "rescore_rows"):
-                arr = getattr(store, arr_name, None)
-                if arr is not None and hasattr(arr, "nbytes"):
-                    hbm += int(arr.nbytes)
+            stores = ([ep.store for ep in store.epochs]
+                      if getattr(idx, "epoch_store", None) is not None
+                      else [store])
+            for st in stores:
+                for arr_name in ("vectors", "valid", "sq_norms", "codes",
+                                 "rescore_rows"):
+                    arr = getattr(st, arr_name, None)
+                    if arr is not None and hasattr(arr, "nbytes"):
+                        hbm += int(arr.nbytes)
             vector_index_hbm_bytes.labels(*labels).set(hbm)
         return did
 

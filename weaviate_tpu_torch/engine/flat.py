@@ -1,5 +1,5 @@
 """Flat (brute-force) vector index (port of ``weaviate_tpu/engine/flat.py``,
-plain or BQ/PQ-quantized, one device, no epochs).
+plain or BQ/PQ-quantized, one buffer or a stack of epochs, one device).
 
 Reference: adapters/repos/db/vector/flat/index.go (full scan). Here the
 full scan is the CUDA kernels' workload: one batched distance product over
@@ -19,6 +19,7 @@ import threading
 import numpy as np
 
 from weaviate_tpu_torch import native
+from weaviate_tpu_torch.engine.epochs import EpochStore
 from weaviate_tpu_torch.engine.quantized import QuantizedVectorStore
 from weaviate_tpu_torch.engine.store import DeviceVectorStore
 from weaviate_tpu_torch.runtime import hbm_ledger, tracing
@@ -54,11 +55,20 @@ class FlatIndex:
                  quantization: str | None = None,
                  selection: str = "approx", epoch_rows: int = 0,
                  device=None, **quant_kwargs):
-        if epoch_rows:
-            raise NotImplementedError("epoch stores: ROADMAP Queue 1 item 3")
         self.dim = dim
         self.metric = metric
-        if quantization:
+        if epoch_rows:
+            # epoch-stacked device corpus (engine/epochs.py): writes land
+            # in a small active epoch, sealed epochs are immutable,
+            # tombstone-heavy ones compact in the background and the
+            # coldest can migrate to a sibling shard under memory pressure
+            self.store = EpochStore(
+                dim=dim, metric=metric, epoch_rows=epoch_rows,
+                capacity=capacity, dtype=dtype, mesh=mesh,
+                chunk_size=chunk_size, selection=selection,
+                quantization=quantization,
+                quant_kwargs=quant_kwargs or None, device=device)
+        elif quantization:
             self.store = QuantizedVectorStore(
                 dim=dim, metric=metric, quantization=quantization,
                 capacity=capacity, chunk_size=chunk_size, mesh=mesh,
@@ -134,6 +144,8 @@ class FlatIndex:
     @property
     def compressed(self) -> bool:
         """Reference Compressed() (vector_index.go:37)."""
+        if isinstance(self.store, EpochStore):
+            return bool(self.store.quantization)
         return isinstance(self.store, QuantizedVectorStore)
 
     def search_by_vector(self, query: np.ndarray, k: int,
@@ -222,6 +234,10 @@ class FlatIndex:
         so the id<->slot tables carry over untouched."""
         with self._lock:
             old = self.store
+            if isinstance(old, EpochStore):
+                if old.quantization:
+                    raise RuntimeError("index is already compressed")
+                return self._compress_epochs(old, quantization, **quant_kwargs)
             if isinstance(old, QuantizedVectorStore):
                 raise RuntimeError("index is already compressed")
             snap = old.snapshot()
@@ -248,14 +264,60 @@ class FlatIndex:
             new._count = snap["count"]
             self.store = new
 
+    def _compress_epochs(self, old: EpochStore, quantization: str,
+                         **quant_kwargs) -> None:
+        """Compression that keeps the epochs: the quantized twin keeps the
+        SAME global slot layout (epochs re-split by ``epoch_rows``), so the
+        id <-> slot tables carry over untouched. Caller holds ``_lock``."""
+        snap = old.snapshot()
+        own = old._owner or hbm_ledger.current_owner()
+        with hbm_ledger.owner(**own):
+            new = EpochStore(
+                dim=self.dim, metric=self.metric,
+                epoch_rows=old.epoch_rows, chunk_size=old.chunk_size,
+                selection=old.selection, quantization=quantization,
+                quant_kwargs=quant_kwargs, device=old.device)
+        live = np.nonzero(snap["valid"])[0]
+        live_vecs = snap["vectors"][live]
+        if quantization == "pq":
+            centroids = new._quant_kwargs.get("pq_centroids", 16)
+            if len(live) < centroids:
+                raise RuntimeError(
+                    f"need >= {centroids} live vectors to train PQ, "
+                    f"have {len(live)}")
+        new._restore_rows(live, snap["vectors"], int(snap["count"]))
+        if quantization == "pq":
+            new.train(live_vecs)
+        self.store = new
+
+    # -- epoch hooks (engine/epochs.py; db/collection.py migration) -----------
+
+    @property
+    def epoch_store(self) -> EpochStore | None:
+        """The backing ``EpochStore`` when this index is epoch-backed, else
+        None (the maintenance policy keys on this)."""
+        return self.store if isinstance(self.store, EpochStore) else None
+
+    def epoch_doc_ids(self, eid: int) -> np.ndarray:
+        """Doc ids of one epoch's live rows: the unit the migration policy
+        moves to a sibling shard."""
+        es = self.epoch_store
+        if es is None:
+            return np.empty(0, np.int64)
+        with self._lock:
+            gslots = es.live_globals_of(eid)
+            gslots = gslots[gslots < len(self._slot_to_id)]
+            ids = self._slot_to_id[gslots]
+            return ids[ids >= 0]
+
     # -- hybrid dataplane ------------------------------------------------------
 
     @property
     def supports_device_hybrid(self) -> bool:
         """True when this index can run the fused sparse+dense hybrid
-        program: the plain device store only — the quantized store keeps
-        the host hybrid path (its handles don't expose raw (dist, slot)
-        arrays in store-slot space)."""
+        program: the plain device store only — the quantized and epoch
+        stores keep the host hybrid path (their handles don't expose raw
+        (dist, slot) arrays in store-slot space)."""
         return type(self.store) is DeviceVectorStore
 
     def slots_for_doc_ids(self, doc_ids) -> np.ndarray:
@@ -390,17 +452,20 @@ class FlatIndex:
 
     @classmethod
     def restore(cls, snap: dict, mesh=None, **kwargs) -> "FlatIndex":
-        if snap.get("epoch_rows"):
-            raise NotImplementedError("epoch stores: ROADMAP Queue 1 item 3")
         idx = cls.__new__(cls)
         idx.dim = snap["dim"]
         idx.metric = snap["metric"]
-        if snap.get("quantization"):
+        if snap.get("epoch_rows"):
+            idx.store = EpochStore.restore(snap, mesh=mesh, **kwargs)
+        elif snap.get("quantization"):
             idx.store = QuantizedVectorStore.restore(snap, mesh=mesh, **kwargs)
         else:
             idx.store = DeviceVectorStore.restore(snap, mesh=mesh, **kwargs)
         idx._lock = threading.RLock()
         slot_to_id = snap["slot_to_id"]
+        # an epoch store sealed early keeps an active epoch's unused range,
+        # so the table can be wider than the re-split store's capacity:
+        # size to the larger so no entry is dropped
         size = max(idx.store.capacity, len(slot_to_id))
         idx._slot_to_id = np.full(size, -1, dtype=np.int64)
         idx._slot_to_id[: len(slot_to_id)] = slot_to_id

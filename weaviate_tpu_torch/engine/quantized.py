@@ -19,8 +19,8 @@ rescore modes pick where full-precision candidates come from:
   (``ops/candidates.gather_rescore_topk``).
 - ``"none"``: codes only. Results are code-distance ordered.
 
-The mesh (row-sharded) form is ROADMAP Queue 1 item 6, the epoch store's
-``epoch_scan`` Queue 1 item 3.
+The mesh (row-sharded) form is ROADMAP Queue 1 item 6. ``epoch_scan`` is
+the epoch store's per-epoch dispatch (engine/epochs.py).
 """
 
 from __future__ import annotations
@@ -115,6 +115,10 @@ class QuantizedVectorStore:
         # survivor selector of the scan-reduce kernels: "approx" (exact
         # selection in the port) or "fused" (fused_topk_pairs)
         selection: str = "approx",
+        # memory-ledger component suffix ("@e3" for an epoch's store):
+        # codes / prefix / rescore rows / codebook register as "codes@e3"
+        # and so on, so each epoch's bytes are seen and released alone
+        component_suffix: str = "",
         device=None,
     ):
         if mesh is not None:
@@ -142,6 +146,7 @@ class QuantizedVectorStore:
         self.pq_segments = pq_segments or pq_ops.default_pq_segments(dim, pq_centroids)
         self.pq_centroids = pq_centroids
         self.codebook = codebook
+        self.component_suffix = component_suffix
         self.normalize_on_add = (
             metric in ("cosine", "cosine-dot")
             if normalize_on_add is None
@@ -211,7 +216,7 @@ class QuantizedVectorStore:
 
         def _set(component, nbytes, dtype):
             hbm_ledger.ledger.set_keyed(
-                self._hbm_keys, component,
+                self._hbm_keys, component + self.component_suffix,
                 nbytes, owner=self._hbm_owner, dtype=dtype, sharding="single")
 
         _set("codes", int(self.codes.nbytes) + int(self.valid.nbytes),
@@ -419,9 +424,10 @@ class QuantizedVectorStore:
         return self._vectors_for(slots).copy()
 
     def _scan(self, queries_dev: torch.Tensor, k_cand: int, valid: torch.Tensor,
-              allow_bits: torch.Tensor | None = None):
+              allow_bits: torch.Tensor | None = None, reduce_l: int | None = None):
         """Dispatch the compressed scan; ``allow_bits`` [B, C/32] int32
-        packed per-query allow words."""
+        packed per-query allow words. ``reduce_l`` overrides the one-pass
+        scans' strided reduction (default: from this store's capacity)."""
         cs = min(self.chunk_size, self.capacity)
         metric = self._scan_metric()
         if self.quantization == "pq":
@@ -438,7 +444,7 @@ class QuantizedVectorStore:
                 return pq_ops.pq4_topk(
                     queries_dev, self.codes, cent, k=k_cand, chunk_size=cs,
                     metric=metric, valid=valid, selection=self.selection,
-                    allow_bits=allow_bits)
+                    allow_bits=allow_bits, reduce_l=reduce_l)
             return pq_ops.pq_topk(
                 queries_dev, self.codes, cent, k=k_cand, chunk_size=cs,
                 metric=metric, valid=valid, allow_bits=allow_bits)
@@ -452,7 +458,7 @@ class QuantizedVectorStore:
         return bq_ops.bq_topk(
             qw, self.codes, k=k_cand, chunk_size=cs, valid=valid,
             use_pallas=self.use_pallas, selection=self.selection,
-            allow_bits=allow_bits)
+            allow_bits=allow_bits, reduce_l=reduce_l)
 
     def rescore_mode(self) -> str:
         """Where the exact rescore happens: ``"plane"`` (bf16 rows on the
@@ -464,6 +470,44 @@ class QuantizedVectorStore:
         if self._host_vectors is not None:
             return "post"
         return "none"
+
+    def epoch_scan(self, queries: np.ndarray, k_cand: int,
+                   allow_mask: np.ndarray | None = None,
+                   pre_normalized: bool = False, reduce_l: int | None = None):
+        """Dispatch-only compressed scan for the epoch store: the
+        candidates stay on the device with store-local ids for the
+        cross-epoch merge; the one global host rescore runs in the epoch
+        store's finish step against the returned dispatch-time tier
+        snapshot. ``pre_normalized`` skips the query normalization when
+        the epoch store normalized once for every epoch (normalizing per
+        epoch would not be bit for bit the single store's). ``reduce_l``
+        is the strided reduction of the whole stack's slot space (see
+        ``EpochStore``). Returns ``(d, i, tiers)``."""
+        queries = np.asarray(queries, dtype=np.float32)
+        if not pre_normalized:
+            queries = self._maybe_norm(queries)
+        if not torch.is_tensor(allow_mask):  # else [B, cap] rows on the device
+            allow_mask = normalize_allow_mask(allow_mask, len(queries))
+        with self._lock:
+            if not self.trained:
+                raise RuntimeError("PQ store not trained; call train() first")
+            capacity = self.capacity
+            valid = self.valid
+            allow_bits = None
+            if allow_mask is not None and allow_mask.ndim == 2:
+                allow_bits = batched_mask_operands(
+                    allow_mask, len(queries), capacity, self.device,
+                    owner=self._hbm_owner)
+            elif allow_mask is not None:
+                full = np.zeros(capacity, dtype=bool)
+                w = min(len(allow_mask), capacity)
+                full[:w] = allow_mask[:w]
+                valid = valid & torch.from_numpy(full).to(self.device)
+            q_dev = torch.from_numpy(np.ascontiguousarray(queries)).to(self.device)
+            d, i = self._scan(q_dev, min(k_cand, capacity), valid,
+                              allow_bits=allow_bits, reduce_l=reduce_l)
+            tiers = (self._host_vectors, self.rescore_rows)
+        return d, i, tiers
 
     def search(self, queries: np.ndarray, k: int, allow_mask: np.ndarray | None = None):
         """Two stages: compressed scan (oversampled) -> exact rescore

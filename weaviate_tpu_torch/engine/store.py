@@ -80,17 +80,20 @@ def batched_mask_operands(allow_mask, n_queries: int, capacity: int, device,
                           owner: dict | None = None):
     """[B, capacity] per-query mask -> packed allow words on the device,
     under a ``store.mask_pack`` span. A CUDA store uploads the bool rows
-    and packs them on the card (``pack_allow_bitmask_t``); a CPU store
-    packs with numpy (``pack_allow_bitmask``). Both give the same words.
+    (unless they are a tensor on the card already) and packs them there
+    (``pack_allow_bitmask_t``); a CPU store packs with numpy
+    (``pack_allow_bitmask``). Both give the same words.
     ``owner`` labels the transient device buffer in the memory ledger
     (tracked for the buffer's lifetime)."""
     with tracing.span("store.mask_pack", queries=n_queries):
         n_cols = mask_pad_cols(capacity)
         if torch.device(device).type == "cuda":
-            rows = torch.from_numpy(
+            rows = allow_mask if torch.is_tensor(allow_mask) else torch.from_numpy(
                 np.ascontiguousarray(allow_mask, dtype=bool)).to(device)
             bits = pack_allow_bitmask_t(rows, n_cols)
         else:
+            if torch.is_tensor(allow_mask):
+                allow_mask = allow_mask.numpy()
             bits = as_bits_tensor(pack_allow_bitmask(allow_mask, n_cols),
                                   device)
         hbm_ledger.ledger.track("allow_bitmask", bits, **(owner or {}))
@@ -445,6 +448,42 @@ class DeviceVectorStore:
             attrs={"rows": capacity, "queries": len(queries), "k": k,
                    "path": "gathered" if slot_buf is not None else "device"})
 
+    def epoch_scan(self, queries: np.ndarray, k: int,
+                   allow_mask: np.ndarray | None = None):
+        """Dispatch-only scan for the epoch store (engine/epochs.py): the
+        top-k of THIS store alone, ids store-local, results left on the
+        device for the cross-epoch merge. ``allow_mask`` is this epoch's
+        column slice of the global filter ([cap] shared, or [B, cap]
+        per-query rows, numpy or a bool tensor on the store's device).
+        The gathered cutover is not taken here: its remap is
+        a host finish step, and the merge needs the raw device candidates
+        (a single-epoch store keeps the cutover through its ``search``
+        passthrough). Returns (d [B, k] f32, i [B, k] int32) on the
+        device."""
+        queries = np.asarray(queries, dtype=np.float32)
+        if not torch.is_tensor(allow_mask):
+            allow_mask = normalize_allow_mask(allow_mask, len(queries))
+        with self._lock:
+            self._flush_staged_locked()
+            vectors, valid, norms = self.vectors, self.valid, self.sq_norms
+            capacity = self.capacity
+            allow_bits = None
+            if allow_mask is not None and allow_mask.ndim == 2:
+                allow_bits = batched_mask_operands(
+                    allow_mask, len(queries), capacity, self.device,
+                    owner=self._hbm_owner)
+            elif allow_mask is not None:
+                full = np.zeros(capacity, dtype=bool)
+                w = min(len(allow_mask), capacity)
+                full[:w] = allow_mask[:w]
+                valid = valid & torch.from_numpy(full).to(self.device)
+            return chunked_topk_distances(
+                torch.from_numpy(queries).to(self.device), vectors,
+                k=min(k, capacity), chunk_size=min(self.chunk_size, capacity),
+                metric=self._scan_metric(), valid=valid, x_sq_norms=norms,
+                use_pallas=self.use_pallas, selection=self.selection,
+                allow_bits=allow_bits)
+
     def _dispatch_gathered(self, queries: np.ndarray, k: int,
                            allowed: np.ndarray):
         """Filtered search at low selectivity: gather the allowed rows
@@ -497,7 +536,15 @@ class DeviceVectorStore:
             self._live_count = 0  # set_at below re-marks the live rows
             self._alloc(new_cap)
             if len(live):
-                self.set_at(np.arange(len(live)), vec_np)
+                # the rows were normalized at their insert: they go back as
+                # they are. (The JAX store normalizes them again here, which
+                # can move a cosine row's last bit; ROADMAP Queue 3.)
+                orig = self.normalize_on_add
+                self.normalize_on_add = False
+                try:
+                    self.set_at(np.arange(len(live)), vec_np)
+                finally:
+                    self.normalize_on_add = orig
             return mapping
 
     # -- persistence hooks ---------------------------------------------------

@@ -44,33 +44,48 @@ _lock = threading.Lock()
 build_seconds: float | None = None  # the g++ run of this process, if it built
 
 
+def _hashed_path(src: str, stem: str, flags) -> str:
+    h = hashlib.sha1(" ".join(flags).encode())
+    with open(src, "rb") as f:
+        h.update(f.read())
+    return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:12]}.so")
+
+
 def library_path() -> str:
     """Where the library for the current source and flags lives."""
-    h = hashlib.sha1(" ".join(CXX_FLAGS).encode())
-    with open(SRC, "rb") as f:
-        h.update(f.read())
-    return os.path.join(BUILD_DIR, f"weaviate_native-{h.hexdigest()[:12]}.so")
+    return _hashed_path(SRC, "weaviate_native", CXX_FLAGS)
 
 
-def _build_and_load():
-    """Build if needed, then dlopen. Returns the CDLL, or None: the numpy
-    path is safer than a library that failed to build or load."""
-    global build_seconds
+def build_and_load(src: str, so: str, link=()):
+    """Build ``src`` with ``CXX_FLAGS`` (then ``link``) into ``so`` unless
+    it is there, then dlopen it. Returns ``(CDLL, seconds g++ took or
+    None)``, or ``(None, None)``: the caller's fallback is safer than a
+    library that failed to build or load. Shared with the data plane's
+    loader (dataplane.py)."""
     if os.environ.get("WEAVIATE_TPU_NO_NATIVE"):
-        return None
+        return None, None
     try:
-        so = library_path()
+        built = None
         if not os.path.exists(so):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{so}.{os.getpid()}.tmp"
             t0 = time.perf_counter()
-            subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, SRC], check=True,
-                           capture_output=True, timeout=300, cwd=os.path.dirname(SRC))
+            subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, src, *link], check=True,
+                           capture_output=True, timeout=300, cwd=os.path.dirname(src))
             os.replace(tmp, so)  # atomic: no process loads a half-written file
-            build_seconds = time.perf_counter() - t0
-        return ctypes.CDLL(so)
+            built = time.perf_counter() - t0
+        return ctypes.CDLL(so), built
     except (OSError, subprocess.SubprocessError):
-        return None
+        return None, None
+
+
+def _build_and_load():
+    """The host library's build and dlopen (see ``build_and_load``)."""
+    global build_seconds
+    lib, built = build_and_load(SRC, library_path())
+    if built is not None:
+        build_seconds = built
+    return lib
 
 
 def _load():

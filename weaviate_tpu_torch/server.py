@@ -167,13 +167,25 @@ class Server:
         cfg = self.config
         from weaviate_tpu_torch.api.grpc.server import GrpcServer
 
+        use_native_plane = False
         if os.environ.get("WEAVIATE_TPU_NATIVE_DATAPLANE") == "1" \
                 and self.auth is None:
-            # the native data plane (C++ over nghttp2) is ROADMAP Queue 1
-            # item 2; the JAX server serves the Python gRPC server the same
-            # way when its library is absent (server.py:167-186)
-            logger.info("native gRPC data plane not ported (ROADMAP Queue 1 "
-                        "item 2): serving the Python gRPC server")
+            from weaviate_tpu_torch import dataplane
+
+            # without the library (or libnghttp2.so.14) the Python gRPC
+            # server serves, as the JAX server does
+            use_native_plane = dataplane.available()
+        if use_native_plane:
+            # the C++ transport serves the port; the (unstarted) GrpcServer
+            # donates its handler logic to the fallback path
+            from weaviate_tpu_torch.api.grpc.native_plane import NativeDataPlane
+
+            handlers = GrpcServer(self.db, host=cfg.host, port=0,
+                                  modules=self.modules, auth=None)
+            plane = NativeDataPlane(self.db, handlers, host=cfg.host,
+                                    port=cfg.grpc_port).start()
+            logger.info("native gRPC data plane enabled")
+            return plane
         return GrpcServer(self.db, host=cfg.host, port=cfg.grpc_port,
                           modules=self.modules, auth=self.auth).start()
 
