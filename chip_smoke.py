@@ -15,6 +15,7 @@ Run from the repository root:
     python3 chip_smoke.py --import-times # phases 0-1, the FiQA-sized text import and a
                                          # 100,000-row vector batch_put with the native
                                          # host library, without it, and with it again
+    python3 chip_smoke.py --ann-only [--ann-rows N]  # phases 0-1 and 11 only
 
 It drives the port's flat nearVector path at VectorDBBench's
 Performance768D1M case (Cohere wiki-22-12: 1,000,000 x 768, cosine,
@@ -170,7 +171,35 @@ is downloaded), in phases:
    fused_topk_pairs is held to its plain version and timed at the epoch
    merge's shapes [256 / 8, 8 x k], k = 10 and 100, beside torch.topk.
 
-Phases 5, 6, 7, 8, 9a, 9b, 9c and 10 each reset the launch counters as they start
+11. ANN indexes, last, at the SIFT1M row of Weaviate's published ANN
+   benchmark (1,000,000 x 128, l2-squared, maxConnections 32,
+   efConstruction 128, limit 10; ``--ann-rows`` cuts the depth), 1,000
+   queries (half near a row, half fresh), exact answers in f64 on the
+   card. 11a: ``HNSWIndex(device="cuda")`` bulk-built in one add_batch
+   (the kNN graph through fused_topk_scan on a bf16 copy, the link
+   selection in torch), each stage's seconds, the C++ walker at ef 64 /
+   128 / 256 / 512 from 8 threads (recall@10 >= 0.95 at ef 512), 2,000
+   incremental inserts and 10,000 deletes (no deleted id), a snapshot and
+   restore answering identically, and a 50,000-row subset whose
+   card-built graph must read recall@10 at ef 64 within 0.01 of the host
+   path's; then fused_topk_scan at the build's shape against its plain
+   version, addmm + topk and its bound. 11b: ``IVFIndex(nlist=1024,
+   device="cuda")``, train / assign / scatter seconds, 256-query batches
+   at nprobe 8 / 16 / 32 unfiltered and under 10% per-query filters (no
+   deleted or disallowed id), nprobe = nlist recall 1.0, async == sync,
+   5,000 delta rows each finding itself first, then ``compress("pq")``
+   and the sweep again (within 0.05 of f32 IVF at nprobe 32). 11c: a
+   ``vectorIndexType: "dynamic"`` collection importing 200,000 rows
+   through batch_put (flat answers exact below the threshold, the
+   upgrade's seconds, recall at the automatic nprobe), a maintain() tick,
+   close and reopen (full-probe answers with the same ids and distances
+   within 1e-6); then a Server whose REST-created hnsw class
+   (maxConnections 32, efConstruction 128) imports 20,000 rows over REST
+   and answers 64 GraphQL and gRPC nearVector queries identically to the
+   in-process ones. 11a must launch fused_topk_scan and fused_topk_pairs,
+   11b distance_block and fused_topk_pairs.
+
+Phases 5, 6, 7, 8, 9a, 9b, 9c, 10 and 11 each reset the launch counters as they start
 and read them as they end: every kernel in QUANT_KERNELS must have run in
 phases 5 and 6, and ``bm25_block`` and ``distance_block`` in phase 7,
 whose run (d) must launch ``fused_topk_scan``.
@@ -208,7 +237,9 @@ QUERIES = 1024
 CHUNK = 8192
 ADD_BATCH = 65_536
 IMPORT_BATCH = 10_000
-IMPORT_BUDGET_S = 300.0  # phase 4 cuts its row count past this
+# phase 4 cuts its row count past this: 60 s (~530,000 rows) since phase
+# 11 joined the script, which keeps it within its time limit (PERF.md)
+IMPORT_BUDGET_S = 60.0
 IMPORT_ROWS = 100_000    # --import-times' vector batch_put
 # calls per client in phase 6 (CALLS) and phase 4 (PLAIN_CALLS), and phase
 # 4's queries after its deletes: cut so that phase 7's FiQA-sized hybrid
@@ -4162,6 +4193,605 @@ def merge_times(torch, K) -> dict:
     return out
 
 
+# -- phase 11: the ANN indexes on the card -------------------------------------
+#
+# The SIFT1M row of Weaviate's published ANN benchmark
+# (weaviate.io/developers/weaviate/benchmarks/ann): 1,000,000 x 128,
+# l2-squared, maxConnections 32, efConstruction 128, an ef sweep, limit 10
+# (also the JAX package's HNSW defaults). The vectors are clustered
+# Gaussians made from --seed (no SIFT file is in the repository).
+
+ANN_DIM = 128
+ANN_ROWS = 1_000_000
+ANN_QUERIES = 1000        # half near a row, half fresh draws
+ANN_K = 10
+ANN_M, ANN_EFC = 32, 128
+ANN_EFS = (64, 128, 256, 512)
+ANN_RECALL_EF512 = 0.95   # hard limit of 11a
+ANN_SUBSET = 50_000       # card-built vs host-built graph
+ANN_SUBSET_TOL = 0.01
+ANN_INSERTS, ANN_DELETES = 2000, 10_000
+ANN_NLIST = 1024
+ANN_NPROBES = (8, 16, 32)
+ANN_BATCH = 256
+ANN_FULL_PROBE = 16       # queries of the nprobe = nlist check
+ANN_DELTA_ROWS = 5000     # stay below the delta's 8,192-row flush
+ANN_PQ_TOL = 0.05         # IVF-PQ within this recall of f32 IVF at nprobe 32
+DYN_ROWS, DYN_FIRST = 200_000, 5000
+ANN_SERVER_ROWS, ANN_SERVER_QUERIES = 20_000, 64
+ANN_KERNELS = {"11a": ("fused_topk_scan", "fused_topk_pairs"),
+               "11b": ("distance_block", "fused_topk_pairs")}
+
+
+ANN_SUBSPACE = 16         # the corpus's intrinsic dimension
+ANN_NOISE = 0.05          # isotropic noise a dimension on top of it
+
+
+def ann_rows(seed: int, key: int, count: int) -> np.ndarray:
+    """``count`` rows of the 128-d corpus drawn under ``key``: one of
+    1,024 centres plus noise of a per-row scale (0.3-1.2), as clustered()
+    draws them, but in a 16-dimensional subspace shared by every cluster,
+    then mapped to 128 dims, plus small isotropic noise. SIFT's
+    descriptors have a low intrinsic dimension and form no islands. Two
+    other recipes fail the benchmark's recall for the data's sake, not the
+    index's: isotropic 128-d noise (clustered() as it is: the JAX
+    package's host-path graph reads recall@10 0.73 at ef 512 on 20 such
+    clusters of 1,000 rows, a CPU run), and a subspace per cluster, whose
+    clusters are islands that the bulk build's exact kNN lists never
+    bridge (PERF.md, "Open questions")."""
+    space = np.random.default_rng([seed, 1 << 42])
+    basis = space.standard_normal((ANN_SUBSPACE, ANN_DIM), dtype=np.float32) \
+        / np.float32(np.sqrt(ANN_SUBSPACE))
+    cent = space.standard_normal((1024, ANN_SUBSPACE), dtype=np.float32)
+    rng = np.random.default_rng([seed, 1 << 43, key])
+    assign = rng.integers(0, len(cent), count)
+    scale = rng.uniform(0.3, 1.2, (count, 1)).astype(np.float32)
+    w = cent[assign] + scale * rng.standard_normal((count, ANN_SUBSPACE), dtype=np.float32)
+    return w @ basis + ANN_NOISE * rng.standard_normal((count, ANN_DIM), dtype=np.float32)
+
+
+def ann_corpus(seed: int, n: int) -> np.ndarray:
+    return ann_rows(seed, 0, n)
+
+
+def ann_queries(seed: int, X: np.ndarray, n: int = ANN_QUERIES) -> np.ndarray:
+    """Half next to a corpus row (noise ANN_NOISE a dimension), half fresh
+    draws from the clusters."""
+    rng = np.random.default_rng([seed, 111])
+    near = X[rng.integers(0, len(X), n // 2)]
+    near = near + ANN_NOISE * rng.standard_normal(near.shape, dtype=np.float32)
+    return np.concatenate([near, ann_rows(seed, 1 << 30, n - n // 2)]).astype(np.float32)
+
+
+def ann_truth(torch, X64, q: np.ndarray, k: int = ANN_K, dead=None, allow=None):
+    """Exact top-k ids [B, k] (numpy) by l2 in f64 on the card. ``dead``
+    [N] bool rows never count; ``allow`` [B, N] bool per query."""
+    out = []
+    for s in range(0, len(q), 250):
+        qb = torch.from_numpy(q[s:s + 250]).to("cuda").double()
+        d = (qb * qb).sum(1, keepdim=True) - 2.0 * qb @ X64.T + (X64 * X64).sum(1)[None]
+        if dead is not None:
+            d[:, dead] = float("inf")
+        if allow is not None:
+            d = torch.where(allow[s:s + 250], d, torch.full_like(d, float("inf")))
+        out.append(torch.topk(d, k, dim=1, largest=False).indices.cpu().numpy())
+        del d
+    return np.concatenate(out)
+
+
+def ann_recall(got, truth) -> float:
+    return float(np.mean([len(set(g[g >= 0].tolist()) & set(t.tolist())) / len(t)
+                          for g, t in zip(got, truth)]))
+
+
+def _build_scan_times(torch, K, X: np.ndarray, timer) -> str:
+    """fused_topk_scan at the bulk build's shape: 1,024 corpus rows as
+    queries against the bf16 copy of the corpus, k 49, l2 norms from the
+    f32 rows; held to its plain version, timed beside addmm + topk.
+    Returns (its text, whether it equalled the plain version)."""
+    xf = torch.from_numpy(X).to("cuda")
+    xb = xf.to(torch.bfloat16)
+    norms = (xf * xf).sum(1)
+    del xf
+    q = xb[:1024]
+    k = 49
+    kd, ki = K.fused_topk_scan(q, xb, k, metric="l2-squared", x_sq_norms=norms)
+    pd, pi = K.fused_topk_scan_plain(q, xb, k, "l2-squared", None, norms)
+    if not (torch.equal(ki, pi) and torch.equal(kd, pd)):
+        bad = int((ki != pi).sum())
+        return (f"fused_topk_scan at the build shape != its plain version ({bad} ids, "
+                f"{int((kd != pd).sum())} distances differ)"), False
+    ms = timer(lambda: K.fused_topk_scan(q, xb, k, metric="l2-squared", x_sq_norms=norms),
+               reps=5)
+    qf, xt = q.float(), xb.float().T.contiguous()
+
+    def lib():
+        d = torch.addmm(norms[None, :], qf, xt, alpha=-2.0)
+        return torch.topk(d, k, dim=1, largest=False)
+
+    lib_ms = timer(lib, reps=5)
+    n, d = xb.shape
+    bm, by = bound_ms(n * d * 2 + 1024 * d * 2 + n * 4 + 1024 * k * 8,
+                      2.0 * 1024 * n * d, BF16_FLOPS)
+    del xb, xt, qf, norms
+    torch.cuda.empty_cache()
+    return (f"fused_topk_scan at the build shape [1024, {d}] x [{n}, {d}] bf16, k {k}: "
+            f"equal to its plain version, kernel {ms:.3f} ms, addmm + topk {lib_ms:.3f} ms, "
+            f"bound {bm:.4f} ms ({by}, {bm / ms:.1%})"), True
+
+
+def _layer0_components(idx) -> str:
+    """Strongly connected components of the graph's layer 0 (scipy): a
+    bulk-built graph over clusters that its kNN lists never bridge falls
+    apart into islands, and a walk cannot leave the one it enters."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    n = idx._count
+    links = [idx._links[s][0] if idx._links[s] else np.empty(0, np.int32)
+             for s in range(n)]
+    lens = np.fromiter((len(x) for x in links), dtype=np.int64, count=n)
+    cols = np.concatenate(links).astype(np.int32)
+    indptr = np.concatenate([[0], np.cumsum(lens)])
+    g = csr_matrix((np.ones(len(cols), np.int8), cols, indptr), shape=(n, n))
+    comps, labels = connected_components(g, directed=True, connection="strong")
+    return (f"layer 0 has {comps} strongly connected components, the largest "
+            f"{np.bincount(labels).max() / n:.4f} of the rows")
+
+
+def _hnsw_search(idx, queries, ef: int):
+    idx.ef = ef
+    out, lat, wall = _run_clients(lambda i: idx.search_by_vector(queries[i], ANN_K), len(queries))
+    ids = np.full((len(queries), ANN_K), -1, np.int64)
+    dists = np.full((len(queries), ANN_K), np.inf, np.float32)
+    for r, (i, d) in enumerate(out):
+        ids[r, :len(i)] = i
+        dists[r, :len(d)] = d
+    return ids, dists, len(queries) / wall
+
+
+def phase_ann_hnsw(torch, K, seed: int, X, X64, queries, truth, timer) -> dict:
+    """11a: HNSW bulk-built on the card, searched through the C++ walker.
+    Each part logs its line as it ends; the hard limits are checked at the
+    end, so a failing run still prints every reading."""
+    from weaviate_tpu_torch.engine import hnsw_build
+    from weaviate_tpu_torch.engine.hnsw import HNSWIndex
+
+    t0 = time.perf_counter()
+    fails = []
+    n = len(X)
+    half = len(queries) // 2  # near queries first, then fresh ones
+    # the kernel at the build's shape, outside the path's launch window
+    scan_text, scan_ok = _build_scan_times(torch, K, X, timer)
+    if not scan_ok:
+        fails.append(scan_text)
+    idx = HNSWIndex(dim=ANN_DIM, metric="l2-squared", max_connections=ANN_M,
+                    ef_construction=ANN_EFC, capacity=n, device="cuda")
+    K.reset_launch_counts()  # phase 11a's window starts here
+    t1 = time.perf_counter()
+    idx.add_batch(np.arange(n), X)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    stages = dict(hnsw_build.BUILD_STAGE_SECONDS)
+    t1 = time.perf_counter()
+    with idx._lock:
+        idx._native_sync()
+    stages["native_sync"] = time.perf_counter() - t1
+    layers = [int((idx._levels[:n] >= ly).sum()) for ly in range(idx._max_level + 1)]
+    t1 = time.perf_counter()
+    comps = _layer0_components(idx)
+    comps += f" ({time.perf_counter() - t1:.1f} s, scipy)"
+    log(f"phase 11a HNSW: HNSWIndex(device='cuda') {n} x {ANN_DIM} l2-squared, M {ANN_M}, "
+        f"efConstruction {ANN_EFC}: bulk build in {build_s:.1f} s (layer members {layers}; "
+        + ", ".join(f"{s} {v:.2f}" for s, v in stages.items()) + f" s); {comps}; {scan_text}")
+    sweep = {}
+    for ef in ANN_EFS:
+        ids, _d, qps = _hnsw_search(idx, queries, ef)
+        sweep[ef] = ann_recall(ids, truth)
+        log(f"phase 11a HNSW: ef {ef}: recall@10 {sweep[ef]:.4f} (near {ann_recall(ids[:half], truth[:half]):.4f}, "
+            f"fresh {ann_recall(ids[half:], truth[half:]):.4f}), {qps:.0f} QPS from {CLIENTS} "
+            f"threads ({len(queries)} queries)")
+    if sweep[512] < ANN_RECALL_EF512:
+        fails.append(f"HNSW recall@10 at ef 512 {sweep[512]:.4f} < {ANN_RECALL_EF512}")
+    # the card's graph against the host path's on a subset
+    sub = X[:ANN_SUBSET]
+    truth_s = ann_truth(torch, X64[:ANN_SUBSET], queries)
+    rec = {}
+    for where, dev in (("card", "cuda"), ("host", "cpu")):
+        g = HNSWIndex(dim=ANN_DIM, metric="l2-squared", max_connections=ANN_M,
+                      ef_construction=ANN_EFC, capacity=ANN_SUBSET, device=dev)
+        t1 = time.perf_counter()
+        g.add_batch(np.arange(ANN_SUBSET), sub)
+        b_s = time.perf_counter() - t1
+        ids_g, _d, _q = _hnsw_search(g, queries, 64)
+        rec[where] = (ann_recall(ids_g, truth_s), b_s)
+        del g
+    log(f"phase 11a HNSW: {ANN_SUBSET}-row subset at ef 64: card-built recall@10 "
+        f"{rec['card'][0]:.4f} (built in {rec['card'][1]:.1f} s), host-built "
+        f"{rec['host'][0]:.4f} ({rec['host'][1]:.1f} s)")
+    if abs(rec["card"][0] - rec["host"][0]) > ANN_SUBSET_TOL:
+        fails.append(f"{ANN_SUBSET}-row subset: the card's graph reads recall@10 "
+                     f"{rec['card'][0]:.4f} at ef 64, the host path's {rec['host'][0]:.4f}")
+    # incremental inserts and deletes on the bulk graph
+    extra = ann_rows(seed, 1 << 29, ANN_INSERTS)
+    t1 = time.perf_counter()
+    idx.add_batch(np.arange(n, n + ANN_INSERTS), extra)
+    ins_s = time.perf_counter() - t1
+    rng = np.random.default_rng([seed, 112])
+    dead = rng.choice(n + ANN_INSERTS, ANN_DELETES, replace=False)
+    idx.delete(*dead.tolist())
+    X2 = torch.cat([X64, torch.from_numpy(extra).to("cuda").double()])
+    dmask = torch.zeros(len(X2), dtype=torch.bool, device="cuda")
+    dmask[torch.from_numpy(dead).to("cuda")] = True
+    truth2 = ann_truth(torch, X2, queries, dead=dmask)
+    del X2
+    ids, dists, qps = _hnsw_search(idx, queries, 128)
+    if set(dead.tolist()).intersection(ids.ravel().tolist()):
+        fails.append("HNSW returned a deleted id")
+    parts = [f"{ANN_INSERTS} incremental inserts in {ins_s:.1f} s ({ANN_INSERTS / ins_s:.0f}/s), "
+             f"{ANN_DELETES} deletes: ef 128 recall@10 {ann_recall(ids, truth2):.4f}, "
+             f"{qps:.0f} QPS, no deleted id"]
+    # snapshot and restore: the same answers
+    t1 = time.perf_counter()
+    back = HNSWIndex.restore(idx.snapshot(), device="cuda")
+    snap_s = time.perf_counter() - t1
+    ids_b, dists_b, _ = _hnsw_search(back, queries, 128)
+    if not (np.array_equal(ids_b, ids) and np.array_equal(dists_b, dists)):
+        fails.append("the restored HNSW index answers differently")
+    parts.append(f"snapshot + restore in {snap_s:.1f} s, answers identical")
+    del back
+    counts = dict(K.launch_counts)  # ... and ends here
+    for name in ANN_KERNELS["11a"]:
+        if counts[name] <= 0:
+            fails.append(f"{name} was not launched by the HNSW bulk build")
+    log(f"phase 11a HNSW ({time.perf_counter() - t0:.1f} s; {_smi_line()}): "
+        + "; ".join(parts) + f"; launches {counts}")
+    if fails:
+        raise AssertionError("phase 11a: " + "; ".join(fails))
+    return counts
+
+
+def _ivf_batches(torch, idx, queries, allow=None):
+    """256-query batches through search_by_vector_batch: ids [B, k], the
+    median batch ms (host clock, synchronized)."""
+    ids, times = [], []
+    for s in range(0, len(queries), ANN_BATCH):
+        qb = queries[s:s + ANN_BATCH]
+        al = None if allow is None else [m for m in allow[s:s + ANN_BATCH]]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        i, _d = idx.search_by_vector_batch(qb, ANN_K, al)
+        times.append((time.perf_counter() - t1) * 1e3)
+        ids.append(i)
+    return np.concatenate(ids), float(np.median(times))
+
+
+def phase_ann_ivf(torch, K, seed: int, X, X64, queries) -> dict:
+    """11b: IVF with nlist 1,024 on the card, f32 then residual PQ."""
+    from weaviate_tpu_torch.engine import ivf as ivf_mod
+    from weaviate_tpu_torch.engine.ivf import IVFIndex
+
+    t0 = time.perf_counter()
+    n = len(X)
+    spent = {"kmeans_fit": 0.0, "kmeans_assign": 0.0}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[name] += time.perf_counter() - t
+        return run
+
+    orig = (ivf_mod.kmeans_fit, ivf_mod.kmeans_assign)
+    ivf_mod.kmeans_fit = timed("kmeans_fit", orig[0])
+    ivf_mod.kmeans_assign = timed("kmeans_assign", orig[1])
+    K.reset_launch_counts()  # phase 11b's window starts here
+    try:
+        idx = IVFIndex(dim=ANN_DIM, metric="l2-squared", nlist=ANN_NLIST, device="cuda")
+        t1 = time.perf_counter()
+        idx.add_batch(np.arange(n), X)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t1
+    finally:
+        ivf_mod.kmeans_fit, ivf_mod.kmeans_assign = orig
+    st = idx.store
+    rest = build_s - spent["kmeans_fit"] - spent["kmeans_assign"]
+    parts = [f"add {n} rows in {build_s:.1f} s (train {spent['kmeans_fit']:.1f} s, assign "
+             f"{spent['kmeans_assign']:.1f} s, delta + lists + scatter {rest:.1f} s; nlist "
+             f"{st.nlist}, list cap {st.list_cap})"]
+    rng = np.random.default_rng([seed, 114])
+    dead = rng.choice(n, ANN_DELETES, replace=False)
+    idx.delete(*dead.tolist())
+    dmask = torch.zeros(n, dtype=torch.bool, device="cuda")
+    dmask[torch.from_numpy(dead).to("cuda")] = True
+    dead_set = set(dead.tolist())
+    allow_np = rng.random((len(queries), n)) < 0.10
+    allow_t = torch.from_numpy(allow_np).to("cuda")
+    truth = ann_truth(torch, X64, queries, dead=dmask)
+    truth_f = ann_truth(torch, X64, queries, dead=dmask, allow=allow_t)
+
+    def sweep(tag, truth, truth_f, nq=None):
+        out = {}
+        for p in ANN_NPROBES:
+            st.nprobe = p
+            ids, ms = _ivf_batches(torch, idx, queries)
+            idsf, msf = _ivf_batches(torch, idx, queries, allow_np)
+            if dead_set.intersection(ids.ravel().tolist()) or \
+                    dead_set.intersection(idsf.ravel().tolist()):
+                raise AssertionError(f"{tag}: a deleted id was returned")
+            for r in range(len(queries)):
+                live = idsf[r][idsf[r] >= 0]
+                if live.size and not allow_np[r][live].all():
+                    raise AssertionError(f"{tag}: a disallowed id was returned")
+            out[p] = (ann_recall(ids, truth), ann_recall(idsf, truth_f))
+            parts.append(f"{tag} nprobe {p}: recall@10 {out[p][0]:.4f}, {ms:.1f} ms a "
+                         f"{ANN_BATCH}-query batch; 10% per-query filters {out[p][1]:.4f}, "
+                         f"{msf:.1f} ms")
+        st.nprobe = 0
+        return out
+
+    f32 = sweep("f32", truth, truth_f)
+    # the full probe is the exact scan; 2 queries a probe chunk bound the
+    # [chunk, nlist * cap, d] gather
+    st.query_chunk, st.nprobe = 2, st.nlist
+    ids, _ = idx.search_by_vector_batch(queries[:ANN_FULL_PROBE], ANN_K)
+    st.query_chunk, st.nprobe = 16, 0
+    full = ann_recall(ids, truth[:ANN_FULL_PROBE])
+    if full != 1.0:
+        raise AssertionError(f"IVF nprobe = nlist recall@10 {full} != 1.0")
+    # async == sync, unfiltered and filtered
+    st.nprobe = 32
+    qb = queries[:ANN_BATCH]
+    for al in (None, [m for m in allow_np[:ANN_BATCH]]):
+        a = idx.search_by_vector_batch_async(qb, ANN_K, al).result()
+        s = idx.search_by_vector_batch(qb, ANN_K, al)
+        if not (np.array_equal(a[0], s[0]) and np.array_equal(a[1], s[1])):
+            raise AssertionError("IVF async answer != sync answer")
+    st.nprobe = 0
+    parts.append(f"nprobe = nlist recall@10 1.0 ({ANN_FULL_PROBE} queries), async == sync "
+                 "bit for bit")
+    # rows that stay in the delta find themselves first before the flush
+    drows = ann_rows(seed, 1 << 28, ANN_DELTA_ROWS)
+    dids = np.arange(n, n + ANN_DELTA_ROWS)
+    idx.add_batch(dids, drows)
+    if st.delta.live_count() != ANN_DELTA_ROWS:
+        raise AssertionError(f"{st.delta.live_count()} rows in the delta, not {ANN_DELTA_ROWS}")
+    first, times = [], []
+    for s in range(0, ANN_DELTA_ROWS, ANN_BATCH):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        i, _d = idx.search_by_vector_batch(drows[s:s + ANN_BATCH], ANN_K)
+        times.append((time.perf_counter() - t1) * 1e3)
+        first.append(i[:, 0])
+    if not np.array_equal(np.concatenate(first), dids):
+        raise AssertionError("a delta row did not find itself at rank 1")
+    parts.append(f"{ANN_DELTA_ROWS} delta rows each first for itself "
+                 f"({np.median(times):.1f} ms a batch with the delta leg)")
+    X2 = torch.cat([X64, torch.from_numpy(drows).to("cuda").double()])
+    dmask2 = torch.cat([dmask, torch.zeros(ANN_DELTA_ROWS, dtype=torch.bool, device="cuda")])
+    allow_np2 = np.concatenate([allow_np, np.zeros((len(queries), ANN_DELTA_ROWS), bool)], 1)
+    allow_t2 = torch.from_numpy(allow_np2).to("cuda")
+    truth2 = ann_truth(torch, X2, queries, dead=dmask2)
+    truth2_f = ann_truth(torch, X2, queries, dead=dmask2, allow=allow_t2)
+    del X2, allow_t, allow_t2
+    allow_np = allow_np2
+    st.nprobe = 32
+    ids, _ = _ivf_batches(torch, idx, queries)
+    f32_32 = ann_recall(ids, truth2)
+    st.nprobe = 0
+    t1 = time.perf_counter()
+    idx.compress("pq")
+    torch.cuda.synchronize()
+    parts.append(f"f32 with the delta leg nprobe 32 recall@10 {f32_32:.4f}; compress('pq') "
+                 f"in {time.perf_counter() - t1:.1f} s ({st.pq_segments} segments, "
+                 f"rescore_limit {st.rescore_limit})")
+    pq = sweep("pq", truth2, truth2_f)
+    if pq[32][0] < f32_32 - ANN_PQ_TOL:
+        raise AssertionError(f"IVF-PQ recall@10 {pq[32][0]:.4f} at nprobe 32 more than "
+                             f"{ANN_PQ_TOL} under f32 IVF's {f32_32:.4f}")
+    counts = dict(K.launch_counts)  # ... and ends here
+    log(f"phase 11b IVF ({time.perf_counter() - t0:.1f} s; {_smi_line()}): IVFIndex("
+        f"nlist={ANN_NLIST}, device='cuda') {n} x {ANN_DIM} l2-squared, {ANN_DELETES} deleted, "
+        f"{len(queries)} queries: " + "; ".join(parts) + f"; launches {counts}")
+    for name in ANN_KERNELS["11b"]:
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} was not launched in phase 11b")
+    del f32
+    return counts
+
+
+def _dyn_answers(col, queries, full: bool = False):
+    """``near_vector`` answers [(uuid, distance)] per query; ``full``
+    probes every list of the upgraded index (the exact scan), 4 queries
+    a probe chunk."""
+    if not full:
+        return [[(r.uuid, r.distance) for r in col.near_vector(q, k=ANN_K)] for q in queries]
+    st = next(iter(col.shards.values())).vector_indexes[""].store
+    keep = st.nprobe, st.query_chunk
+    st.nprobe, st.query_chunk = st.nlist, 4
+    try:
+        return _dyn_answers(col, queries)
+    finally:
+        st.nprobe, st.query_chunk = keep
+
+
+def phase_ann_dynamic_server(torch, K, seed: int, X, X64) -> dict:
+    """11c: a dynamic collection through Database.batch_put across its
+    upgrade, a restart, then a Server with a REST-created hnsw class."""
+    from weaviate_tpu_torch.api.client import Client
+    from weaviate_tpu_torch.config import ServerConfig
+    from weaviate_tpu_torch.db import Database
+    from weaviate_tpu_torch.schema.config import (CollectionConfig, DataType, Property,
+                                                  VectorConfig, VectorIndexConfig)
+    from weaviate_tpu_torch.server import Server
+
+    t0 = time.perf_counter()
+    rows = min(DYN_ROWS, len(X))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ann_")
+    parts = []
+    K.reset_launch_counts()  # phase 11c's window starts here
+    db = srv = None
+    try:
+        db = Database(tmp, device="cuda")
+        col = db.create_collection(CollectionConfig(
+            name="AnnDynamic", properties=[Property(name="n", data_type=DataType.INT)],
+            vectors=[VectorConfig(name="", dim=ANN_DIM, index=VectorIndexConfig(
+                index_type="dynamic", metric="l2-squared"))]))
+        objs = lambda s, e: [{"uuid": _uuid(9100, i), "properties": {"n": i},  # noqa: E731
+                              "vector": X[i]} for i in range(s, e)]
+        rng = np.random.default_rng([seed, 115])
+        qs = X[rng.integers(0, rows, 256)] + ANN_NOISE * rng.standard_normal(
+            (256, ANN_DIM), dtype=np.float32)
+        col.batch_put(objs(0, DYN_FIRST))
+        dyn = next(iter(col.shards.values())).vector_indexes[""]
+        got = np.asarray([[int(u[-12:]) for u, _ in a] for a in _dyn_answers(col, qs, False)])
+        truth = ann_truth(torch, X64[:DYN_FIRST], qs)
+        if dyn.upgraded or not np.array_equal(got, truth):
+            raise AssertionError("the dynamic collection's flat answers != the exact answers")
+        upgrade_s = []
+        real = dyn.upgrade
+
+        def timed_upgrade():
+            t = time.perf_counter()
+            real()
+            upgrade_s.append(time.perf_counter() - t)
+
+        dyn.upgrade = timed_upgrade
+        t1 = time.perf_counter()
+        for s in range(DYN_FIRST, rows, IMPORT_BATCH):
+            col.batch_put(objs(s, min(rows, s + IMPORT_BATCH)))
+        imp_s = time.perf_counter() - t1
+        if not dyn.upgraded or len(upgrade_s) != 1:
+            raise AssertionError("the dynamic collection did not upgrade once")
+        st = dyn.store
+        truth = ann_truth(torch, X64[:rows], qs)
+        got = [[int(u[-12:]) for u, _ in a] for a in _dyn_answers(col, qs, False)]
+        r_auto = ann_recall(np.asarray(got), truth)
+        parts.append(f"flat below the threshold ({DYN_FIRST} rows) equal to the exact answers; "
+                     f"batch_put of {rows - DYN_FIRST} more in {imp_s:.1f} s "
+                     f"({(rows - DYN_FIRST) / imp_s:.0f} objects/s) with the upgrade to IVF at "
+                     f"{dyn.threshold} rows in {upgrade_s[0]:.2f} s; recall@10 {r_auto:.4f} at "
+                     f"the automatic nprobe ({st._effective_nprobe()} of {st.nlist} lists)")
+        t1 = time.perf_counter()
+        next(iter(col.shards.values())).epoch_maintenance()
+        m_s = time.perf_counter() - t1
+        before = _dyn_answers(col, qs[:64], True)
+        r_m = ann_recall(np.asarray([[int(u[-12:]) for u, _ in a] for a in
+                                     _dyn_answers(col, qs, False)]), truth)
+        db.close()
+        t1 = time.perf_counter()
+        db = Database(tmp, device="cuda")
+        reopen_s = time.perf_counter() - t1
+        col = db.get_collection("AnnDynamic")
+        dyn2 = next(iter(col.shards.values())).vector_indexes[""]
+        after = _dyn_answers(col, qs[:64], True)
+        if not dyn2.upgraded or len(dyn2) != rows:
+            raise AssertionError("the reopened dynamic collection is in another regime")
+        diff = 0.0
+        for a, b in zip(before, after):
+            if [u for u, _ in a] != [u for u, _ in b]:
+                raise AssertionError("the reopened dynamic collection answers other ids")
+            diff = max(diff, max(abs(x - y) / max(abs(x), 1e-30)
+                                 for (_, x), (_, y) in zip(a, b)))
+        if diff > 1e-6:
+            raise AssertionError(f"reopened distances moved by {diff:.3g} (relative)")
+        parts.append(f"maintain() tick in {m_s:.1f} s (retrain {st.retrain_count}), recall@10 "
+                     f"{r_m:.4f}; close + reopen in {reopen_s:.1f} s (replays {rows} rows, "
+                     f"nlist {dyn2.store.nlist}): full-probe answers identical ids, distances "
+                     f"within {diff:.2g} relative")
+        db.close()
+        db = None
+        # a Server with the reference's hnsw class JSON
+        cfg = ServerConfig(data_path=os.path.join(tmp, "server"), host="127.0.0.1",
+                           rest_port=0, grpc_port=0, disable_telemetry=True)
+        srv = Server(cfg, device="cuda")
+        if _grpc_present():
+            srv.start()
+        else:
+            srv.assemble()
+        client = Client(srv.rest.address, timeout=300.0)
+        client.create_class({"class": "SiftHnsw", "vectorizer": "none",
+                             "vectorIndexType": "hnsw",
+                             "vectorIndexConfig": {"distance": "l2-squared",
+                                                   "maxConnections": ANN_M,
+                                                   "efConstruction": ANN_EFC},
+                             "properties": [{"name": "n", "dataType": ["int"]}]})
+        m = min(ANN_SERVER_ROWS, len(X))
+        body = json.dumps({"objects": [
+            {"class": "SiftHnsw", "id": _uuid(9200, i), "properties": {"n": i},
+             "vector": X[i].tolist()} for i in range(m)]}).encode()
+        host, port = client.addr.rsplit(":", 1)
+        t1 = time.perf_counter()
+        conn = http.client.HTTPConnection(host, int(port), timeout=600)
+        try:
+            conn.request("POST", "/v1/batch/objects", body=body,
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            res = json.loads(resp.read())
+        finally:
+            conn.close()
+        if resp.status != 200 or any(r["result"].get("status") != "SUCCESS" for r in res):
+            raise AssertionError(f"REST import failed: {resp.status}")
+        rest_s = time.perf_counter() - t1
+        scol = srv.db.get_collection("SiftHnsw")
+        sidx = next(iter(scol.shards.values())).vector_indexes[""]
+        if sidx.index_type != "hnsw" or sidx.m != ANN_M or sidx.ef_construction != ANN_EFC:
+            raise AssertionError("the REST class did not build an HNSW index with its config")
+        sq = qs[:ANN_SERVER_QUERIES]
+        sp, runs, _ref = _socket_vs_inproc(
+            scol, client, sq, ANN_K, None, f"{ANN_SERVER_QUERIES} nearVector(limit {ANN_K})",
+            srv.grpc.port if srv.grpc is not None else None, every=1 << 30)
+        sp += [fn() for fn in runs.values()]
+        parts.append(f"server: class created over REST with vectorIndexType hnsw "
+                     f"(maxConnections {ANN_M}, efConstruction {ANN_EFC}), {m} objects over "
+                     f"REST in {rest_s:.1f} s ({m / rest_s:.0f} objects/s, bulk build "
+                     f"included); " + "; ".join(sp))
+    finally:
+        if srv is not None:
+            srv.stop()
+        if db is not None:
+            db.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = dict(K.launch_counts)  # ... and ends here
+    log(f"phase 11c dynamic + server ({time.perf_counter() - t0:.1f} s; {_smi_line()}): "
+        + "; ".join(parts) + f"; launches {counts}")
+    return counts
+
+
+def phase_ann(torch, K, seed: int, rows: int) -> dict:
+    """Phase 11: the ANN indexes on the card (11a HNSW, 11b IVF, 11c the
+    dynamic collection and the server). Returns its launches, summed over
+    its three windows."""
+    t0 = time.perf_counter()
+    X = ann_corpus(seed, rows)
+    X64 = torch.from_numpy(X).to("cuda").double()
+    queries = ann_queries(seed, X)
+    truth = ann_truth(torch, X64, queries)
+    timer = Timer(torch)
+    # each part runs even when an earlier one failed its limits, so one
+    # run reads them all; any failure fails the phase at its end
+    counts, fails = dict.fromkeys(K.launch_counts, 0), []
+    for part, run in (("11a", lambda: phase_ann_hnsw(torch, K, seed, X, X64, queries,
+                                                      truth, timer)),
+                      ("11b", lambda: phase_ann_ivf(torch, K, seed, X, X64, queries)),
+                      ("11c", lambda: phase_ann_dynamic_server(torch, K, seed, X, X64))):
+        try:
+            for name, c in run().items():
+                counts[name] += c
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            traceback.print_exc()
+            fails.append(f"{part}: {e}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    del X64
+    log(f"phase 11 ANN indexes: {time.perf_counter() - t0:.1f} s, launches {counts}")
+    if fails:
+        raise AssertionError("phase 11 failed: " + " | ".join(fails))
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4193,6 +4823,11 @@ def main() -> int:
                     "process) and with it again (no result line)")
     ap.add_argument("--import-rows", type=int, default=IMPORT_ROWS,
                     help="--import-times' vector rows (default 100,000)")
+    ap.add_argument("--ann-rows", type=int, default=ANN_ROWS,
+                    help="phase 11's corpus rows (default: SIFT1M's 1,000,000)")
+    ap.add_argument("--ann-only", action="store_true",
+                    help="only phases 0, 1 and 11 (the ANN indexes), a rehearsal of phase "
+                    "11 (no result line)")
     ap.add_argument("--import-run", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.import_run:  # --import-times' child: one import run, its JSON line
@@ -4260,6 +4895,10 @@ def main() -> int:
             log(f"dist times: {part}")
         log(f"card after (SM clock, max SM clock, power, temperature): {card_clocks()}")
         return 0
+    if args.ann_only:
+        phase_ann(torch, K, args.seed, args.ann_rows)
+        log(f"total {time.perf_counter() - t0:.1f} s")
+        return 0
     if args.import_times:
         for part in import_times(torch, args.seed, args.hybrid_docs, args.import_rows):
             log(f"import times: {part}")
@@ -4299,13 +4938,14 @@ def main() -> int:
             db.close()
         shutil.rmtree(tmp, ignore_errors=True)
     counts8 = phase_conformance(K)
+    counts11 = phase_ann(torch, K, args.seed, args.ann_rows)
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         # launches over the main paths: phases 4, 5, 6, 7, 8, the server's
-        # 9a, 9b and 9c and the epochs' 10, and phase 2's window for the
-        # two kernels that no path runs
+        # 9a, 9b and 9c, the epochs' 10 and the ANN indexes' 11, and phase
+        # 2's window for the two kernels that no path runs
         launches = sum(c[name] for c in (counts4, counts5, counts6, counts7, counts8,
-                                         counts9a, counts9b, counts9c, counts10))
+                                         counts9a, counts9b, counts9c, counts10, counts11))
         if name in PHASE2_PATH:
             launches += counts2[name]
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,

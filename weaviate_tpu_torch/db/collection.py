@@ -148,9 +148,9 @@ class Collection:
     def apply_runtime_config(self) -> None:
         """Propagate runtime-mutable config (reference: UpdateUserConfig ->
         hnsw/config_update.go) into LIVE shard objects, which copied config
-        values at construction: BM25 k1/b and runtime compression. The
-        flat index takes no search knob at runtime (ef, nprobe and the
-        upgrade threshold belong to the hnsw, ivf and dynamic indexes)."""
+        values at construction: BM25 k1/b, the per-index search knobs
+        (ef / rescore / nprobe / upgrade threshold, set where the live
+        index has the attribute) and runtime compression."""
         with self._lock:
             shards = list(self.shards.values())
         for shard in shards:
@@ -161,6 +161,15 @@ class Collection:
                 vc = self.config.vector_config(vec_name)
                 if idx is None or vc is None:
                     continue
+                for attr, value in (
+                    ("ef", vc.index.ef),
+                    ("rescore_limit", vc.index.rescore_limit),
+                    ("nprobe", vc.index.ivf_nprobe),
+                    ("threshold", vc.index.flat_to_ann_threshold),
+                ):
+                    # 0 is meaningful (= auto); only skip absent values
+                    if hasattr(idx, attr) and value is not None:
+                        setattr(idx, attr, value)
                 if vc.index.quantization and not idx.compressed and \
                         hasattr(idx, "compress"):
                     # runtime compression (compress.go:38): train on the

@@ -1,6 +1,6 @@
 """Shard: the unit of storage + indexing (port of ``weaviate_tpu/db/shard.py``
-for flat (plain or BQ/PQ-quantized, one buffer or a stack of epochs) and
-noop vector indexes on one device).
+for flat (plain or BQ/PQ-quantized, one buffer or a stack of epochs), ivf,
+dynamic (flat, then ivf), hnsw and noop vector indexes on one device).
 
 Owns an LSM KV store (objects bucket + docid mappings), one vector index
 per named vector, and the inverted index behind filters. Write path:
@@ -39,13 +39,6 @@ BUCKET_OBJECTS = "objects"
 BUCKET_DOCID = "docid"  # uuid -> doc_id
 BUCKET_META = "meta"  # counters, checkpoints
 
-# index types that have a port, and the ROADMAP rows of the others
-_NOT_PORTED = {
-    "hnsw": "HNSW: ROADMAP Queue 1 item 5",
-    "ivf": "IVF: ROADMAP Queue 1 item 4",
-    "dynamic": "dynamic flat->IVF: ROADMAP Queue 1 item 4",
-}
-
 
 def _make_vector_index(vc: VectorConfig, dim: int, device=None):
     cfg = vc.index
@@ -53,6 +46,7 @@ def _make_vector_index(vc: VectorConfig, dim: int, device=None):
         return None
     common = dict(dim=dim, metric=cfg.metric, capacity=8192, chunk_size=8192,
                   device=device)
+    storage = "bfloat16" if cfg.storage_dtype == "bfloat16" else "float32"
     if cfg.index_type == "flat" and cfg.quantization:
         return FlatIndex(
             quantization=cfg.quantization,
@@ -63,20 +57,53 @@ def _make_vector_index(vc: VectorConfig, dim: int, device=None):
             epoch_rows=cfg.epoch_rows,
             **common,
         )
+    if cfg.index_type == "flat":
+        return FlatIndex(dtype=storage, epoch_rows=cfg.epoch_rows, **common)
     if cfg.index_type in ("hnsw", "ivf") and cfg.quantization == "bq":
-        # no bq form for graph hops or IVF lists: the JAX package honours
-        # the compression request with the quantized flat scan
+        # no bq form for graph hops or IVF lists: the compression request
+        # is honoured on the quantized flat scan (documented fallback)
         return FlatIndex(quantization="bq", rescore_limit=cfg.rescore_limit,
                          prefix_bits=cfg.prefix_bits, **common)
-    if cfg.index_type in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[cfg.index_type])
-    if cfg.index_type != "flat":
-        raise ValueError(f"unknown index type {cfg.index_type}")
-    return FlatIndex(
-        dtype="bfloat16" if cfg.storage_dtype == "bfloat16" else "float32",
-        epoch_rows=cfg.epoch_rows,
-        **common,
-    )
+    if cfg.index_type == "ivf":
+        from weaviate_tpu_torch.engine.ivf import IVFIndex
+
+        return IVFIndex(nlist=cfg.ivf_nlist, nprobe=cfg.ivf_nprobe,
+                        quantization=cfg.quantization,
+                        pq_segments=cfg.pq_segments,
+                        pq_centroids=cfg.pq_centroids,
+                        dtype=storage, **common)
+    if cfg.index_type == "hnsw":
+        # the reference's graph index: a pq-quantized hnsw keeps its GRAPH
+        # (runtime ADC compression once enough data exists, compress.go:38)
+        from weaviate_tpu_torch.engine.hnsw import HNSWIndex
+
+        return HNSWIndex(
+            dim=dim, metric=cfg.metric,
+            max_connections=cfg.max_connections,
+            ef_construction=cfg.ef_construction, ef=cfg.ef, device=device,
+        )
+    if cfg.index_type == "dynamic":
+        # flat -> IVF upgrade, so small corpora stay exact
+        from weaviate_tpu_torch.engine.dynamic import DynamicIndex
+
+        if cfg.quantization:
+            # the quantized flat scan is already the fast path: it stays
+            # flat (DynamicIndex refuses to upgrade a quantized impl)
+            return DynamicIndex(
+                threshold=cfg.flat_to_ann_threshold,
+                quantization=cfg.quantization,
+                pq_segments=cfg.pq_segments,
+                pq_centroids=cfg.pq_centroids,
+                rescore_limit=cfg.rescore_limit,
+                prefix_bits=cfg.prefix_bits,
+                **common,
+            )
+        return DynamicIndex(
+            threshold=cfg.flat_to_ann_threshold,
+            nlist=cfg.ivf_nlist, nprobe=cfg.ivf_nprobe,
+            dtype=storage, **common,
+        )
+    raise ValueError(f"unknown index type {cfg.index_type}")
 
 
 class Shard:
@@ -390,7 +417,10 @@ class Shard:
     def _batched_search(self, vec_name: str, idx, query: np.ndarray, k: int,
                         allow_list):
         """Dynamic-batched single-query search: concurrent callers share
-        one device dispatch."""
+        one device dispatch. Index types without a batch entry point take
+        the direct path."""
+        if getattr(idx, "search_by_vector_batch", None) is None:
+            return idx.search_by_vector(query, k, allow_list=allow_list)
         b = self._query_batcher(vec_name, idx)
         ids, dists = b.search(query, k, allow_list)
         live = ids >= 0
@@ -398,22 +428,42 @@ class Shard:
                 np.asarray(dists)[live].astype(np.float32))
 
     def _query_batcher(self, vec_name: str, idx):
-        """The shard's per-vector-space QueryBatcher, built lazily."""
+        """The shard's per-vector-space QueryBatcher, built lazily. Every
+        entry point and capability is resolved PER CALL: compress() and
+        DynamicIndex.upgrade() swap the store or the impl under a live
+        batcher, and a bound method captured at construction would serve
+        from the dead one."""
         b = self._query_batchers.get(vec_name)
         if b is None:
             from weaviate_tpu_torch.runtime.query_batcher import QueryBatcher
 
+            def _batch(queries, k2, allow=None, i=idx):
+                return i.search_by_vector_batch(queries, k2, allow)
+
+            # an index without an async twin (hnsw) returns None and the
+            # batcher takes its sync path
+            def _async_batch(queries, k2, allow=None, i=idx):
+                fn = getattr(i, "search_by_vector_batch_async", None)
+                return None if fn is None else fn(queries, k2, allow)
+
+            # fused sparse+dense drain: hybrid rows ride the same
+            # coalescing window as plain vector queries
+            def _hybrid_batch(queries, k2, allows=None, sparses=None, i=idx):
+                fn = getattr(i, "hybrid_batch_async", None)
+                return None if fn is None else fn(queries, k2, allows, sparses)
+
             b = self._query_batchers.setdefault(
                 vec_name,
                 QueryBatcher(
-                    idx.search_by_vector_batch,
-                    supports_filter_batching=idx.supports_batched_filters,
+                    _batch,
+                    supports_filter_batching=lambda i=idx: bool(
+                        getattr(i, "supports_batched_filters", False)),
                     capacity_fn=lambda i=idx: self._gathered_capacity(i),
-                    async_batch_fn=(idx.search_by_vector_batch_async
-                                    if self.async_pipeline else None),
-                    # fused sparse+dense drain: hybrid rows ride the
-                    # same coalescing window as plain vector queries
-                    hybrid_batch_fn=idx.hybrid_batch_async,
+                    # a graph search per row gains nothing from pow2 rows
+                    pad_pow2=bool(getattr(idx, "compiled_batch_shapes", True)),
+                    async_batch_fn=(_async_batch if self.async_pipeline
+                                    else None),
+                    hybrid_batch_fn=_hybrid_batch,
                     owner={"collection": self.collection_name,
                            "shard": self.name,
                            "tenant": self._tenant_label()},
@@ -431,7 +481,12 @@ class Shard:
         if es is not None:
             return es.capacity if (not es.quantization
                                    and es.epoch_count == 1) else 0
-        return idx.store.capacity
+        # only a plain store has the solo gathered path; elsewhere (ivf,
+        # hnsw) a solo dispatch is strictly worse than riding the batch
+        s = getattr(idx, "store", None)
+        if s is None or not hasattr(s, "_dispatch_gathered"):
+            return 0
+        return s.capacity
 
     def epoch_token(self, vec_name: str = ""):
         """A token that changes whenever the vector space's contents or
@@ -610,17 +665,21 @@ class Shard:
                                   vec_name: str = ""):
         """Dispatch-only twin of ``vector_search_batch``: a
         ``DeviceResultHandle`` resolving to the same (ids, dists, counts),
-        or None when the shard has no index for ``vec_name``. The
+        or None when the shard has no index for ``vec_name`` or the index
+        has no async path (hnsw: the caller runs the sync call). The
         queued-tail snapshot is taken BEFORE the index dispatch (the
         ordering of ``_vector_search_traced``) and merged in the handle's
         host finish step."""
         idx = self.vector_indexes.get(vec_name)
         if idx is None:
             return None
+        fn = getattr(idx, "search_by_vector_batch_async", None)
+        if fn is None:
+            return None
         queue = self._index_queues.get(vec_name)
         pending = queue.snapshot() if queue is not None else []
         queries = np.asarray(queries, np.float32)
-        return idx.search_by_vector_batch_async(queries, k).map(
+        return fn(queries, k).map(
             lambda res, _p=pending, _q=queries, _m=idx.metric:
             self._finish_batch_results(*res, _p, _q, _m, k))
 
@@ -976,13 +1035,18 @@ class Shard:
         """Run the epoch policy for every epoch-backed index of this
         shard: seal full active epochs, drop empty sealed ones, fold
         tombstone-heavy ones (their memory goes back through the ledger
-        finalizers). Returns True when it did work (the cyclemanager's
+        finalizers). Indexes with their own ``maintain`` hook (the IVF
+        delta fold / drift retrain, dynamic's deferred upgrade) get the
+        same tick. Returns True when it did work (the cyclemanager's
         backoff signal)."""
         did = False
         for idx in self.vector_indexes.values():
             es = getattr(idx, "epoch_store", None)
             if es is not None:
                 did = es.maintain() or did
+            idx_maintain = getattr(idx, "maintain", None)
+            if idx_maintain is not None:
+                idx_maintain()
         return did
 
     # -- maintenance ---------------------------------------------------------

@@ -111,11 +111,14 @@ class QueryBatcher:
     ``hybrid_batch_fn(queries, k, allows, sparses) -> DeviceResultHandle
     | None`` runs the fused sparse+dense program for drains carrying
     sparse operands (None = unavailable for this dispatch shape).
+    ``pad_pow2`` pads drains to pow2 B/k buckets (bounded shapes for the
+    device programs); a per-row host index like HNSW opts out (padded
+    rows would run real graph searches).
     """
 
     def __init__(self, batch_fn, max_batch: int = 256,
                  supports_filter_batching: bool = False,
-                 capacity_fn=None,
+                 capacity_fn=None, pad_pow2: bool = True,
                  owner: dict | None = None, async_batch_fn=None,
                  transfer_depth: int = 2,
                  max_queue: int | None = None, hybrid_batch_fn=None):
@@ -131,6 +134,7 @@ class QueryBatcher:
             else max_queue
         self.filter_batching = supports_filter_batching  # bool | callable
         self._capacity_fn = capacity_fn
+        self.pad_pow2 = pad_pow2
         # device-memory ledger labels for the padded dispatch buffer
         self._hbm_owner = owner or hbm_ledger.current_owner()
         # health key scoped to THIS batcher's owner: a healthy shard's
@@ -330,8 +334,12 @@ class QueryBatcher:
         b = len(coal)
         # pow2 B/k buckets; padded query rows are zero vectors whose
         # results are discarded
-        b_pad = min(_next_pow2(b), max(self.max_batch, b))
-        k_bucket = _next_pow2(max(it.k for it in coal))
+        if self.pad_pow2:
+            b_pad = min(_next_pow2(b), max(self.max_batch, b))
+            k_bucket = _next_pow2(max(it.k for it in coal))
+        else:
+            b_pad = b
+            k_bucket = max(it.k for it in coal)
         filtered = [it for it in coal if it.allow is not None]
         hybrid = [it for it in coal if it.sparse is not None]
         t_mask0 = time.perf_counter()
