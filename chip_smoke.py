@@ -16,6 +16,7 @@ Run from the repository root:
                                          # 100,000-row vector batch_put with the native
                                          # host library, without it, and with it again
     python3 chip_smoke.py --ann-only [--ann-rows N]  # phases 0-1 and 11 only
+    python3 chip_smoke.py --mesh-only [--rows N]     # phases 0-1 and 12 only
 
 It drives the port's flat nearVector path at VectorDBBench's
 Performance768D1M case (Cohere wiki-22-12: 1,000,000 x 768, cosine,
@@ -199,7 +200,34 @@ is downloaded), in phases:
    in-process ones. 11a must launch fused_topk_scan and fused_topk_pairs,
    11b distance_block and fused_topk_pairs.
 
-Phases 5, 6, 7, 8, 9a, 9b, 9c, 10 and 11 each reset the launch counters as they start
+12. mesh, last: row-sharded serving (weaviate_tpu_torch/parallel) on the
+   card, whose mesh repeats it: 8 row shards on cuda:0, each with its own
+   tensors and its own scan, then the real merge. 12a: phase 3's corpus
+   (1M x 768 cosine, 10,000 deleted) in a FlatIndex on the 8-shard 1-D
+   mesh, one on the 2 x 4 ('host', 'ici') mesh and one buffer; 256-query
+   batches at k 100, selections approx and fused, unfiltered, under a
+   shared 50% filter and under per-query 10% filters: ids equal to the
+   one buffer's and distances bit for bit (else within rtol 1e-6, said on
+   the line), 1-D and two-level equal bit for bit, the 1-D mesh's
+   recall@100 against the exact recomputation 1.0; the batch p50 on each
+   mesh beside the one buffer's, and the shard scans' and the merge's own
+   times (CUDA events). 12d: where torch.cuda.device_count() > 1 the same
+   batches with one shard on each card; else a line saying it did not run
+   and why. 12b: BQ (bf16 rows on the card, each shard rescoring its own
+   candidates) and 4-bit PQ (host rescore) on both meshes, 256 queries
+   near rows at k 10: recall@10 against the exact recomputation, every
+   distance the exact one, 1-D and two-level equal bit for bit. 12c: a
+   Database collection on the 2 x 4 mesh imported for 15 s through
+   batch_put, the same objects in a one-buffer Database, the Server over
+   the mesh database on 127.0.0.1: GraphQL (and gRPC) nearVector at limit
+   100, half under the 10% filter, equal to the in-process answers, the
+   in-process answers' ids equal to the one-buffer collection's; the
+   /v1/debug/memory per-host rollup summing to the ledger's total. 12a
+   must launch distance_block, fused_topk_scan and fused_topk_pairs, 12b
+   bq_scan_reduce and pq4_scan_reduce, 12c distance_block and
+   fused_topk_pairs (each counted on the mesh runs alone).
+
+Phases 5, 6, 7, 8, 9a, 9b, 9c, 10, 11 and 12 each reset the launch counters as they start
 and read them as they end: every kernel in QUANT_KERNELS must have run in
 phases 5 and 6, and ``bm25_block`` and ``distance_block`` in phase 7,
 whose run (d) must launch ``fused_topk_scan``.
@@ -237,9 +265,10 @@ QUERIES = 1024
 CHUNK = 8192
 ADD_BATCH = 65_536
 IMPORT_BATCH = 10_000
-# phase 4 cuts its row count past this: 60 s (~530,000 rows) since phase
-# 11 joined the script, which keeps it within its time limit (PERF.md)
-IMPORT_BUDGET_S = 60.0
+# phase 4 cuts its row count past this: 45 s (440,000-480,000 rows on the
+# card) since phase 12 joined the script, which ran 1,122 s of its 1,200 s
+# with 60 s (550,000 rows; PERF.md)
+IMPORT_BUDGET_S = 45.0
 IMPORT_ROWS = 100_000    # --import-times' vector batch_put
 # calls per client in phase 6 (CALLS) and phase 4 (PLAIN_CALLS), and phase
 # 4's queries after its deletes: cut so that phase 7's FiQA-sized hybrid
@@ -2053,7 +2082,7 @@ def _host_packed_masks(K):
 
     card = S.batched_mask_operands
 
-    def host_packed(allow_mask, n_queries, capacity, device, owner=None):
+    def host_packed(allow_mask, n_queries, capacity, device, owner=None, mesh=None):
         with S.tracing.span("store.mask_pack", queries=n_queries):
             return K.as_bits_tensor(
                 K.pack_allow_bitmask(allow_mask, K.mask_pad_cols(capacity)), device)
@@ -4792,6 +4821,384 @@ def phase_ann(torch, K, seed: int, rows: int) -> dict:
     return counts
 
 
+# -- phase 12: row-sharded serving over a mesh ---------------------------------
+
+MESH_SHARDS = 8            # row shards of 12a / 12b, every one on the card
+MESH_HOSTS = 2             # the 2 x 4 hierarchical mesh
+MESH_TIMED = 4             # unfiltered 256-query batches checked per selection
+MESH_REPS = 20             # batches timed per index and selection (12a; 12b half)
+MESH_FILTER = 0.10         # per-query filters' selectivity
+# the shared filter's: above capacity / 8, so the one buffer takes its
+# masked scan (a mesh has no gathered cutover) and the two run one path
+MESH_SHARED = 0.5
+MESH_QUANT_K = 10
+MESH_RTOL = 1e-6           # distances, if a launch's row count moved a sum
+MESH_DB_ROWS = 200_000     # 12c: imported under MESH_DB_BUDGET_S
+MESH_DB_BUDGET_S = 15.0
+MESH_DB_QUERIES = 128      # 12c: GraphQL (and gRPC) nearVector, half filtered
+MESH_KERNELS = {"12a": ("distance_block", "fused_topk_scan", "fused_topk_pairs"),
+                "12b": ("bq_scan_reduce", "pq4_scan_reduce"),
+                "12c": ("distance_block", "fused_topk_pairs")}
+
+
+def _require_mesh_launches(counts: dict, part: str) -> None:
+    for name in MESH_KERNELS[part]:
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the mesh in phase {part}")
+
+
+def _meshes(devices) -> dict:
+    from weaviate_tpu_torch.parallel.mesh import make_hierarchical_mesh, make_mesh
+
+    return {"1-D": make_mesh(devices=devices),
+            "2x4": make_hierarchical_mesh(n_hosts=MESH_HOSTS, devices=devices)}
+
+
+def _answer(torch, idx, qb, k: int, allow=None, timed: list | None = None):
+    """(ids, distances) of one batch through the async entry point, the
+    host-clock milliseconds appended to ``timed``."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ids, d = idx.search_by_vector_batch_async(qb, k, allow).result()
+    if timed is not None:
+        timed.append((time.perf_counter() - t) * 1e3)
+    return np.asarray(ids), np.asarray(d, dtype=np.float32)
+
+
+def _equal_answers(got, want, what: str) -> bool:
+    """Ids equal; True when the distances are equal bit for bit too, else
+    they must agree within MESH_RTOL (and False is returned)."""
+    (gi, gd), (wi, wd) = got, want
+    if not np.array_equal(gi, wi):
+        raise AssertionError(f"{what}: ids differ at {int((gi != wi).sum())} positions")
+    if np.array_equal(gd.view(np.int32), wd.view(np.int32)):
+        return True
+    if not np.allclose(gd, wd, rtol=MESH_RTOL, atol=0.0):
+        raise AssertionError(f"{what}: distances differ past rtol {MESH_RTOL}")
+    return False
+
+
+def _spread(ms: list) -> str:
+    p10, p50, p90 = np.percentile(ms, [10, 50, 90])
+    return f"{p50:.2f} ms (p10-p90 {p10:.2f}-{p90:.2f})"
+
+
+def _timed_turns(torch, indexes: dict, batches: list, k: int, reps: int) -> dict:
+    """Host-clock ms of ``reps`` batches through each index, after one
+    warm-up batch each; the indexes take turns batch by batch, so a drift
+    of the card's or the host's speed falls on all of them alike."""
+    for idx in indexes.values():
+        _answer(torch, idx, batches[0], k)
+    lat = {name: [] for name in indexes}
+    for r in range(reps):
+        for name, idx in indexes.items():
+            _answer(torch, idx, batches[r % len(batches)], k, None, lat[name])
+    return lat
+
+
+def _bit_equal(a, b, what: str) -> None:
+    if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1].view(np.int32),
+                                                          b[1].view(np.int32))):
+        raise AssertionError(f"{what}: the 1-D and two-level answers differ")
+
+
+def _mesh_build(torch, seed: int, rows: int, meshes: dict):
+    """Phase 3's corpus (1M x 768 cosine, clustered, unit rows on the card
+    for the exact checks) added to a one-buffer FlatIndex, a FlatIndex on
+    each mesh, and on each mesh a BQ index (bf16 rows on the card, each
+    shard rescoring its own candidates) and a 4-bit PQ index (one codebook,
+    fitted on the first 131,072 rows; host rescore)."""
+    from weaviate_tpu_torch.engine.flat import FlatIndex
+    from weaviate_tpu_torch.ops import pq as pq_ops
+    from weaviate_tpu_torch.ops.distances import normalize_np
+
+    cent = centers(seed)
+    common = dict(dim=DIM, metric=METRIC, chunk_size=CHUNK, capacity=rows)
+    flat = {"one buffer": FlatIndex(device="cuda", **common)}
+    flat.update({name: FlatIndex(mesh=m, **common) for name, m in meshes.items()})
+    t0 = time.perf_counter()
+    train = normalize_np(np.concatenate([clustered(seed, s, ADD_BATCH, cent)
+                                         for s in (0, ADD_BATCH)]))
+    cb = pq_ops.pq_fit(train, m=pq_ops.default_pq_segments(DIM, 16), k=16,
+                       device="cuda")
+    train_s = time.perf_counter() - t0
+    quant = {}
+    for name, m in meshes.items():
+        quant[("bq", name)] = FlatIndex(mesh=m, quantization="bq", rescore="device", **common)
+        quant[("pq4", name)] = FlatIndex(mesh=m, quantization="pq", pq_centroids=16,
+                                         codebook=cb, **common)
+    ref = torch.empty((rows, DIM), dtype=torch.float32, device="cuda")
+    spent = dict.fromkeys(list(flat) + [f"{q} {n}" for q, n in quant], 0.0)
+    t0 = time.perf_counter()
+    for s in range(0, rows, ADD_BATCH):
+        v = clustered(seed, s, min(ADD_BATCH, rows - s), cent)
+        ids = np.arange(s, s + len(v))
+        for name, idx in list(flat.items()) + [(f"{q} {n}", i) for (q, n), i in quant.items()]:
+            t1 = time.perf_counter()
+            idx.add_batch(ids, v)
+            spent[name] += time.perf_counter() - t1
+        ref[s:s + len(v)] = torch.nn.functional.normalize(torch.from_numpy(v).to("cuda"), dim=1)
+    for idx in list(flat.values()) + list(quant.values()):
+        if hasattr(idx.store, "flush_staged"):
+            idx.store.flush_staged()
+    torch.cuda.synchronize()
+    text = (f"{rows} rows added to 7 indexes in {time.perf_counter() - t0:.1f} s ("
+            + ", ".join(f"{n} {s:.1f}" for n, s in spent.items())
+            + f" s), PQ4 codebook fitted in {train_s:.1f} s")
+    return flat, quant, ref, text
+
+
+def _merge_times(torch, store, mesh, q, timer) -> str:
+    """The per-shard scans and the merge of one 256-query batch, each on
+    CUDA events, outside the launch window."""
+    from weaviate_tpu_torch.parallel import sharded_search as tss
+
+    cs = min(store.chunk_size, store.capacity // store.n_shards)
+
+    def cands():
+        return tss.sharded_candidates(q, store.vectors, store.valid, store.sq_norms,
+                                      k=TOP_K, chunk_size=cs, metric="cosine", mesh=mesh,
+                                      use_pallas=True, selection=store.selection)
+
+    parts = cands()
+    scan_ms = timer(cands, reps=3, warmup=1)
+    merge_ms = timer(lambda: tss.merge_candidates(parts, mesh, TOP_K), reps=50)
+    return f"shard scans {scan_ms:.3f} ms, merge {merge_ms:.4f} ms"
+
+
+def phase_mesh(torch, K, seed: int, rows: int) -> dict:
+    """Phase 12: the port's row-sharded serving on the card (module
+    docstring). Returns the launches of its three windows."""
+    from weaviate_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    timer = Timer(torch)
+    devices = [torch.device("cuda", 0)] * MESH_SHARDS
+    meshes = _meshes(devices)
+    flat, quant, ref, build_text = _mesh_build(torch, seed, rows, meshes)
+    rng = np.random.default_rng([seed, 12])
+    deleted = rng.choice(rows, 10_000, replace=False)
+    for idx in list(flat.values()) + list(quant.values()):
+        idx.delete(*deleted.tolist())
+    live = torch.ones(rows, dtype=torch.bool, device="cuda")
+    live[torch.from_numpy(deleted).to("cuda")] = False
+    log(f"phase 12 mesh build: {build_text}; 10000 deleted from each; "
+        f"{len(meshes)} meshes of {MESH_SHARDS} row shards on {devices[0]} "
+        f"({', '.join(str(m.shape) for m in meshes.values())}); card memory allocated "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB")
+
+    # 12a: the flat path, the one buffer's answers first (the reference)
+    queries = near_queries(seed + 12, rng.integers(0, rows, MESH_TIMED * BATCH),
+                           lambda r: ref[torch.from_numpy(r).to("cuda")].cpu().numpy())
+    masks = [m for m in rng.random((BATCH, rows)) < MESH_FILTER]
+    shared = np.sort(rng.choice(rows, int(rows * MESH_SHARED), replace=False))
+    cases = [(f"unfiltered batch {b}", queries[b * BATCH:(b + 1) * BATCH], None)
+             for b in range(MESH_TIMED)]
+    cases += [(f"shared {MESH_SHARED:.0%} filter", queries[:BATCH], shared),
+              (f"per-query {MESH_FILTER:.0%} filters", queries[:BATCH], masks)]
+    answers = {}
+    for name in ["one buffer"] + list(meshes):
+        if name == list(meshes)[0]:
+            K.reset_launch_counts()  # phase 12a's window: the mesh runs only
+        for sel in ("approx", "fused"):
+            flat[name].store.selection = sel
+            for what, qb, allow in cases:
+                answers[(name, sel, what)] = _answer(torch, flat[name], qb, TOP_K, allow)
+    counts_a = dict(K.launch_counts)
+    bit = {}
+    for (name, sel, what), got in answers.items():
+        if name == "one buffer":
+            continue
+        bit.setdefault(name, []).append(
+            _equal_answers(got, answers[("one buffer", sel, what)], f"12a {name} {sel} {what}"))
+        if name == "2x4":
+            _bit_equal(answers[("1-D", sel, what)], got, f"12a {sel} {what}")
+    qn = torch.nn.functional.normalize(torch.from_numpy(queries[:BATCH]).to("cuda"), dim=1)
+    d_full = _exact_distances(torch, qn, ref, live[None, :])
+    _check_against_exact(torch, d_full, answers[("1-D", "approx", "unfiltered batch 0")][0],
+                         TOP_K, "12a 1-D mesh recall@100")
+    del d_full
+    times = {}
+    batches = [queries[b * BATCH:(b + 1) * BATCH] for b in range(MESH_TIMED)]
+    for sel in ("approx", "fused"):
+        for idx in flat.values():
+            idx.store.selection = sel
+        for name, ms in _timed_turns(torch, flat, batches, TOP_K, MESH_REPS).items():
+            times[(name, sel)] = ms
+    parts = []
+    for name in meshes:
+        st = flat[name].store
+        merge = []
+        for sel in ("approx", "fused"):
+            st.selection = sel
+            merge.append(f"{sel} " + _merge_times(
+                torch, st, meshes[name], torch.from_numpy(queries[:BATCH]).to("cuda"), timer))
+        parts.append(
+            f"{name}: batch p50 approx {_spread(times[(name, 'approx')])}, fused "
+            f"{_spread(times[(name, 'fused')])}; " + "; ".join(merge))
+    equal_bits = all(all(v) for v in bit.values())
+    log(f"phase 12a mesh flat ({time.perf_counter() - t0:.1f} s; {_smi_line()}): "
+        f"{rows} x {DIM} {METRIC}, {BATCH}-query batches at k {TOP_K}, selections approx and "
+        f"fused, unfiltered / shared {MESH_SHARED:.0%} / per-query {MESH_FILTER:.0%}: ids equal "
+        "to the one buffer's, distances "
+        + ("equal bit for bit" if equal_bits else
+           f"within rtol {MESH_RTOL} (not bit for bit: {sum(not x for v in bit.values() for x in v)} "
+           "batches)")
+        + "; 1-D and two-level equal bit for bit; the 1-D mesh's recall@100 against the "
+        f"exact recomputation 1.0; batch times on the host clock, {MESH_REPS} batches "
+        "each after a warm-up, the indexes taking turns: one buffer batch p50 approx "
+        f"{_spread(times[('one buffer', 'approx')])}, fused "
+        f"{_spread(times[('one buffer', 'fused')])} | " + " | ".join(parts)
+        + f" (CUDA events); launches {counts_a}")
+    _require_mesh_launches(counts_a, "12a")
+
+    # 12d: one shard per card, where the machine has several
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        t1 = time.perf_counter()
+        from weaviate_tpu_torch.engine.flat import FlatIndex
+
+        cards = make_mesh()
+        multi = FlatIndex.restore(flat["one buffer"].snapshot(), mesh=cards)
+        for sel in ("approx", "fused"):
+            multi.store.selection = sel
+            for what, qb, allow in cases:
+                _equal_answers(_answer(torch, multi, qb, TOP_K, allow),
+                               answers[("one buffer", sel, what)], f"12d {sel} {what}")
+        log(f"phase 12d cards ({time.perf_counter() - t1:.1f} s): one shard on each of "
+            f"{n_cards} cards, every 12a batch's ids equal to the one buffer's")
+        del multi
+    else:
+        log("phase 12d cards: did not run: torch.cuda.device_count() is 1 (this machine "
+            "has one card); the mesh of 12a-12c repeats that card")
+    for name in list(flat):
+        del flat[name]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 12b: BQ and PQ4 on both meshes, held to the exact recomputation
+    t1 = time.perf_counter()
+    qq = near_queries(seed + 121, rng.integers(0, rows, BATCH),
+                      lambda r: ref[torch.from_numpy(r).to("cuda")].cpu().numpy(),
+                      noise=NEAR_NOISE)
+    qn = torch.nn.functional.normalize(torch.from_numpy(qq).to("cuda"), dim=1)
+    d_full = _exact_distances(torch, qn, ref, live[None, :])
+    K.reset_launch_counts()  # phase 12b's window
+    got_q = {key: _answer(torch, idx, qq, MESH_QUANT_K) for key, idx in quant.items()}
+    counts_b = dict(K.launch_counts)
+    lat_q = _timed_turns(torch, quant, [qq], MESH_QUANT_K, MESH_REPS // 2)
+    qparts = []
+    for kind in ("bq", "pq4"):
+        _bit_equal(got_q[(kind, "1-D")], got_q[(kind, "2x4")], f"12b {kind}")
+        ids, dists = got_q[(kind, "1-D")]
+        r = _check_quantized(torch, d_full, ids, dists, MESH_QUANT_K, f"12b {kind}")
+        mode = quant[(kind, "1-D")].store.rescore_mode()
+        qparts.append(f"{kind} (rescore {mode}): recall@{MESH_QUANT_K} {r:.4f}, batch p50 "
+                      f"{_spread(lat_q[(kind, '1-D')])} (1-D) / "
+                      f"{_spread(lat_q[(kind, '2x4')])} (2x4)")
+        if r < RECALL_FLOOR[kind]:
+            raise AssertionError(f"12b {kind}: recall@{MESH_QUANT_K} {r} under "
+                                 f"{RECALL_FLOOR[kind]}")
+    del d_full
+    log(f"phase 12b mesh quantized ({time.perf_counter() - t1:.1f} s): {BATCH} queries near "
+        f"rows (cosine ~0.96), 1-D and two-level equal bit for bit, every distance the exact "
+        f"one; batch times on the host clock, {MESH_REPS // 2} batches each after a warm-up, "
+        "the indexes taking turns: " + "; ".join(qparts) + f"; launches {counts_b}")
+    _require_mesh_launches(counts_b, "12b")
+    quant.clear()
+    del ref, live
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    counts_c = phase_mesh_db(torch, K, seed)
+    log(f"phase 12 mesh total {time.perf_counter() - t0:.1f} s")
+    return {name: counts_a[name] + counts_b[name] + counts_c[name] for name in counts_a}
+
+
+def phase_mesh_db(torch, K, seed: int) -> dict:
+    """12c: a collection on the 2 x 4 mesh in a Database, imported under a
+    time budget, served over a socket by the Server, every answer equal to
+    an in-process one-buffer collection's on the same objects."""
+    from weaviate_tpu_torch.api.client import Client
+    from weaviate_tpu_torch.config import ServerConfig
+    from weaviate_tpu_torch.db import Database
+    from weaviate_tpu_torch.filters import Filter, Operator
+    from weaviate_tpu_torch.server import Server
+
+    t0 = time.perf_counter()
+    mesh = _meshes([torch.device("cuda", 0)] * MESH_SHARDS)["2x4"]
+    dirs = [tempfile.mkdtemp(prefix="chip_smoke_mesh_") for _ in range(2)]
+    plain = meshed = srv = None
+    try:
+        plain = Database(dirs[0], device="cuda")
+        meshed = Database(dirs[1], mesh=mesh)
+        mcol = _collection(meshed, "MeshWiki")
+        pcol = _collection(plain, "MeshWiki")
+        ref, _views, n, m_s = _import(torch, mcol, seed + 12, MESH_DB_ROWS, 12,
+                                      np.random.default_rng([seed, 120]), MESH_DB_BUDGET_S)
+        _r, _v, n2, p_s = _import(torch, pcol, seed + 12, n, 12,
+                                  np.random.default_rng([seed, 120]), 1e9)
+        if n2 != n:
+            raise AssertionError(f"12c: the one-buffer import took {n2} of {n} rows")
+        cfg = ServerConfig(data_path=meshed.data_dir, host="127.0.0.1", rest_port=0,
+                           grpc_port=0, disable_telemetry=True)
+        srv = Server(cfg, device="cuda", db=meshed)
+        if _grpc_present():
+            srv.start()
+        else:
+            srv.assemble()
+        client = Client(srv.rest.address, timeout=120.0)
+        rng = np.random.default_rng([seed, 122])
+        queries = near_queries(seed + 122, rng.integers(0, n, MESH_DB_QUERIES),
+                               lambda r: ref[torch.from_numpy(r).to("cuda")].cpu().numpy())
+        where = Filter.where("views", Operator.GREATER_THAN_EQUAL, VIEWS_CUT)
+        parts, runs, inproc = _socket_vs_inproc(
+            mcol, client, queries, SERVER_K, where,
+            f"{MESH_DB_QUERIES} nearVector(limit {SERVER_K}), half under where(views >= "
+            f"{VIEWS_CUT})", srv.grpc.port if srv.grpc is not None else None)
+        K.reset_launch_counts()  # phase 12c's window: the socket runs on the mesh
+        parts += [fn() for fn in runs.values()]
+        counts = dict(K.launch_counts)
+        # the mesh's answers (equal over the socket and in process, above)
+        # against the one-buffer collection's on the same objects. A
+        # filtered query served alone takes the one buffer's gathered
+        # cutover, which a mesh has not: its distances may move in the
+        # last bits there, its ids may not
+        bits = []
+        for i, q in enumerate(queries):
+            want = [(r.uuid, r.distance) for r in pcol.near_vector(
+                q, k=SERVER_K, where=where if i % 2 else None)]
+            bits.append(_equal_answers(
+                (np.array([u for u, _ in inproc[i]]), np.float32([d for _, d in inproc[i]])),
+                (np.array([u for u, _ in want]), np.float32([d for _, d in want])),
+                f"12c query {i} against the one-buffer collection"))
+        parts.append(f"ids equal to the one-buffer collection's, distances bit for bit in "
+                     f"{sum(bits)} of {len(bits)} (the rest within rtol {MESH_RTOL})")
+        mem = client.request("GET", "/v1/debug/memory")["ledger"]
+        hosts = mem["hbmHostBytes"]
+        if sorted(hosts) != ["host-0", "host-1"] or sum(hosts.values()) != mem["totalBytes"]:
+            raise AssertionError(f"12c: per-host rollup {hosts} does not sum to "
+                                 f"{mem['totalBytes']}")
+        log(f"phase 12c mesh database ({time.perf_counter() - t0:.1f} s; {_smi_line()}): "
+            f"Database(mesh=2x4 on cuda:0) collection of {n} objects (batch_put {n / m_s:.0f} "
+            f"objects/s on the mesh, {n / p_s:.0f} objects/s one buffer), Server over a socket"
+            f"{'' if srv.grpc is not None else ' (REST only: grpc absent)'}: "
+            + "; ".join(parts) + f"; /v1/debug/memory per-host bytes {hosts} sum to the "
+            f"ledger's {mem['totalBytes']}; launches through the socket {counts}")
+        _require_mesh_launches(counts, "12c")
+        return counts
+    finally:
+        if srv is not None:
+            srv.stop()
+        for db in (meshed, plain):
+            if db is not None:
+                db.close()
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4828,6 +5235,9 @@ def main() -> int:
     ap.add_argument("--ann-only", action="store_true",
                     help="only phases 0, 1 and 11 (the ANN indexes), a rehearsal of phase "
                     "11 (no result line)")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="only phases 0, 1 and 12 (row-sharded serving over a mesh), a "
+                    "rehearsal of phase 12 (no result line)")
     ap.add_argument("--import-run", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.import_run:  # --import-times' child: one import run, its JSON line
@@ -4899,6 +5309,10 @@ def main() -> int:
         phase_ann(torch, K, args.seed, args.ann_rows)
         log(f"total {time.perf_counter() - t0:.1f} s")
         return 0
+    if args.mesh_only:
+        phase_mesh(torch, K, args.seed, args.rows)
+        log(f"total {time.perf_counter() - t0:.1f} s")
+        return 0
     if args.import_times:
         for part in import_times(torch, args.seed, args.hybrid_docs, args.import_rows):
             log(f"import times: {part}")
@@ -4939,13 +5353,17 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     counts8 = phase_conformance(K)
     counts11 = phase_ann(torch, K, args.seed, args.ann_rows)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts12 = phase_mesh(torch, K, args.seed, args.rows)
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         # launches over the main paths: phases 4, 5, 6, 7, 8, the server's
-        # 9a, 9b and 9c, the epochs' 10 and the ANN indexes' 11, and phase
-        # 2's window for the two kernels that no path runs
+        # 9a, 9b and 9c, the epochs' 10, the ANN indexes' 11 and the mesh's
+        # 12, and phase 2's window for the two kernels that no path runs
         launches = sum(c[name] for c in (counts4, counts5, counts6, counts7, counts8,
-                                         counts9a, counts9b, counts9c, counts10, counts11))
+                                         counts9a, counts9b, counts9c, counts10, counts11,
+                                         counts12))
         if name in PHASE2_PATH:
             launches += counts2[name]
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,

@@ -634,18 +634,54 @@ def test_migration_kill_no_loss_no_double_serve(crash_at):
 
 
 def test_epoch_parity_mesh():
-    """The JAX package's mesh-sharded epochs (per-epoch SPMD scans, a
-    replicated slot-map merge) are ROADMAP Queue 1 item 6 in the port: an
-    epoch store, an epoch-backed index and a restore with a mesh raise
-    naming it."""
-    with pytest.raises(NotImplementedError, match="item 6"):
+    """Mesh-sharded epochs (per-epoch sharded scans, epoch-sliced
+    column-sharded allow masks, the slot-map merge on the merge device):
+    the same ids as the single row-sharded buffer and as the JAX
+    package's epochs on its 8 virtual devices; a restore lands on a mesh;
+    anything but a Mesh is a TypeError."""
+    import jax
+    import torch
+
+    from weaviate_tpu.parallel import make_mesh as jmake_mesh
+    from weaviate_tpu_torch.parallel.mesh import make_mesh
+
+    if len(jax.devices()) < 8:
+        pytest.skip("needs 8 virtual devices")
+    mesh = make_mesh(devices=[torch.device("cpu")] * 8)
+    rng = np.random.default_rng(42)
+    vecs = rng.standard_normal((120, 32)).astype(np.float32)
+    es = TEpochStore(dim=32, epoch_rows=48, capacity=32, chunk_size=4,
+                     mesh=mesh)
+    bs = TStore(dim=32, capacity=128, chunk_size=16, mesh=mesh)
+    je = JEpochStore(dim=32, epoch_rows=48, capacity=32, chunk_size=4,
+                     mesh=jmake_mesh(8))
+    s1, s2 = es.add(vecs), bs.add(vecs)
+    assert (s1 == s2).all() and (s1 == je.add(vecs)).all()
+    for s in (es, bs, je):
+        s.delete([3, 50, 100])
+    q = rng.standard_normal((3, 32)).astype(np.float32)
+    d1, i1 = es.search(q, k=6)
+    d2, i2 = bs.search(q, k=6)
+    np.testing.assert_array_equal(i1, i2)
+    np.testing.assert_array_equal(d1, d2)
+    dj, ij = je.search(q, k=6)
+    np.testing.assert_array_equal(i1, ij)
+    np.testing.assert_allclose(d1, dj, rtol=RTOL, atol=ATOL)
+    pm = np.zeros((3, 160), dtype=bool)
+    pm[0, [1, 2, 60]] = True
+    pm[1, :] = True
+    pm[2, [100, 101]] = True
+    d1, i1 = es.search(q, k=3, allow_mask=pm)
+    d2, i2 = bs.search(q, k=3, allow_mask=pm[:, :128])
+    np.testing.assert_array_equal(i1, i2)
+    np.testing.assert_array_equal(i1, je.search(q, k=3, allow_mask=pm)[1])
+    back = TEpochStore.restore(je.snapshot(), mesh=mesh)
+    assert back.mesh is mesh and back.epochs[0].store.n_shards == 8
+    np.testing.assert_array_equal(back.search(q, k=6)[1], ij)
+    with pytest.raises(TypeError, match="Mesh"):
         TEpochStore(dim=32, epoch_rows=48, mesh=object(), **CPU)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(TypeError, match="Mesh"):
         TFlatIndex(dim=32, epoch_rows=48, mesh=object(), **CPU)
-    je = JEpochStore(dim=8, epoch_rows=4, capacity=4, chunk_size=4)
-    je.add(np.eye(8, dtype=np.float32))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        TEpochStore.restore(je.snapshot(), mesh=object(), **CPU)
 
 
 def test_migration_blocks_concurrent_write_no_loss():

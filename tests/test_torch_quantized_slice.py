@@ -154,7 +154,8 @@ def test_untrained_pq_store_raises():
     st.add(np.ones((4, 16), np.float32))
     with pytest.raises(RuntimeError, match="not trained"):
         st.search(np.ones(16, np.float32), 2)
-    with pytest.raises(NotImplementedError):
+    # a mesh is ported: anything but a Mesh is a TypeError
+    with pytest.raises(TypeError, match="Mesh"):
         TStore(dim=16, quantization="bq", mesh=object(), device="cpu")
 
 

@@ -285,20 +285,62 @@ def test_module_entry_point_raises_on_cpu_only_box(tmp_path):
     assert not (tmp_path / "d").exists()
 
 
-@pytest.mark.parametrize("env,item", [
-    ({"DCN_COORDINATOR_ADDRESS": "10.0.0.1:1234"}, "item 6"),
-    ({"WEAVIATE_TPU_VIRTUAL_HOSTS": "2"}, "item 6"),
-])
-def test_unported_modes_raise(tmp_path, monkeypatch, env, item):
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
+@pytest.mark.parametrize("mode", ["coordinator", "virtual_hosts"])
+def test_unported_modes_raise(tmp_path, monkeypatch, mode):
+    """The JAX server's mesh modes are ported. With
+    WEAVIATE_TPU_VIRTUAL_HOSTS=2 the server starts and serves; on one
+    device it keeps one buffer (``default_mesh()`` is None, as the JAX
+    server on one chip) and the memory rollup splits over the two hosts.
+    A ``DCN_COORDINATOR_ADDRESS`` nobody listens on fails the join with
+    an error naming the address, before any listener starts (in a child
+    process: a joined process group outlives the call)."""
+    if mode == "coordinator":
+        import socket
+
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{s.getsockname()[1]}"
+        s.close()
+        code = (
+            "import weaviate_tpu_torch.parallel.mesh as m\n"
+            "from weaviate_tpu_torch.config import ServerConfig\n"
+            "from weaviate_tpu_torch.server import Server\n"
+            "m.JOIN_TIMEOUT_S = 2\n"
+            f"srv = Server(ServerConfig(data_path={str(tmp_path)!r}, "
+            "rest_port=0, grpc_port=0, disable_telemetry=True), device='cpu')\n"
+            "try:\n"
+            "    srv.start()\n"
+            "finally:\n"
+            "    print('rest', srv.rest, flush=True)\n")
+        env = dict(os.environ, DCN_COORDINATOR_ADDRESS=addr,
+                   DCN_NUM_PROCESSES="2", DCN_PROCESS_ID="1")
+        out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert f"{addr}: could not join the process group" in out.stderr
+        assert "rest None" in out.stdout
+        return
+    monkeypatch.setenv("WEAVIATE_TPU_VIRTUAL_HOSTS", "2")
     srv = TServer(TConfig.from_env(env={
         "PERSISTENCE_DATA_PATH": str(tmp_path), "PORT": "0",
-        "GRPC_PORT": "0", "DISABLE_TELEMETRY": "true", **env}),
-        device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        srv.start()
-    assert srv.rest is None
+        "GRPC_PORT": "0", "DISABLE_TELEMETRY": "true",
+        "WEAVIATE_TPU_VIRTUAL_HOSTS": "2"}), device="cpu").start()
+    try:
+        assert srv.db.mesh is None
+        addr = srv.rest.address
+        assert _request(addr, "POST", "/schema", _schema("l2-squared"))[0] == 200
+        objs = _objects(np.random.default_rng(2))[:20]
+        assert _request(addr, "POST", "/batch/objects",
+                        {"objects": objs})[0] == 200
+        status, nodes = _request(addr, "GET", "/nodes")
+        assert status == 200
+        stats = nodes["nodes"][0]["stats"]
+        assert sorted(stats["hbmHostBytes"]) == ["host-0", "host-1"]
+        assert sum(stats["hbmHostBytes"].values()) == stats["hbmLedgerBytes"]
+        status, got = _request(addr, "GET", f"/objects/Doc/{objs[3]['id']}")
+        assert status == 200 and got["properties"]["n"] == 3
+    finally:
+        srv.stop()
 
 
 def test_profiler_port_and_native_plane_degrade_as_the_jax_server(

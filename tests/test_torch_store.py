@@ -155,16 +155,22 @@ def test_store_raises_without_cuda_when_device_unset():
 
 
 def test_unported_options_raise():
-    # quantization and epochs are ported; the mesh (item 6) is not, with
-    # or without them
+    # quantization, epochs and the mesh are ported: a real mesh builds
+    # each store row-sharded, anything but a Mesh is a TypeError
+    from weaviate_tpu_torch.parallel.mesh import make_mesh
+
     assert TFlat(dim=4, epoch_rows=64, device="cpu").epoch_store is not None
     assert TFlat(dim=4, quantization="pq", epoch_rows=64,
                  device="cpu").epoch_store.quantization == "pq"
-    with pytest.raises(NotImplementedError, match="item 6"):
+    mesh = make_mesh(devices=[torch.device("cpu")] * 4)
+    assert TFlat(dim=4, epoch_rows=64, mesh=mesh).epoch_store.mesh is mesh
+    assert TStore(dim=4, mesh=mesh).n_shards == 4
+    assert TFlat(dim=4, quantization="bq", mesh=mesh).store.mesh is mesh
+    with pytest.raises(TypeError, match="Mesh"):
         TFlat(dim=4, epoch_rows=64, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(TypeError, match="Mesh"):
         TStore(dim=4, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(TypeError, match="Mesh"):
         TFlat(dim=4, quantization="bq", mesh=object(), device="cpu")
     # device hybrid (item 10) is ported: the async handle resolves to the
     # sync answer, and a pure-vector row of the drain to the plain search

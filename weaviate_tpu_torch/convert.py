@@ -9,7 +9,9 @@
 ``IVFIndex.snapshot()``, ``DynamicIndex.snapshot()`` and
 ``HNSWIndex.snapshot()`` return (plain numpy and Python values — this
 module imports nothing of the JAX package) and build the port's store /
-index from them on ``device``. An IVF snapshot carries its coarse
+index from them on ``device``, or row-sharded over ``mesh`` (the store,
+quantized, epoch, flat and dynamic converters; the slots and shard
+boundaries are the JAX mesh store's). An IVF snapshot carries its coarse
 centroids and, under residual PQ, its codebook, so the port probes the
 same partition; an HNSW snapshot carries the graph link for link. The
 port's own snapshots are the same dicts, so the JAX package restores
@@ -50,18 +52,21 @@ def _host_snapshot(snap: dict) -> dict:
     return out
 
 
-def store_from_jax_snapshot(snap: dict, device=None, **kwargs) -> DeviceVectorStore:
+def store_from_jax_snapshot(snap: dict, device=None, mesh=None,
+                            **kwargs) -> DeviceVectorStore:
     """The port's ``DeviceVectorStore`` holding the same rows, slots,
     metric, storage dtype and chunk size as the JAX store's snapshot."""
-    return DeviceVectorStore.restore(_host_snapshot(snap), device=device, **kwargs)
+    return DeviceVectorStore.restore(_host_snapshot(snap), device=device,
+                                     mesh=mesh, **kwargs)
 
 
-def quantized_store_from_jax_snapshot(snap: dict, device=None,
+def quantized_store_from_jax_snapshot(snap: dict, device=None, mesh=None,
                                       **kwargs) -> QuantizedVectorStore:
     """The port's ``QuantizedVectorStore`` from the JAX store's snapshot:
     the same quantization, codebook, rescore mode, prefix, rows or codes,
     and slots."""
-    return QuantizedVectorStore.restore(_host_snapshot(snap), device=device, **kwargs)
+    return QuantizedVectorStore.restore(_host_snapshot(snap), device=device,
+                                        mesh=mesh, **kwargs)
 
 
 def pq_codebook(centroids, device=None) -> PQCodebook:
@@ -71,19 +76,22 @@ def pq_codebook(centroids, device=None) -> PQCodebook:
         centroids, dtype=np.float32)).to(resolve(device)))
 
 
-def epoch_store_from_jax_snapshot(snap: dict, device=None, **kwargs) -> EpochStore:
+def epoch_store_from_jax_snapshot(snap: dict, device=None, mesh=None,
+                                  **kwargs) -> EpochStore:
     """The port's ``EpochStore`` from the JAX epoch store's snapshot: the
     same global slots, re-split by the same ``epoch_rows``, and the same
     quantization and codebook."""
-    return EpochStore.restore(_host_snapshot(snap), device=device, **kwargs)
+    return EpochStore.restore(_host_snapshot(snap), device=device, mesh=mesh,
+                              **kwargs)
 
 
-def flat_from_jax_snapshot(snap: dict, device=None, **kwargs) -> FlatIndex:
+def flat_from_jax_snapshot(snap: dict, device=None, mesh=None,
+                           **kwargs) -> FlatIndex:
     """The port's ``FlatIndex`` (store + id<->slot tables) from the JAX
     ``FlatIndex.snapshot()``, plain, quantized or epoch-backed."""
     out = _host_snapshot(snap)
     out["slot_to_id"] = np.asarray(snap["slot_to_id"], dtype=np.int64)
-    return FlatIndex.restore(out, device=device, **kwargs)
+    return FlatIndex.restore(out, device=device, mesh=mesh, **kwargs)
 
 
 def _host_ivf_snapshot(snap: dict) -> dict:
@@ -105,7 +113,8 @@ def ivf_from_jax_snapshot(snap: dict, device=None, **kwargs) -> IVFIndex:
     return IVFIndex.restore(_host_ivf_snapshot(snap), device=device, **kwargs)
 
 
-def dynamic_from_jax_snapshot(snap: dict, device=None, **kwargs) -> DynamicIndex:
+def dynamic_from_jax_snapshot(snap: dict, device=None, mesh=None,
+                              **kwargs) -> DynamicIndex:
     """The port's ``DynamicIndex`` from the JAX ``DynamicIndex.snapshot()``,
     in the same regime (flat below the threshold, IVF once upgraded)."""
     if snap.get("dynamic_upgraded"):
@@ -113,7 +122,7 @@ def dynamic_from_jax_snapshot(snap: dict, device=None, **kwargs) -> DynamicIndex
     else:
         out = _host_snapshot(snap)
         out["slot_to_id"] = np.asarray(snap["slot_to_id"], dtype=np.int64)
-    return DynamicIndex.restore(out, device=device, **kwargs)
+    return DynamicIndex.restore(out, device=device, mesh=mesh, **kwargs)
 
 
 def hnsw_from_jax_snapshot(snap: dict, device=None, **kwargs) -> HNSWIndex:

@@ -92,11 +92,11 @@ class Collection:
                 "multi-tenant collections: ROADMAP Queue 1 item 7")
         if config.replication.factor > 1:
             raise NotImplementedError("replication: ROADMAP Queue 1 item 7")
-        if mesh is not None:
-            raise NotImplementedError("multi-device: ROADMAP Queue 1 item 6")
         self.config = config
         self.data_dir = data_dir
-        self.mesh = None
+        # row-sharded vector stores over a device mesh (parallel/mesh.py):
+        # every shard's flat/quantized/epoch index is built on it
+        self.mesh = mesh
         self.device = device
         self.memwatch = memwatch
         self.async_indexing = async_indexing  # None = env decides per shard
@@ -197,7 +197,8 @@ class Collection:
                 shard = Shard(
                     self.data_dir, self.config, name, sync_wal=self.sync_wal,
                     memwatch=self.memwatch,
-                    async_indexing=self.async_indexing, device=self.device)
+                    async_indexing=self.async_indexing, device=self.device,
+                    mesh=self.mesh)
                 # admission rescue: compact tombstone-heavy epochs, then
                 # migrate the coldest sealed epoch to a sibling with
                 # headroom, BEFORE a 507 latches

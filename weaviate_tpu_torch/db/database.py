@@ -14,7 +14,7 @@ import threading
 
 from weaviate_tpu_torch.db.collection import Collection
 from weaviate_tpu_torch.db.sharding import ShardingState
-from weaviate_tpu_torch.device import resolve
+from weaviate_tpu_torch.parallel.mesh import host_count, placement
 from weaviate_tpu_torch.schema.config import CollectionConfig, Property
 from weaviate_tpu_torch.storage.kv import KVStore
 
@@ -27,13 +27,12 @@ class Database:
                  maintenance_interval: float = 5.0,
                  memory_monitor=None, async_indexing: bool | None = None,
                  sync_wal: bool | None = None, device=None):
-        if mesh is not None:
-            raise NotImplementedError("multi-device: ROADMAP Queue 1 item 6")
         # resolved once, up front: no CUDA and no device= raises here,
-        # before anything touches the data directory
-        self.device = resolve(device)
+        # before anything touches the data directory. On a mesh the
+        # device is the mesh's merge device (where results land).
+        self.device = placement(mesh, device)
         self.data_dir = data_dir
-        self.mesh = None
+        self.mesh = mesh
         # incident flight-recorder snapshots (tailboard) follow the data
         # dir of the most recently opened database
         from weaviate_tpu_torch.runtime import driftwatch, tailboard
@@ -41,7 +40,8 @@ class Database:
 
         tailboard.set_data_dir(data_dir)
         driftwatch.set_data_dir(data_dir)
-        ledger.set_host_count(1)
+        # scrape-time per-host memory rollups need the mesh's host count
+        ledger.set_host_count(host_count(mesh))
         self.local_node = local_node
         self.async_indexing = async_indexing  # None = env decides per shard
         if sync_wal is None:
@@ -59,6 +59,7 @@ class Database:
         from weaviate_tpu_torch.runtime.memwatch import MemoryMonitor
 
         self.memwatch = memory_monitor or MemoryMonitor()
+        self.memwatch.use_mesh(mesh)
         # background maintenance (reference: cyclemanager drives LSM
         # flush/compaction); off by default so embedded/test use stays
         # deterministic — the server entry point enables it. The JAX
@@ -96,7 +97,7 @@ class Database:
                           on_sharding_change=self._persist,
                           sync_wal=self.sync_wal, memwatch=self.memwatch,
                           async_indexing=self.async_indexing,
-                          device=self.device)
+                          device=self.device, mesh=self.mesh)
 
     def _load_existing(self):
         for key in self._schema.keys():

@@ -40,12 +40,17 @@ BUCKET_DOCID = "docid"  # uuid -> doc_id
 BUCKET_META = "meta"  # counters, checkpoints
 
 
-def _make_vector_index(vc: VectorConfig, dim: int, device=None):
+def _make_vector_index(vc: VectorConfig, dim: int, device=None, mesh=None):
     cfg = vc.index
     if cfg.index_type == "noop":
         return None
     common = dict(dim=dim, metric=cfg.metric, capacity=8192, chunk_size=8192,
                   device=device)
+    # the mesh reaches every flat store, and IVF so that its
+    # single-replica guard raises instead of landing the corpus on one
+    # device; the HNSW graph is host-side and takes none (JAX
+    # _make_vector_index)
+    meshed = dict(common, mesh=mesh)
     storage = "bfloat16" if cfg.storage_dtype == "bfloat16" else "float32"
     if cfg.index_type == "flat" and cfg.quantization:
         return FlatIndex(
@@ -55,15 +60,15 @@ def _make_vector_index(vc: VectorConfig, dim: int, device=None):
             rescore_limit=cfg.rescore_limit,
             prefix_bits=cfg.prefix_bits,
             epoch_rows=cfg.epoch_rows,
-            **common,
+            **meshed,
         )
     if cfg.index_type == "flat":
-        return FlatIndex(dtype=storage, epoch_rows=cfg.epoch_rows, **common)
+        return FlatIndex(dtype=storage, epoch_rows=cfg.epoch_rows, **meshed)
     if cfg.index_type in ("hnsw", "ivf") and cfg.quantization == "bq":
         # no bq form for graph hops or IVF lists: the compression request
         # is honoured on the quantized flat scan (documented fallback)
         return FlatIndex(quantization="bq", rescore_limit=cfg.rescore_limit,
-                         prefix_bits=cfg.prefix_bits, **common)
+                         prefix_bits=cfg.prefix_bits, **meshed)
     if cfg.index_type == "ivf":
         from weaviate_tpu_torch.engine.ivf import IVFIndex
 
@@ -71,7 +76,7 @@ def _make_vector_index(vc: VectorConfig, dim: int, device=None):
                         quantization=cfg.quantization,
                         pq_segments=cfg.pq_segments,
                         pq_centroids=cfg.pq_centroids,
-                        dtype=storage, **common)
+                        dtype=storage, **meshed)
     if cfg.index_type == "hnsw":
         # the reference's graph index: a pq-quantized hnsw keeps its GRAPH
         # (runtime ADC compression once enough data exists, compress.go:38)
@@ -96,12 +101,12 @@ def _make_vector_index(vc: VectorConfig, dim: int, device=None):
                 pq_centroids=cfg.pq_centroids,
                 rescore_limit=cfg.rescore_limit,
                 prefix_bits=cfg.prefix_bits,
-                **common,
+                **meshed,
             )
         return DynamicIndex(
             threshold=cfg.flat_to_ann_threshold,
             nlist=cfg.ivf_nlist, nprobe=cfg.ivf_nprobe,
-            dtype=storage, **common,
+            dtype=storage, **meshed,
         )
     raise ValueError(f"unknown index type {cfg.index_type}")
 
@@ -110,8 +115,6 @@ class Shard:
     def __init__(self, data_dir: str, collection: CollectionConfig, name: str,
                  mesh=None, memwatch=None, async_indexing: bool | None = None,
                  sync_wal: bool | None = None, device=None):
-        if mesh is not None:
-            raise NotImplementedError("multi-device: ROADMAP Queue 1 item 6")
         self.name = name
         self.device = device
         self.memwatch = memwatch
@@ -190,7 +193,7 @@ class Shard:
             self.shard_hbm_limit = 0
         self._counter = self.meta.get(b"doc_counter") or 0
         self.read_only = bool(self.meta.get(b"read_only") or False)
-        self.mesh = None
+        self.mesh = mesh
         # named vector indexes, built lazily at first insert (dim inference)
         self.vector_indexes: dict[str, FlatIndex] = {}
         from weaviate_tpu_torch.text.inverted import InvertedIndex
@@ -256,7 +259,8 @@ class Shard:
 
         with hbm_ledger.owner(self.collection_name, self.name,
                               tenant=self._tenant_label()):
-            idx = _make_vector_index(vc, dim, device=self.device)
+            idx = _make_vector_index(vc, dim, device=self.device,
+                                     mesh=self.mesh)
         self.vector_indexes[vec_name] = idx
         return idx
 
@@ -476,15 +480,18 @@ class Shard:
         has a solo gathered path, else 0 (never solo). One epoch at slot 0
         IS a single store and keeps the cutover; a multi-epoch stack has
         no host-remap solo path, so a selective filter rides the batched
-        bitmask there. Resolved per call: compress() swaps the store."""
+        bitmask there. A mesh store has no gathered path (its rows stay
+        on their shards): 0. Resolved per call: compress() swaps the
+        store."""
         es = getattr(idx, "epoch_store", None)
         if es is not None:
-            return es.capacity if (not es.quantization
+            return es.capacity if (es.mesh is None and not es.quantization
                                    and es.epoch_count == 1) else 0
         # only a plain store has the solo gathered path; elsewhere (ivf,
         # hnsw) a solo dispatch is strictly worse than riding the batch
         s = getattr(idx, "store", None)
-        if s is None or not hasattr(s, "_dispatch_gathered"):
+        if (s is None or getattr(s, "mesh", None) is not None
+                or not hasattr(s, "_dispatch_gathered")):
             return 0
         return s.capacity
 

@@ -29,7 +29,12 @@ of one buffer that only grows.
 Each epoch's tensors register in the memory ledger under a per-epoch
 component label (``corpus@e3``, ``codes@e3``), so /v1/debug/memory shows
 which epoch owns which bytes and dropping an epoch releases exactly its
-entries. The mesh form is ROADMAP Queue 1 item 6.
+entries.
+
+On a ``mesh`` every epoch's store is built on it (row-sharded, a scan per
+shard and the sharded merge inside each epoch's scan), and the slot maps
+and the cross-epoch merge sit on the mesh's merge device, where each
+epoch's candidates land.
 """
 
 from __future__ import annotations
@@ -41,15 +46,15 @@ import time
 import numpy as np
 import torch
 
-from weaviate_tpu_torch.device import resolve
 from weaviate_tpu_torch.engine.quantized import (RESCORE_BLOCK_ELEMS, RESCORE_THREADS,
                                                  QuantizedVectorStore, _row_blocks,
                                                  _run_blocks)
-from weaviate_tpu_torch.engine.store import (_MULTI_DEVICE, DeviceVectorStore,
-                                             _next_pow2, normalize_allow_mask,
-                                             storage_dtype)
+from weaviate_tpu_torch.engine.store import (DeviceVectorStore, _next_pow2,
+                                             normalize_allow_mask, storage_dtype,
+                                             to_host)
 from weaviate_tpu_torch.ops.bq import _auto_reduce_l
 from weaviate_tpu_torch.ops.topk import merge_epoch_topk
+from weaviate_tpu_torch.parallel.mesh import placement
 from weaviate_tpu_torch.runtime import hbm_ledger, tracing, transfer
 from weaviate_tpu_torch.runtime.transfer import DeviceResultHandle
 
@@ -157,14 +162,12 @@ class EpochStore:
                  selection: str = "approx",
                  quantization: str | None = None,
                  quant_kwargs: dict | None = None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(_MULTI_DEVICE)
-        self.device = resolve(device)
+        self.device = placement(mesh, device)
         self.dim = dim
         self.metric = metric
         self.epoch_rows = int(epoch_rows) or DEFAULT_EPOCH_ROWS or (1 << 20)
         self.dtype = storage_dtype(dtype)
-        self.mesh = None
+        self.mesh = mesh
         self.chunk_size = chunk_size
         self._selection = selection
         self.quantization = quantization
@@ -213,13 +216,13 @@ class EpochStore:
                     normalize_on_add=self.normalize_on_add,
                     codebook=self._codebook,
                     component_suffix=f"@e{eid}", device=self.device,
-                    **self._quant_kwargs)
+                    mesh=self.mesh, **self._quant_kwargs)
             return DeviceVectorStore(
                 dim=self.dim, metric=self.metric, capacity=capacity,
                 dtype=self.dtype, chunk_size=self.chunk_size,
                 normalize_on_add=self.normalize_on_add,
                 selection=self._selection, component=f"corpus@e{eid}",
-                device=self.device)
+                device=self.device, mesh=self.mesh)
 
     def _open_epoch_locked(self) -> _Epoch:
         """Open a fresh active epoch at the slot high-water mark. Caller
@@ -558,7 +561,9 @@ class EpochStore:
         # goes through the epoch-aware _vectors_for gather below
         if mode == "plane":
             mode = "post"
-        k_cand = max(k * rl, k) if mode == "post" else k
+        # a mesh's inline rescore sees k_cand code-distance candidates per
+        # epoch, as its single buffer does, and keeps k
+        k_cand = max(k * rl, k) if mode in ("post", "inline") else k
         # the one-pass scan-reduce kernels keep one winner per reduce_l
         # rows, a factor a store takes from its capacity. Every epoch
         # takes the factor of the whole stack's slot space — the one a
@@ -572,7 +577,8 @@ class EpochStore:
             kc = min(k_cand, cap)
             d, i, tiers = ep.store.epoch_scan(
                 qn, kc, self._slice_allow(allow_mask, ep),
-                pre_normalized=True, reduce_l=reduce_l)
+                pre_normalized=True, reduce_l=reduce_l,
+                k_out=kc if mode == "post" else min(k, cap))
             parts.append((d, i))
             maps.append(ep.slot_map_device())
             snaps.append((ep.base, ep.span or int(ep.store.count),
@@ -742,8 +748,7 @@ class EpochStore:
             if isinstance(ep.store, QuantizedVectorStore):
                 rows = ep.store._vectors_for(loc)
             else:
-                (vec_host,) = transfer.d2h(ep.store.vectors.float())
-                rows = vec_host[loc].astype(np.float32)
+                rows = to_host(ep.store.vectors)[loc].astype(np.float32)
             return lg, rows
 
     def live_globals_of(self, eid: int) -> np.ndarray:
@@ -847,8 +852,7 @@ class EpochStore:
                 if isinstance(ep.store, QuantizedVectorStore):
                     rows = ep.store._vectors_for(loc)
                 else:
-                    (vec_host,) = transfer.d2h(ep.store.vectors.float())
-                    rows = vec_host[loc]
+                    rows = to_host(ep.store.vectors)[loc]
                 vecs[lg] = rows
                 valid[lg] = True
             snap = {

@@ -1,5 +1,6 @@
 """Flat (brute-force) vector index (port of ``weaviate_tpu/engine/flat.py``,
-plain or BQ/PQ-quantized, one buffer or a stack of epochs, one device).
+plain or BQ/PQ-quantized, one buffer or a stack of epochs, on one device
+or row-sharded over a ``mesh``).
 
 Reference: adapters/repos/db/vector/flat/index.go (full scan). Here the
 full scan is the CUDA kernels' workload: one batched distance product over
@@ -249,7 +250,7 @@ class FlatIndex:
                 new = QuantizedVectorStore(
                     dim=self.dim, metric=self.metric, quantization=quantization,
                     capacity=old.capacity, chunk_size=old.chunk_size,
-                    device=old.device, **quant_kwargs)
+                    device=old.device, mesh=old.mesh, **quant_kwargs)
             live = np.nonzero(snap["valid"])[0]
             live_vecs = snap["vectors"][live]
             if quantization == "pq" and new.codebook is None:
@@ -276,7 +277,7 @@ class FlatIndex:
                 dim=self.dim, metric=self.metric,
                 epoch_rows=old.epoch_rows, chunk_size=old.chunk_size,
                 selection=old.selection, quantization=quantization,
-                quant_kwargs=quant_kwargs, device=old.device)
+                quant_kwargs=quant_kwargs, device=old.device, mesh=old.mesh)
         live = np.nonzero(snap["valid"])[0]
         live_vecs = snap["vectors"][live]
         if quantization == "pq":

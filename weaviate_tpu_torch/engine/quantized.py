@@ -19,8 +19,12 @@ rescore modes pick where full-precision candidates come from:
   (``ops/candidates.gather_rescore_topk``).
 - ``"none"``: codes only. Results are code-distance ordered.
 
-The mesh (row-sharded) form is ROADMAP Queue 1 item 6. ``epoch_scan`` is
-the epoch store's per-epoch dispatch (engine/epochs.py).
+On a ``mesh`` the codes, the valid mask and the ``"device"`` rescore rows
+are ``RowSharded`` (``parallel/sharded_search.py``): every search runs a
+compressed scan per shard, and in ``"device"`` mode each shard rescores
+its own candidates against its own rows inside the scan (``"inline"``)
+before the merge. A sign prefix exists only without a mesh. ``epoch_scan``
+is the epoch store's per-epoch dispatch (engine/epochs.py).
 """
 
 from __future__ import annotations
@@ -34,14 +38,19 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from weaviate_tpu_torch.device import resolve
-from weaviate_tpu_torch.engine.store import (_MULTI_DEVICE, _next_pow2,
+from weaviate_tpu_torch.engine.store import (_next_pow2, and_mask,
                                              batched_mask_operands,
-                                             normalize_allow_mask)
+                                             normalize_allow_mask, to_host)
 from weaviate_tpu_torch.ops import bq as bq_ops
 from weaviate_tpu_torch.ops import pq as pq_ops
 from weaviate_tpu_torch.ops.candidates import gather_rescore_topk
 from weaviate_tpu_torch.ops.distances import normalize_np
+from weaviate_tpu_torch.parallel.mesh import (n_row_shards, placement,
+                                              shardable_capacity)
+from weaviate_tpu_torch.parallel.sharded_search import (RowSharded, grow_rows,
+                                                        shard_array,
+                                                        sharded_quantized_topk,
+                                                        sharded_zeros)
 from weaviate_tpu_torch.runtime import hbm_ledger, tracing
 from weaviate_tpu_torch.runtime.transfer import DeviceResultHandle
 
@@ -121,8 +130,6 @@ class QuantizedVectorStore:
         component_suffix: str = "",
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(_MULTI_DEVICE)
         if quantization not in ("pq", "bq"):
             raise ValueError(f"unknown quantization {quantization!r}")
         if rescore not in ("host", "device", "none"):
@@ -135,7 +142,7 @@ class QuantizedVectorStore:
             raise ValueError(
                 "selection='fused' needs the pq4 scan-reduce kernel "
                 "(pq_centroids <= 16) or quantization='bq'")
-        self.device = resolve(device)
+        self.device = placement(mesh, device)
         self.dim = dim
         self.metric = metric
         self.quantization = quantization
@@ -152,10 +159,12 @@ class QuantizedVectorStore:
             if normalize_on_add is None
             else normalize_on_add
         )
-        self.mesh = None
-        self.n_shards = 1
+        self.mesh = mesh
+        self.n_shards = n_row_shards(mesh)
         self.prefix_words = 0
-        if prefix_bits:
+        # the prefix is a one-buffer layout ([Wp, C] transposed): a mesh
+        # scans the full codes per shard
+        if prefix_bits and mesh is None:
             wp = max(4, prefix_bits // 32 // 4 * 4)
             if quantization == "bq":
                 # a prefix at least as wide as the code saves nothing
@@ -185,9 +194,14 @@ class QuantizedVectorStore:
     # -- internals -----------------------------------------------------------
 
     def _align(self, capacity: int) -> int:
-        capacity = _next_pow2(max(capacity, 2))
-        cs = max(1, min(self.chunk_size, capacity))
-        return -(-capacity // cs) * cs
+        capacity = _next_pow2(max(capacity, 2 * self.n_shards))
+        cs = max(1, min(self.chunk_size, capacity // self.n_shards))
+        return shardable_capacity(capacity, self.n_shards, cs)
+
+    def _zeros(self, shape, dtype):
+        if self.mesh is None:
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+        return sharded_zeros(shape, dtype, self.mesh)
 
     def _code_width(self) -> int:
         if self.quantization == "pq":
@@ -199,14 +213,16 @@ class QuantizedVectorStore:
 
     def _alloc_codes(self):
         dev = self.device
-        self.codes = torch.zeros((self.capacity, self._code_width()),
-                                 dtype=self._code_dtype(), device=dev)
+        self.codes = self._zeros((self.capacity, self._code_width()),
+                                 self._code_dtype())
         self.prefix_t = (
             torch.zeros((self.prefix_words, self.capacity), dtype=torch.int32, device=dev)
             if self.prefix_words else None)
-        self.valid = torch.from_numpy(self._valid_np.copy()).to(dev)
+        self.valid = (torch.from_numpy(self._valid_np.copy()).to(dev)
+                      if self.mesh is None
+                      else shard_array(self._valid_np.copy(), self.mesh))
         self.rescore_rows = (
-            torch.zeros((self.capacity, self.dim), dtype=torch.bfloat16, device=dev)
+            self._zeros((self.capacity, self.dim), torch.bfloat16)
             if self.rescore == "device" else None)
         self._hbm_sync()
 
@@ -217,7 +233,8 @@ class QuantizedVectorStore:
         def _set(component, nbytes, dtype):
             hbm_ledger.ledger.set_keyed(
                 self._hbm_keys, component + self.component_suffix,
-                nbytes, owner=self._hbm_owner, dtype=dtype, sharding="single")
+                nbytes, owner=self._hbm_owner, dtype=dtype,
+                sharding="single" if self.mesh is None else "sharded")
 
         _set("codes", int(self.codes.nbytes) + int(self.valid.nbytes),
              "uint8" if self.quantization == "pq" else "uint32")
@@ -279,6 +296,8 @@ class QuantizedVectorStore:
         async finish step's dispatch-time snapshot."""
         if host_vectors is not None:
             return host_vectors[slots]
+        if isinstance(rescore_rows, RowSharded):
+            return to_host(rescore_rows.take(slots))
         if rescore_rows is not None:
             idx = torch.from_numpy(np.asarray(slots, dtype=np.int64)).to(rescore_rows.device)
             (rows,) = tracing.d2h(rescore_rows[idx].float())
@@ -342,6 +361,14 @@ class QuantizedVectorStore:
         m = len(slots)
         if m == 0:
             return
+        if self.mesh is not None:  # each row to the shard that owns its slot
+            if codes is not None:
+                self.codes.index_copy_(slots, torch.from_numpy(_as_i32(codes)))
+            self.valid.index_fill_(slots, True)
+            if self.rescore_rows is not None and rows is not None:
+                self.rescore_rows.index_copy_(slots, torch.from_numpy(
+                    np.ascontiguousarray(rows, dtype=np.float32)).to(torch.bfloat16))
+            return
         dev = self.device
         idx = torch.from_numpy(np.asarray(slots, dtype=np.int64)).to(dev)
         if codes is not None:
@@ -380,6 +407,8 @@ class QuantizedVectorStore:
             self._host_vectors = grown_v
 
         def rows_padded(a):
+            if self.mesh is not None:
+                return grow_rows(a, pad, self.mesh)
             return torch.cat([a, torch.zeros((pad,) + tuple(a.shape[1:]),
                                              dtype=a.dtype, device=a.device)])
 
@@ -408,7 +437,10 @@ class QuantizedVectorStore:
             return
         with self._lock:
             self._valid_np[slots] = False
-            self.valid.index_fill_(0, torch.from_numpy(slots).to(self.device), False)
+            if self.mesh is not None:
+                self.valid.index_fill_(slots, False)
+            else:
+                self.valid.index_fill_(0, torch.from_numpy(slots).to(self.device), False)
 
     # -- queries -------------------------------------------------------------
 
@@ -423,13 +455,33 @@ class QuantizedVectorStore:
         slots = np.atleast_1d(np.asarray(slots, dtype=np.int64))
         return self._vectors_for(slots).copy()
 
-    def _scan(self, queries_dev: torch.Tensor, k_cand: int, valid: torch.Tensor,
-              allow_bits: torch.Tensor | None = None, reduce_l: int | None = None):
+    def _scan(self, queries_dev: torch.Tensor, k_cand: int, valid,
+              allow_bits=None, reduce_l: int | None = None,
+              k_out: int | None = None):
         """Dispatch the compressed scan; ``allow_bits`` [B, C/32] int32
         packed per-query allow words. ``reduce_l`` overrides the one-pass
-        scans' strided reduction (default: from this store's capacity)."""
-        cs = min(self.chunk_size, self.capacity)
+        scans' strided reduction (default: from this store's capacity).
+
+        On a mesh this is ``sharded_quantized_topk``: ``allow_bits`` is
+        then the column-sharded bool rows, each shard scans ``k_cand``
+        candidates of its own rows (its reduction from its own rows), the
+        ``"device"`` rows rescore them inline, and ``k_out`` survive the
+        merge."""
+        cs = min(self.chunk_size, self.capacity // self.n_shards)
         metric = self._scan_metric()
+        if self.mesh is not None:
+            pq4 = self.quantization == "pq" and self.pq_centroids <= 16
+            return sharded_quantized_topk(
+                queries_dev,
+                bq_ops.bq_encode(queries_dev) if self.quantization == "bq" else None,
+                self.codes, valid, self.rescore_rows,
+                None if self.codebook is None else self.codebook.centroids,
+                k=min(k_cand, self.capacity // self.n_shards),
+                k_out=k_cand if k_out is None else k_out, chunk_size=cs,
+                quantization="bq" if self.quantization == "bq" else (
+                    "pq4" if pq4 else "pq"),
+                metric=metric, mesh=self.mesh, use_pallas=self.use_pallas,
+                selection=self.selection, allow_rows=allow_bits)
         if self.quantization == "pq":
             cent = self.codebook.centroids
             if self.prefix_t is not None:
@@ -461,10 +513,14 @@ class QuantizedVectorStore:
             allow_bits=allow_bits, reduce_l=reduce_l)
 
     def rescore_mode(self) -> str:
-        """Where the exact rescore happens: ``"plane"`` (bf16 rows on the
-        card: the oversampled candidates rescore there), ``"post"``
-        (oversampled candidates come back for a host rescore), or
-        ``"none"`` (code-distance order is the contract)."""
+        """Where the exact rescore happens: ``"inline"`` (a mesh's bf16
+        rows: each shard rescores its candidates inside the scan, the
+        distances come out exact), ``"plane"`` (bf16 rows on the card: the
+        oversampled candidates rescore there), ``"post"`` (oversampled
+        candidates come back for a host rescore), or ``"none"``
+        (code-distance order is the contract)."""
+        if self.rescore == "device" and self.mesh is not None:
+            return "inline"
         if self.rescore == "device" and self.rescore_rows is not None:
             return "plane"
         if self._host_vectors is not None:
@@ -473,7 +529,8 @@ class QuantizedVectorStore:
 
     def epoch_scan(self, queries: np.ndarray, k_cand: int,
                    allow_mask: np.ndarray | None = None,
-                   pre_normalized: bool = False, reduce_l: int | None = None):
+                   pre_normalized: bool = False, reduce_l: int | None = None,
+                   k_out: int | None = None):
         """Dispatch-only compressed scan for the epoch store: the
         candidates stay on the device with store-local ids for the
         cross-epoch merge; the one global host rescore runs in the epoch
@@ -482,7 +539,9 @@ class QuantizedVectorStore:
         the epoch store normalized once for every epoch (normalizing per
         epoch would not be bit for bit the single store's). ``reduce_l``
         is the strided reduction of the whole stack's slot space (see
-        ``EpochStore``). Returns ``(d, i, tiers)``."""
+        ``EpochStore``; a mesh's shards take their own). ``k_out`` is what
+        survives a mesh's merge (default ``k_cand``). Returns
+        ``(d, i, tiers)``."""
         queries = np.asarray(queries, dtype=np.float32)
         if not pre_normalized:
             queries = self._maybe_norm(queries)
@@ -497,15 +556,16 @@ class QuantizedVectorStore:
             if allow_mask is not None and allow_mask.ndim == 2:
                 allow_bits = batched_mask_operands(
                     allow_mask, len(queries), capacity, self.device,
-                    owner=self._hbm_owner)
+                    owner=self._hbm_owner, mesh=self.mesh)
             elif allow_mask is not None:
                 full = np.zeros(capacity, dtype=bool)
                 w = min(len(allow_mask), capacity)
                 full[:w] = allow_mask[:w]
-                valid = valid & torch.from_numpy(full).to(self.device)
+                valid = and_mask(valid, full, self.mesh)
             q_dev = torch.from_numpy(np.ascontiguousarray(queries)).to(self.device)
             d, i = self._scan(q_dev, min(k_cand, capacity), valid,
-                              allow_bits=allow_bits, reduce_l=reduce_l)
+                              allow_bits=allow_bits, reduce_l=reduce_l,
+                              k_out=None if k_out is None else min(k_out, capacity))
             tiers = (self._host_vectors, self.rescore_rows)
         return d, i, tiers
 
@@ -530,11 +590,13 @@ class QuantizedVectorStore:
         queries = self._maybe_norm(queries)
         allow_mask = normalize_allow_mask(allow_mask, len(queries))
         mode = self.rescore_mode()
+        inline_rescore = mode == "inline"
         plane_rescore = mode == "plane"
         post_rescore = mode == "post"
         with tracing.span("store.quantized_scan", rows=self.capacity,
                           queries=len(queries), k=k,
-                          quantization=self.quantization, sharded=False) as sp:
+                          quantization=self.quantization,
+                          sharded=self.mesh is not None) as sp:
             with self._lock:
                 if not self.trained:
                     raise RuntimeError("PQ store not trained; call train() first")
@@ -545,17 +607,20 @@ class QuantizedVectorStore:
                     sp.set(path="bitmask_batched")
                     allow_bits = batched_mask_operands(
                         allow_mask, len(queries), capacity, self.device,
-                        owner=self._hbm_owner)
+                        owner=self._hbm_owner, mesh=self.mesh)
                 elif allow_mask is not None:
                     full = np.zeros(capacity, dtype=bool)
                     full[: len(allow_mask)] = allow_mask[:capacity]
-                    valid = valid & torch.from_numpy(full).to(self.device)
-                if post_rescore or plane_rescore:
+                    valid = and_mask(valid, full, self.mesh)
+                if post_rescore or plane_rescore or inline_rescore:
                     k_cand = min(max(k * self.rescore_limit, k), capacity)
                 else:
                     k_cand = min(k, capacity)
+                # inline: the shards' rescored candidates merge to k
+                k_out = min(k, capacity) if inline_rescore else k_cand
                 q_dev = torch.from_numpy(np.ascontiguousarray(queries)).to(self.device)
-                d, i = self._scan(q_dev, k_cand, valid, allow_bits=allow_bits)
+                d, i = self._scan(q_dev, k_cand, valid, allow_bits=allow_bits,
+                                  k_out=k_out)
                 if plane_rescore:
                     # the full-precision tier is already on the card: the
                     # oversampled candidates rescore there
@@ -717,10 +782,9 @@ class QuantizedVectorStore:
             if self._host_vectors is not None:
                 snap["vectors"] = self._host_vectors.copy()
             elif self.rescore == "device":
-                (snap["vectors"],) = tracing.d2h(self.rescore_rows.float())
+                snap["vectors"] = to_host(self.rescore_rows)
             else:
-                (codes,) = tracing.d2h(self.codes)
-                snap["codes"] = _as_u32(codes)
+                snap["codes"] = _as_u32(to_host(self.codes))
                 if self.prefix_t is not None and self.quantization == "pq":
                     # PQ prefixes derive from the raw vectors — a
                     # codes-only snapshot must carry them explicitly

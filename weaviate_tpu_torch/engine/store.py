@@ -11,8 +11,14 @@ XLA updates them in place, this store writes the same tensors in place
 with ``index_copy_`` / ``index_fill_`` — no copy, no realloc per insert.
 Deletes flip ``valid`` bits (tombstones); the mask is applied inside the
 scan so dead slots never win. Capacity grows by power-of-two
-re-allocation. One device only: the mesh (row-sharded) form of the JAX
-store is ROADMAP Queue 1 item 6.
+re-allocation.
+
+With a ``mesh`` (``parallel/mesh.py``) the three tensors are
+``RowSharded``: shard ``s`` holds slots ``[s*L, (s+1)*L)`` on its mesh
+device, writes route each slot to its shard, and a search runs
+``parallel/sharded_search.sharded_topk`` (a scan per shard, then the 1-D
+or two-level merge). Capacity is aligned as the JAX store aligns it, so
+slot ids and shard boundaries equal the JAX store's.
 """
 
 from __future__ import annotations
@@ -24,18 +30,41 @@ import weakref
 import numpy as np
 import torch
 
-from weaviate_tpu_torch.device import resolve
 from weaviate_tpu_torch.ops.candidates import shared_candidates_topk
 from weaviate_tpu_torch.ops.distances import normalize
 from weaviate_tpu_torch.ops.kernels import (KERNEL_METRICS, as_bits_tensor,
                                             mask_pad_cols, pack_allow_bitmask,
                                             pack_allow_bitmask_t)
 from weaviate_tpu_torch.ops.topk import chunked_topk_distances
+from weaviate_tpu_torch.parallel.mesh import (n_row_shards, placement,
+                                              shardable_capacity)
+from weaviate_tpu_torch.parallel.sharded_search import (RowSharded, grow_rows,
+                                                        shard_array,
+                                                        sharded_topk,
+                                                        sharded_zeros,
+                                                        tracked_shard_array)
 from weaviate_tpu_torch.runtime import hbm_ledger, tracing, transfer
 from weaviate_tpu_torch.runtime.transfer import DeviceResultHandle
 
 _DEFAULT_CHUNK = 8192
-_MULTI_DEVICE = "multi-device: ROADMAP Queue 1 item 6"
+
+
+def to_host(t) -> np.ndarray:
+    """A device tensor or ``RowSharded`` value as a host array."""
+    if isinstance(t, RowSharded):
+        t = t.gather()
+    (out,) = transfer.d2h(t.float() if t.dtype == torch.bfloat16 else t)
+    return out
+
+
+def and_mask(valid, full: np.ndarray, mesh):
+    """``valid`` AND a host [capacity] bool mask, in ``valid``'s layout."""
+    if mesh is None:
+        return valid & torch.from_numpy(full).to(valid.device)
+    sh = shard_array(full, mesh)
+    return RowSharded([None if v is None else v & m
+                       for v, m in zip(valid.parts, sh.parts)],
+                      valid.shape, 0, mesh, valid.dtype)
 
 
 def _next_pow2(n: int) -> int:
@@ -77,15 +106,31 @@ def normalize_allow_mask(allow_mask, n_queries: int, keep_rows: bool = False):
 
 
 def batched_mask_operands(allow_mask, n_queries: int, capacity: int, device,
-                          owner: dict | None = None):
+                          owner: dict | None = None, mesh=None):
     """[B, capacity] per-query mask -> packed allow words on the device,
     under a ``store.mask_pack`` span. A CUDA store uploads the bool rows
     (unless they are a tensor on the card already) and packs them there
     (``pack_allow_bitmask_t``); a CPU store packs with numpy
     (``pack_allow_bitmask``). Both give the same words.
     ``owner`` labels the transient device buffer in the memory ledger
-    (tracked for the buffer's lifetime)."""
+    (tracked for the buffer's lifetime).
+
+    On a ``mesh`` the bool rows are placed column-sharded instead, each
+    shard's columns row-aligned with its corpus rows, and each shard packs
+    its own slice on its device inside the scan: returns that
+    ``RowSharded`` [B, capacity] (dim 1)."""
     with tracing.span("store.mask_pack", queries=n_queries):
+        if mesh is not None:
+            rows = allow_mask if torch.is_tensor(allow_mask) else \
+                torch.from_numpy(np.ascontiguousarray(allow_mask, dtype=bool))
+            if rows.shape[1] != capacity:
+                full = torch.zeros((n_queries, capacity), dtype=torch.bool,
+                                   device=rows.device)
+                w = min(rows.shape[1], capacity)
+                full[:, :w] = rows[:, :w]
+                rows = full
+            return tracked_shard_array(rows, mesh, dim=1,
+                                       component="allow_mask", owner=owner)
         n_cols = mask_pad_cols(capacity)
         if torch.device(device).type == "cuda":
             rows = allow_mask if torch.is_tensor(allow_mask) else torch.from_numpy(
@@ -106,7 +151,12 @@ def _probe_scatter(valid: torch.Tensor, slot: int) -> None:
     Kernel launches are asynchronous: the scatter returning only means it
     was enqueued. This tiny read surfaces an asynchronous failure at the
     flush site, while the staged rows are still held and re-flushable.
+    On a mesh every shard this process holds is read once.
     Module-level so tests can inject failures."""
+    if isinstance(valid, RowSharded):
+        for _, t in valid.local():
+            bool(t[0].item())
+        return
     bool(valid[slot].item())
 
 
@@ -129,19 +179,17 @@ class DeviceVectorStore:
         component: str = "corpus",
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(_MULTI_DEVICE)
-        self.device = resolve(device)
+        self.device = placement(mesh, device)
         self.dim = dim
         self.hbm_component = component
         self.metric = metric
         self.dtype = storage_dtype(dtype)
-        self.mesh = None
+        self.mesh = mesh
         self.chunk_size = chunk_size
         # "approx" and "exact" run the exact per-chunk selection
         # (ops/topk.py); "fused" folds it into the fused_topk_scan kernel
         self.selection = selection
-        self.n_shards = 1
+        self.n_shards = n_row_shards(mesh)
         # cosine stores normalized rows (the reference's "cosine-dot")
         self.normalize_on_add = (
             metric in ("cosine", "cosine-dot")
@@ -178,15 +226,19 @@ class DeviceVectorStore:
     # -- capacity management -------------------------------------------------
 
     def _align(self, capacity: int) -> int:
-        capacity = _next_pow2(max(capacity, 2))
-        cs = min(self.chunk_size, capacity)
-        return -(-capacity // cs) * cs
+        capacity = _next_pow2(max(capacity, 2 * self.n_shards))
+        cs = min(self.chunk_size, capacity // self.n_shards)
+        return shardable_capacity(capacity, self.n_shards, cs)
+
+    def _zeros(self, shape, dtype):
+        if self.mesh is None:
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+        return sharded_zeros(shape, dtype, self.mesh)
 
     def _alloc(self, capacity: int):
-        dev = self.device
-        self.vectors = torch.zeros((capacity, self.dim), dtype=self.dtype, device=dev)
-        self.valid = torch.zeros((capacity,), dtype=torch.bool, device=dev)
-        self.sq_norms = torch.zeros((capacity,), dtype=torch.float32, device=dev)
+        self.vectors = self._zeros((capacity, self.dim), self.dtype)
+        self.valid = self._zeros((capacity,), torch.bool)
+        self.sq_norms = self._zeros((capacity,), torch.float32)
         self._hbm_sync()
 
     def _hbm_sync(self):
@@ -196,7 +248,7 @@ class DeviceVectorStore:
         hbm_ledger.ledger.set_keyed(
             self._hbm_keys, self.hbm_component, nbytes,
             owner=self._hbm_owner, dtype=str(self.dtype).replace("torch.", ""),
-            sharding="single")
+            sharding="single" if self.mesh is None else "sharded")
 
     def _grow(self, min_capacity: int):
         """Capacity-double the device tensors + host valid mirror.
@@ -209,6 +261,8 @@ class DeviceVectorStore:
         self._valid_np = grown
 
         def padded(a):
+            if self.mesh is not None:
+                return grow_rows(a, pad, self.mesh)
             return torch.cat([a, torch.zeros((pad,) + tuple(a.shape[1:]),
                                              dtype=a.dtype, device=a.device)])
 
@@ -251,15 +305,22 @@ class DeviceVectorStore:
     def _scatter_rows(self, slots: np.ndarray, vecs: np.ndarray) -> None:
         """Write rows ``vecs`` [m, d] at ``slots`` [m] in place (the JAX
         store's donated ``_scatter_rows``): normalized first for cosine,
-        stored in the storage dtype, norms from the stored rows."""
-        idx = torch.from_numpy(np.asarray(slots, dtype=np.int64)).to(self.device)
+        stored in the storage dtype, norms from the stored rows. On a mesh
+        each row goes to the shard that owns its slot."""
         new = torch.from_numpy(np.ascontiguousarray(vecs, dtype=np.float32)).to(self.device)
         if self.normalize_on_add:
             new = normalize(new)
         new = new.to(self.dtype)
+        norms = (new.float() ** 2).sum(dim=-1)
+        if self.mesh is not None:
+            self.vectors.index_copy_(slots, new)
+            self.valid.index_fill_(slots, True)
+            self.sq_norms.index_copy_(slots, norms)
+            return
+        idx = torch.from_numpy(np.asarray(slots, dtype=np.int64)).to(self.device)
         self.vectors.index_copy_(0, idx, new)
         self.valid.index_fill_(0, idx, True)
-        self.sq_norms.index_copy_(0, idx, (new.float() ** 2).sum(dim=-1))
+        self.sq_norms.index_copy_(0, idx, norms)
 
     def _flush_staged_locked(self) -> None:
         """Scatter the staged rows to the device. Caller holds ``_lock``."""
@@ -315,7 +376,9 @@ class DeviceVectorStore:
             self._valid_np[in_range] = False
             if self._staged_rows:
                 self._scrub_staged_locked(in_range)
-            if len(in_range):
+            if len(in_range) and self.mesh is not None:
+                self.valid.index_fill_(in_range, False)
+            elif len(in_range):
                 self.valid.index_fill_(
                     0, torch.from_numpy(in_range).to(self.device), False)
 
@@ -353,7 +416,9 @@ class DeviceVectorStore:
             if os.environ.get("WEAVIATE_TPU_DEBUG_COUNTS", "").lower() \
                     in ("1", "true", "on"):
                 self._flush_staged_locked()
-                dev = int(self.valid.sum().item())
+                valid = (self.valid.gather() if self.mesh is not None
+                         else self.valid)
+                dev = int(valid.sum().item())
                 if dev != self._live_count:
                     raise AssertionError(
                         f"live-count drift: device says {dev}, host counter "
@@ -389,7 +454,8 @@ class DeviceVectorStore:
             queries = queries[None, :]
         allow_mask = normalize_allow_mask(allow_mask, len(queries), keep_rows)
         with tracing.span("store.scan", rows=self.capacity,
-                          queries=len(queries), k=k, sharded=False,
+                          queries=len(queries), k=k,
+                          sharded=self.mesh is not None,
                           filtered=allow_mask is not None) as sp:
             # Dispatch under the lock: a concurrent grow()/compact()
             # replaces the tensors. Execution is asynchronous, so the lock
@@ -405,7 +471,7 @@ class DeviceVectorStore:
                     sp.set(path="bitmask_batched")
                     allow_bits = batched_mask_operands(
                         allow_mask, len(queries), capacity, self.device,
-                        owner=self._hbm_owner)
+                        owner=self._hbm_owner, mesh=self.mesh)
                 elif allow_mask is not None:
                     allowed = np.flatnonzero(allow_mask)
                     # selectivity policy: a dense gather of the allowed
@@ -415,7 +481,10 @@ class DeviceVectorStore:
                     bucket = 1 << max(7, (m_allowed - 1).bit_length()) \
                         if m_allowed else 0
                     row_bytes = self.dim * self.vectors.element_size()
-                    if (m_allowed > 0 and m_allowed <= capacity // 8
+                    # (no cutover on a mesh: the gathered rows would leave
+                    # their shards)
+                    if (self.mesh is None and m_allowed > 0
+                            and m_allowed <= capacity // 8
                             and bucket * row_bytes <= (1 << 30)):
                         sp.set(path="gathered", allowed=m_allowed)
                         d, i, slot_buf = self._dispatch_gathered(
@@ -423,16 +492,10 @@ class DeviceVectorStore:
                     else:
                         full = np.zeros(capacity, dtype=bool)
                         full[: len(allow_mask)] = allow_mask
-                        valid = valid & torch.from_numpy(full).to(self.device)
+                        valid = and_mask(valid, full, self.mesh)
                 if slot_buf is None:
-                    d, i = chunked_topk_distances(
-                        torch.from_numpy(queries).to(self.device), vectors,
-                        k=min(k, capacity),
-                        chunk_size=min(self.chunk_size, capacity),
-                        metric=self._scan_metric(), valid=valid,
-                        x_sq_norms=norms, use_pallas=self.use_pallas,
-                        selection=self.selection, allow_bits=allow_bits,
-                    )
+                    d, i = self._scan(queries, k, vectors, valid, norms,
+                                      capacity, allow_bits)
 
         def _finish(d_np, i_np, _slot_buf=slot_buf, _k=k,
                     _squeeze=squeeze):
@@ -471,18 +534,35 @@ class DeviceVectorStore:
             if allow_mask is not None and allow_mask.ndim == 2:
                 allow_bits = batched_mask_operands(
                     allow_mask, len(queries), capacity, self.device,
-                    owner=self._hbm_owner)
+                    owner=self._hbm_owner, mesh=self.mesh)
             elif allow_mask is not None:
                 full = np.zeros(capacity, dtype=bool)
                 w = min(len(allow_mask), capacity)
                 full[:w] = allow_mask[:w]
-                valid = valid & torch.from_numpy(full).to(self.device)
-            return chunked_topk_distances(
-                torch.from_numpy(queries).to(self.device), vectors,
-                k=min(k, capacity), chunk_size=min(self.chunk_size, capacity),
-                metric=self._scan_metric(), valid=valid, x_sq_norms=norms,
+                valid = and_mask(valid, full, self.mesh)
+            return self._scan(queries, k, vectors, valid, norms, capacity,
+                              allow_bits)
+
+    def _scan(self, queries: np.ndarray, k: int, vectors, valid, norms,
+              capacity: int, allow_bits):
+        """Dispatch the scan over ``vectors`` (the tensors read under
+        ``_lock``): one buffer through ``chunked_topk_distances``, a mesh
+        through ``sharded_topk`` (``allow_bits`` is then the column-sharded
+        bool rows). Chunks are ``min(chunk_size, capacity // n_shards)``
+        rows, the JAX store's."""
+        q = torch.from_numpy(queries).to(self.device)
+        cs = min(self.chunk_size, capacity // self.n_shards)
+        if self.mesh is not None:
+            return sharded_topk(
+                q, vectors, valid, norms, k=min(k, capacity), chunk_size=cs,
+                metric=self._scan_metric(), mesh=self.mesh,
                 use_pallas=self.use_pallas, selection=self.selection,
-                allow_bits=allow_bits)
+                allow_rows=allow_bits)
+        return chunked_topk_distances(
+            q, vectors, k=min(k, capacity), chunk_size=cs,
+            metric=self._scan_metric(), valid=valid, x_sq_norms=norms,
+            use_pallas=self.use_pallas, selection=self.selection,
+            allow_bits=allow_bits)
 
     def _dispatch_gathered(self, queries: np.ndarray, k: int,
                            allowed: np.ndarray):
@@ -527,8 +607,7 @@ class DeviceVectorStore:
             mapping = np.full(self.capacity, -1, dtype=np.int64)
             mapping[live] = np.arange(len(live))
             sp.set(live=len(live))
-            (vec_host,) = transfer.d2h(self.vectors.float())
-            vec_np = vec_host[live]
+            vec_np = to_host(self.vectors)[live]
             self._count = len(live)
             new_cap = self._align(max(len(live), 2))
             self.capacity = new_cap
@@ -553,10 +632,9 @@ class DeviceVectorStore:
         """Host-side snapshot, the same dict as the JAX store's."""
         with self._lock:
             self._flush_staged_locked()
-            vec, valid = transfer.d2h(self.vectors.float(), self.valid)
             return {
-                "vectors": vec,
-                "valid": valid,
+                "vectors": to_host(self.vectors),
+                "valid": to_host(self.valid),
                 "count": self._count,
                 "dim": self.dim,
                 "metric": self.metric,

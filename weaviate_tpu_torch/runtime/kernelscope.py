@@ -4,7 +4,7 @@ of ``weaviate_tpu/runtime/kernelscope.py``).
 What the server and the REST/gRPC handlers call is here: ``configure``
 (where captures would persist and how many to keep) and the request-level
 EXPLAIN sink (``explain_begin`` / ``explain_end``, a context variable that
-the port's engine does not fill yet, so a plan comes back empty). The
+``explain_note`` fills; the sharded merge records its shape there). The
 device-time plane — residency meters, the memcpy model, the snapshot and
 the on-demand kernel captures behind ``/v1/debug/profile`` (CUDA events
 and ``torch.profiler``) — is ROADMAP Queue 1 item 8: those entry points
@@ -47,6 +47,21 @@ def explain_end(token) -> dict:
     plan = _explain_sink.get() or {}
     _explain_sink.reset(token)
     return plan
+
+
+def explain_note(section: str, **fields) -> None:
+    """Record host-side plan facts under ``section`` in the ambient
+    sink; a no-op (one context-variable read) when nobody asked to
+    explain. Callers pass plain host ints and strings, never device
+    values."""
+    sink = _explain_sink.get()
+    if sink is None:
+        return
+    sec = sink.get(section)
+    if sec is None:
+        sink[section] = dict(fields)
+    else:
+        sec.update(fields)
 
 
 # -- the device-time plane (item 8) -------------------------------------------

@@ -85,11 +85,28 @@ class MemoryMonitor:
         self._lock = threading.Lock()
         self._pressure = False  # hysteresis latch (high trips, low clears)
         self._last_source = "ledger"  # which tier answered device_in_use
+        # the serving mesh's distinct CUDA devices ("cuda:<i>"), when the
+        # database rows-shards over one: budget and usage then sum over
+        # exactly those cards (the ledger counts the mesh's logical bytes)
+        self.mesh_devices: tuple[str, ...] = ()
         # host-side tracked allocations (we can't read the Python live
         # heap cheaply; callers register their big buffers)
         self._tracked_host = 0
 
     # -- device -----------------------------------------------------------
+
+    def use_mesh(self, mesh) -> None:
+        """Account device memory over ``mesh``'s distinct CUDA devices
+        (None: every device as before). Eight shards on one card are one
+        card's memory."""
+        self.mesh_devices = () if mesh is None else tuple(sorted(
+            {str(d) for d in mesh.devices if d.type == "cuda"}))
+
+    def _mesh_stats(self, stats: dict) -> dict | None:
+        """The stats of the mesh's devices, or None without a mesh."""
+        if not self.mesh_devices:
+            return None
+        return {k: stats[k] for k in self.mesh_devices if k in stats}
 
     def device_budget(self, stats: dict | None = None) -> int | None:
         """HBM budget in bytes; explicit limit wins, else read from the
@@ -109,6 +126,10 @@ class MemoryMonitor:
         if self.device_limit is not None:
             return self.device_limit
         stats = device_memory_stats() if stats is None else stats
+        mesh_stats = self._mesh_stats(stats)
+        if mesh_stats:
+            return sum(int(d.get("bytesLimit") or 0)
+                       for d in mesh_stats.values()) or None
         for dev in stats.values():
             if dev.get("bytesLimit"):
                 return int(dev["bytesLimit"])
@@ -131,8 +152,11 @@ class MemoryMonitor:
         is an RPC, so the admission path probes ONCE and threads the
         dict through)."""
         stats = device_memory_stats() if stats is None else stats
-        in_use = [d["bytesInUse"] for d in stats.values()
+        mesh_stats = self._mesh_stats(stats)
+        in_use = [d["bytesInUse"] for d in (mesh_stats or stats).values()
                   if d.get("bytesInUse") is not None]
+        if mesh_stats and in_use:  # the mesh's cards together
+            in_use = [sum(in_use)]
         # _last_source is read by the rejection path on other threads —
         # publish it under the monitor lock (callers never hold it here)
         if in_use:

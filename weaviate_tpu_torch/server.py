@@ -3,14 +3,16 @@
 
 Reference: cmd/weaviate-server/main.go → configure_api.go:456 — assemble
 config, auth, modules, DB, REST + gRPC + metrics listeners, then serve
-until signaled. The port serves one node on one device: the modes the
-JAX server enters for a mesh (``DCN_COORDINATOR_ADDRESS``,
-``WEAVIATE_TPU_VIRTUAL_HOSTS`` > 1; ROADMAP Queue 1 item 6) or a cluster
-(``RAFT_JOIN`` with more than one member, ``CLUSTER_JOIN``; item 7)
-raise instead of serving without their modules.
+until signaled. The port serves one node: a cluster (``RAFT_JOIN`` with
+more than one member, ``CLUSTER_JOIN``; ROADMAP Queue 1 item 7) raises
+instead of serving without its modules.
 
 The database's vectors live on ``device``: the CUDA card by default; a
 machine without one raises unless the caller names ``device="cpu"``.
+Under the JAX server's conditions (a coordinator in
+``DCN_COORDINATOR_ADDRESS``, or ``WEAVIATE_TPU_VIRTUAL_HOSTS`` > 1) the
+server first joins the process group and row-shards every collection over
+``parallel.mesh.default_mesh()``, which is None on a single device.
 """
 
 from __future__ import annotations
@@ -77,9 +79,15 @@ class Server:
         cfg = self.config
         self._setup_logging()
 
-        from weaviate_tpu_torch.parallel.mesh import require_single_device
+        # the multi-process data plane first: with DCN_COORDINATOR_ADDRESS
+        # set, the mesh spans every process's devices
+        from weaviate_tpu_torch.parallel.mesh import (default_mesh,
+                                                      is_multiprocess,
+                                                      maybe_initialize_distributed,
+                                                      virtual_hosts)
 
-        require_single_device()
+        if maybe_initialize_distributed():
+            logger.info("joined the multi-process group")
         if len(cfg.raft_join) > 1 or cfg.cluster_join:
             raise NotImplementedError(
                 f"RAFT_JOIN / CLUSTER_JOIN: {CLUSTER}")
@@ -107,6 +115,17 @@ class Server:
                 high_watermark=cfg.hbm_high_watermark,
                 low_watermark=cfg.hbm_low_watermark)
 
+            # row-sharded serving (JAX server.py): over the hierarchical
+            # mesh on a multi-process runtime or a virtual-host pod; one
+            # device keeps one buffer (default_mesh() is None there)
+            mesh = (default_mesh(self.device)
+                    if is_multiprocess() or (virtual_hosts() or 1) > 1
+                    else None)
+            if mesh is not None:
+                logger.info("serving over %s mesh: %s",
+                            "hierarchical" if "host" in mesh.axis_names
+                            else "1-D", mesh.shape)
+
             from weaviate_tpu_torch.db.database import Database
 
             self.db = Database(cfg.data_path,
@@ -114,7 +133,8 @@ class Server:
                                start_cycles=True,
                                memory_monitor=memwatch,
                                async_indexing=cfg.async_indexing or None,
-                               sync_wal=cfg.wal_sync, device=self.device)
+                               sync_wal=cfg.wal_sync, device=self.device,
+                               mesh=mesh)
 
         # tailboard: incident snapshots land in the data dir; explicit
         # SLO config (if any) replaces defaults
