@@ -17,6 +17,7 @@ Run from the repository root:
                                          # host library, without it, and with it again
     python3 chip_smoke.py --ann-only [--ann-rows N]  # phases 0-1 and 11 only
     python3 chip_smoke.py --mesh-only [--rows N]     # phases 0-1 and 12 only
+    python3 chip_smoke.py --tenants-only             # phases 0-1 and 13 at 1,000 tenants
 
 It drives the port's flat nearVector path at VectorDBBench's
 Performance768D1M case (Cohere wiki-22-12: 1,000,000 x 768, cosine,
@@ -227,7 +228,30 @@ is downloaded), in phases:
    bq_scan_reduce and pq4_scan_reduce, 12c distance_block and
    fused_topk_pairs (each counted on the mesh runs alone).
 
-Phases 5, 6, 7, 8, 9a, 9b, 9c, 10, 11 and 12 each reset the launch counters as they start
+13. tenants and the device-time plane, last. 13a: a multi-tenant
+   collection (768-d cosine, flat) of 200 HOT tenants of 1,000 rows
+   (``--tenants-only``: 1,000 tenants), imported on 4 threads, odd
+   tenants scanning with selection "fused"; tenant-scoped nearVector at
+   k 10, with and without where(views >= 90), bit for bit equal to
+   one-tenant collections of the same rows for 4 tenants; one tenant
+   HOT -> COLD -> HOT and one HOT -> FROZEN (filesystem offload backend)
+   -> HOT, the ledger and torch.cuda.memory_allocated down by the
+   tenant's footprint meanwhile, a query to it refused, the answers after
+   bit for bit the ones before; per-tenant bytes, the HOT tenants that
+   fill the card, the import rate, the freeze and thaw times. 13b: the
+   Server over the same database, 8 GraphQL clients to 50 tenants for
+   2 s: the per-tenant meters sum to kernelscope's total, only queried
+   tenants metered, every drain dispatch's CUDA-event residency in (0,
+   its wall window], a /v1/debug/profile?ms=500 capture over the live
+   traffic whose top kernel is distance_block, fused_topk_scan or
+   merge_epoch_topk (not "other"), p50 / p90 of the served queries and
+   the process's thread count; one driftwatch cycle over every tenant's
+   canary at recall@10 1.0, /v1/debug/drift answering; a second process
+   loading every kernel library from the build directory
+   (compile_cache_events: all hits, no miss). The served traffic must
+   launch distance_block, fused_topk_scan and fused_topk_pairs.
+
+Phases 5, 6, 7, 8, 9a, 9b, 9c, 10, 11, 12 and 13 each reset the launch counters as they start
 and read them as they end: every kernel in QUANT_KERNELS must have run in
 phases 5 and 6, and ``bm25_block`` and ``distance_block`` in phase 7,
 whose run (d) must launch ``fused_topk_scan``.
@@ -253,6 +277,7 @@ import tempfile
 import threading
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -5199,6 +5224,408 @@ def phase_mesh_db(torch, K, seed: int) -> dict:
             shutil.rmtree(d, ignore_errors=True)
 
 
+# -- phase 13: multi-tenancy and the device-time plane --------------------------
+
+TENANTS = 200              # 13a's HOT tenants in the default run
+TENANTS_ONLY = 1000        # --tenants-only's (about 25 GB of stores)
+TENANT_ROWS = 1000         # rows a tenant
+TENANT_IMPORTERS = 4       # threads importing tenants side by side
+TENANT_PARITY = 4          # tenants held to one-tenant collections
+TENANT_PARITY_Q = 16       # queries a parity tenant, each with and without the filter
+TENANT_K = 10
+TENANT_QUERIED = 50        # 13b's traffic goes to the first TENANT_QUERIED tenants
+TENANT_TRAFFIC_S = 2.0     # 13b's served traffic before the capture (it runs on through it)
+PROFILE_MS = 500
+TENANT_KERNELS = ("distance_block", "fused_topk_scan", "fused_topk_pairs")
+PROFILE_TOP = ("distance_block", "fused_topk_scan", "merge_epoch_topk")
+
+
+def _tenant_name(t: int) -> str:
+    return f"tenant-{t:04d}"
+
+
+def _tenant_objects(seed: int, t: int, rows: int, cent: np.ndarray):
+    """Tenant ``t``'s objects: rows of the clustered corpus from row
+    t * rows, views for the 10% filter. Returns (objects, unit rows)."""
+    v = clustered(seed + 13, t * rows, rows, cent)
+    views = np.random.default_rng([seed, 13, t]).integers(0, 100, rows)
+    objs = [{"uuid": _uuid(13, t * rows + i),
+             "properties": {"category": f"cat{i % 100}", "views": int(views[i])},
+             "vector": v[i]} for i in range(rows)]
+    return objs, v / np.linalg.norm(v, axis=1, keepdims=True)
+
+
+def _selection(col, shard_name: str, selection: str | None = None) -> str:
+    """Set (or read) the selection of one shard's flat store."""
+    store = col.shards[shard_name].vector_indexes[""].store
+    if selection is not None:
+        store.selection = selection
+    return store.selection
+
+
+def _tenant_answers(col, tenant, queries, where) -> list:
+    out = []
+    for q in queries:
+        for w in (None, where):
+            res = col.near_vector(q, k=TENANT_K, tenant=tenant, where=w,
+                                  include_objects=False)
+            out.append(([r.uuid for r in res], np.float32([r.distance for r in res])))
+    return out
+
+
+def _same_answers(got: list, want: list, what: str) -> None:
+    for i, ((gi, gd), (wi, wd)) in enumerate(zip(got, want)):
+        if gi != wi or not np.array_equal(gd, wd):
+            raise AssertionError(f"13a: {what}: answer {i} differs ({gi[:3]} vs {wi[:3]})")
+
+
+def _offload_round_trip(torch, db, col, ledger, tenant: str, status: str,
+                        queries, where, want) -> str:
+    """Take ``tenant`` to ``status`` and back to HOT: the ledger and
+    torch.cuda.memory_allocated drop by the tenant's footprint meanwhile
+    (no gc pass), a query to it is refused, and the answers after equal
+    the ones before bit for bit."""
+    sel = _selection(col, tenant)
+    torch.cuda.synchronize()
+    gc.collect()
+    tb = ledger.shard_bytes("Tenants", tenant)
+    a0, l0 = torch.cuda.memory_allocated(), ledger.total_bytes()
+    t1 = time.perf_counter()
+    db.update_tenant_status("Tenants", [{"name": tenant, "activityStatus": status}])
+    t_off = time.perf_counter() - t1
+    a_drop, l_drop = a0 - torch.cuda.memory_allocated(), l0 - ledger.total_bytes()
+    if tb <= 0 or l_drop != tb or a_drop < tb:
+        raise AssertionError(f"13a: {status} {tenant}: ledger dropped {l_drop}, "
+                             f"memory_allocated {a_drop}, footprint {tb}")
+    try:
+        col.near_vector(queries[0], k=TENANT_K, tenant=tenant)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f"13a: a query to a {status} tenant was served")
+    t1 = time.perf_counter()
+    db.update_tenant_status("Tenants", [{"name": tenant, "activityStatus": "HOT"}])
+    t_on = time.perf_counter() - t1
+    _selection(col, tenant, sel)
+    if ledger.shard_bytes("Tenants", tenant) != tb:
+        raise AssertionError(f"13a: {tenant} back HOT holds "
+                             f"{ledger.shard_bytes('Tenants', tenant)} bytes, not {tb}")
+    _same_answers(_tenant_answers(col, tenant, queries, where), want,
+                  f"{tenant} after HOT -> {status} -> HOT")
+    return (f"HOT -> {status} {t_off * 1e3:.0f} ms -> HOT {t_on * 1e3:.0f} ms, ledger and "
+            f"memory_allocated down {l_drop} / {a_drop} bytes meanwhile, a query refused "
+            f"({refused.split(';')[0]}), answers bit for bit")
+
+
+def _raise_fd_limit(need: int) -> str:
+    """Each tenant shard holds ~10 open files (its LSM buckets): raise
+    this process's soft limit toward its hard limit."""
+    import resource
+
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if soft < need:
+        new = need if hard == resource.RLIM_INFINITY else min(hard, need)
+        resource.setrlimit(resource.RLIMIT_NOFILE, (new, hard))
+        soft = new
+    if soft < need:
+        raise AssertionError(f"13a: {need} open files needed, the hard limit is {hard}")
+    return f"open-file limit {soft} (hard {hard})"
+
+
+def _compile_cache_second_load():
+    """Start a second process that loads every kernel library from the
+    build directory phase 1 filled; ``.communicate()`` on the returned
+    process gives its compile_cache_events (hits, no miss) as JSON."""
+    code = ("import json\n"
+            "from weaviate_tpu_torch.ops import _build\n"
+            "from weaviate_tpu_torch.runtime import compile_cache, metrics\n"
+            "compile_cache.ensure_compile_cache()\n"
+            "_build.build_all()\n"
+            "ev = metrics.compile_cache_events\n"
+            "print(json.dumps({k: ev.labels(k).value for k in ('hit', 'miss')}))\n")
+    return subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def _served_traffic(client, names, seed: int, stop):
+    """CLIENTS threads of GraphQL tenant nearVector until ``stop`` is set.
+    Returns (the threads, (start, latency ms) per query, errors)."""
+    lat, errors = [], []
+    q = ("query Q($v: [Float]) { Get { Tenants(tenant: \"%s\", limit: "
+         f"{TENANT_K}, nearVector: {{vector: $v}}) {{ _additional {{ id distance }} }} }} }}")
+
+    def run(c):
+        rng = np.random.default_rng([seed, 131, c])
+        try:
+            while not stop.is_set():
+                t = names[int(rng.integers(0, len(names)))]
+                v = rng.standard_normal(DIM).astype(np.float32)
+                t2 = time.perf_counter()
+                hits = _gql(client, q % t, {"v": v.tolist()})
+                lat.append((t2, (time.perf_counter() - t2) * 1e3))
+                if len(hits) != TENANT_K:
+                    raise AssertionError(f"13b: {len(hits)} hits from {t}")
+        except Exception as e:  # noqa: BLE001 — reported by the caller
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(c,)) for c in range(CLIENTS)]
+    for t in threads:
+        t.start()
+    return threads, lat, errors
+
+
+def profiler_warm_up():
+    """The first torch.profiler capture in a process pays kineto's and
+    CUPTI's start-up (seconds): one 1 ms capture on a thread of its own,
+    started beside phase 1's nvcc build, takes it, so that 13b's capture
+    window runs over the served traffic. Returns (thread, result dict:
+    "s", or "error" to re-raise)."""
+    from weaviate_tpu_torch.runtime import kernelscope
+
+    kernelscope.configure(device="cuda")
+    warm = {}
+
+    def run():
+        t = time.perf_counter()
+        try:
+            kernelscope._torch_capture(1)
+        except Exception as e:  # noqa: BLE001 — re-raised in 13b
+            warm["error"] = e
+        warm["s"] = time.perf_counter() - t
+
+    thread = threading.Thread(target=run, name="profiler-warm-up")
+    thread.start()
+    return thread, warm
+
+
+def phase_tenants(torch, K, seed: int, n_tenants: int, rows: int = TENANT_ROWS,
+                  warm_up=None) -> dict:
+    """Phase 13: 13a multi-tenancy on one node, 13b the device-time plane
+    on the same server. ``warm_up``: ``profiler_warm_up()``'s result
+    (None: started here). Returns 13b's launches (the served
+    traffic's)."""
+    from weaviate_tpu_torch.api.client import Client
+    from weaviate_tpu_torch.config import ServerConfig
+    from weaviate_tpu_torch.db import Database
+    from weaviate_tpu_torch.filters import Filter, Operator
+    from weaviate_tpu_torch.modules.backup_backends import FilesystemBackend
+    from weaviate_tpu_torch.runtime import driftwatch, kernelscope, tailboard
+    from weaviate_tpu_torch.runtime.hbm_ledger import ledger
+    from weaviate_tpu_torch.schema.config import (CollectionConfig, MultiTenancyConfig,
+                                                  Property, VectorConfig, VectorIndexConfig)
+    from weaviate_tpu_torch.server import Server
+
+    t0 = time.perf_counter()
+    fds = _raise_fd_limit(12 * (n_tenants + TENANT_PARITY) + 1024)
+    warmer, warm = profiler_warm_up() if warm_up is None else warm_up
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tenants_")
+    db = srv = second = None
+    try:
+        db = Database(os.path.join(tmp, "data"), device="cuda")
+        backend = FilesystemBackend()
+        backend.init({"path": os.path.join(tmp, "offload")})
+        db.set_offload_backend(backend)
+        col = db.create_collection(CollectionConfig(
+            name="Tenants",
+            properties=[Property(name="category", data_type="text"),
+                        Property(name="views", data_type="int")],
+            vectors=[VectorConfig(index=VectorIndexConfig(index_type="flat", metric=METRIC))],
+            multi_tenancy=MultiTenancyConfig(enabled=True)))
+        names = [_tenant_name(t) for t in range(n_tenants)]
+        torch.cuda.synchronize()
+        alloc0, led0 = torch.cuda.memory_allocated(), ledger.total_bytes()
+        t1 = time.perf_counter()
+        db.add_tenants("Tenants", names)
+        t_add = time.perf_counter() - t1
+        cent = centers(seed)
+
+        def imp(t):
+            objs, _ = _tenant_objects(seed, t, rows, cent)
+            res = col.batch_put(objs, tenant=names[t])
+            if any(r["status"] != "SUCCESS" for r in res):
+                raise AssertionError(f"13a: batch_put into {names[t]} failed: {res[0]}")
+
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(TENANT_IMPORTERS) as ex:
+            list(ex.map(imp, range(n_tenants)))
+        t_imp = time.perf_counter() - t1
+        for t in range(1, n_tenants, 2):  # odd tenants scan with fused_topk_scan
+            _selection(col, names[t], "fused")
+        torch.cuda.synchronize()
+        per_tenant = ledger.shard_bytes("Tenants", names[0])
+        if any(ledger.shard_bytes("Tenants", n) != per_tenant for n in names):
+            raise AssertionError("13a: tenants of equal rows hold unequal ledger bytes")
+        alloc_per = (torch.cuda.memory_allocated() - alloc0) / n_tenants
+        led_per = (ledger.total_bytes() - led0) / n_tenants
+        total_mem = torch.cuda.get_device_properties(0).total_memory
+        fit = int(total_mem // per_tenant)
+        parts = [f"{n_tenants} HOT tenants x {rows} rows: add_tenants {t_add:.1f} s, import "
+                 f"{n_tenants * rows / t_imp:.0f} rows/s ({TENANT_IMPORTERS} threads); "
+                 f"{per_tenant} ledger bytes a tenant ({led_per:.0f} in the ledger's total, "
+                 f"{alloc_per:.0f} of memory_allocated a tenant), so {fit} HOT tenants fill "
+                 f"the card's {total_mem} bytes; {fds}"]
+
+        # tenant-scoped answers against one-tenant collections
+        where = Filter.where("views", Operator.GREATER_THAN_EQUAL, VIEWS_CUT)
+        picks = sorted({0, n_tenants // 3, (2 * n_tenants) // 3, n_tenants - 1})[:TENANT_PARITY]
+        want = {}
+        for j, t in enumerate(picks):
+            objs, unit = _tenant_objects(seed, t, rows, cent)
+            solo = _collection(db, f"Solo{j}")
+            solo.batch_put(objs)
+            (sname,) = solo.shards
+            _selection(solo, sname, _selection(col, names[t]))
+            rng = np.random.default_rng([seed, 130, t])
+            qs = near_queries(seed + 130 + t, rng.integers(0, rows, TENANT_PARITY_Q),
+                              lambda r: unit[r])
+            got = _tenant_answers(col, names[t], qs, where)
+            ref = []
+            for q in qs:
+                for w in (None, where):
+                    res = solo.near_vector(q, k=TENANT_K, where=w, include_objects=False)
+                    ref.append(([r.uuid for r in res], np.float32([r.distance for r in res])))
+            _same_answers(got, ref, f"{names[t]} against its one-tenant collection")
+            if any(not t * rows <= int(u[-12:]) < (t + 1) * rows for ids, _ in got for u in ids):
+                raise AssertionError(f"13a: {names[t]} answered another tenant's row")
+            want[t] = (qs, got)
+        parts.append(f"{len(picks)} tenants ({', '.join(names[t] for t in picks)}; selections "
+                     f"{[_selection(col, names[t]) for t in picks]}) x {TENANT_PARITY_Q} "
+                     f"queries with and without where(views >= {VIEWS_CUT}): ids and distances "
+                     "bit for bit equal to one-tenant collections of the same rows")
+        t_cold, t_frozen = picks[0], picks[1]
+        parts.append(f"{names[t_cold]}: " + _offload_round_trip(
+            torch, db, col, ledger, names[t_cold], "COLD", want[t_cold][0], where,
+            want[t_cold][1]))
+        parts.append(f"{names[t_frozen]}: " + _offload_round_trip(
+            torch, db, col, ledger, names[t_frozen], "FROZEN", want[t_frozen][0], where,
+            want[t_frozen][1]) + " (filesystem offload backend)")
+        log(f"phase 13a tenants ({time.perf_counter() - t0:.1f} s; {_smi_line()}): "
+            + "; ".join(parts))
+
+        # 13b: the device-time plane on a server over the same database;
+        # the second process loading the kernels runs beside it
+        t1 = time.perf_counter()
+        second = _compile_cache_second_load()
+        cfg = ServerConfig(data_path=db.data_dir, host="127.0.0.1", rest_port=0, grpc_port=0,
+                           disable_telemetry=True)
+        srv = Server(cfg, device="cuda", db=db)
+        if _grpc_present():
+            srv.start()
+        else:
+            srv.assemble()
+        client = Client(srv.rest.address, timeout=120.0)
+        queried = names[:TENANT_QUERIED]
+        # one driftwatch cycle over every tenant's canary, before the
+        # traffic and the capture: its probes are each tenant's first
+        # search, which uploads the rows the import staged (the write
+        # path's copies, which the capture would otherwise rank as the
+        # traffic's), and a capture's CUPTI teardown slowed the next
+        # cycle by tens of seconds on the card
+        t2 = time.perf_counter()
+        driftwatch.run_cycle()
+        t_drift = time.perf_counter() - t2
+        drift = client.request("GET", "/v1/debug/drift")
+        canaries = [c for c in drift["canaries"].values()
+                    if c["collection"] == "Tenants" or c["collection"].startswith("Solo")]
+        recalls = [c["last"]["recall"] for c in canaries if c.get("last")]
+        if len(recalls) != n_tenants + len(picks) or min(recalls) != 1.0:
+            raise AssertionError(f"13b: {len(recalls)} canaries read, recall min "
+                                 f"{min(recalls) if recalls else None}")
+        total0, meters0 = kernelscope.total_device_seconds(), kernelscope.meters_snapshot()
+        pairs0 = kernelscope.snapshot()["cuda_event_pairs"]
+        wall0 = time.time()
+        K.reset_launch_counts()  # phase 13's window: the served traffic
+        stop = threading.Event()
+        threads, lat, errors = _served_traffic(client, queried, seed, stop)
+        time.sleep(TENANT_TRAFFIC_S)
+        warmer.join()
+        if "error" in warm:
+            raise AssertionError(f"13b: the warm-up capture failed: {warm['error']}")
+        # a capture slows every thread: the latencies and the residency
+        # ratio are read from before it
+        t_cap, wall_cap = time.perf_counter(), time.time()
+        pre = [r for r in tailboard.debug_flight()["dispatches"]
+               if r["t"] >= wall0 and r.get("t_source") == "drain" and "window_ms" in r]
+        prof = client.request("GET", f"/v1/debug/profile?ms={PROFILE_MS}")
+        t_prof = time.perf_counter() - t_cap
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        counts = dict(K.launch_counts)
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"13b: client errors: {errors[:1]}")
+        n_threads = threading.active_count()
+        total = kernelscope.total_device_seconds() - total0
+        meters = {k: v - meters0.get(k, 0.0)
+                  for k, v in kernelscope.meters_snapshot().items()}
+        metered = sum(meters.values())
+        if not total > 0 or abs(metered - total) > 1e-9 * total + 1e-12:
+            raise AssertionError(f"13b: meters sum {metered!r}, total {total!r}")
+        hot = {t for (c, t), v in meters.items() if c == "Tenants" and v > 0}
+        if hot - set(queried) or not hot:
+            raise AssertionError(f"13b: metered tenants {sorted(hot)[:5]} outside the queried")
+        recs = pre + [r for r in tailboard.debug_flight()["dispatches"]
+                      if r["t"] >= wall_cap and r.get("t_source") == "drain"
+                      and "window_ms" in r]
+        if not recs or any(not 0 < r["device_ms"] <= r["window_ms"] for r in recs):
+            bad = [r for r in recs if not 0 < r["device_ms"] <= r["window_ms"]][:1]
+            raise AssertionError(f"13b: {len(recs)} drain records, out of (0, window]: {bad}")
+        if not pre:
+            raise AssertionError("13b: no drain dispatch before the capture")
+        ratio = np.float64([r["device_ms"] / r["window_ms"] for r in pre])
+        ranked = [(k["kernel"], k["device_ms"]) for k in prof["kernels"]]
+        other = [(e["name"][:60], e["device_ms"]) for k in prof["kernels"]
+                 if k["kernel"] == "other" for e in k["top_events"]]
+        if not ranked or ranked[0][0] not in PROFILE_TOP:
+            raise AssertionError(f"13b: the capture ranks {ranked[:4]}; other: {other}")
+        clean = [ms for t2, ms in lat if t2 + ms / 1e3 <= t_cap]
+        log(f"phase 13b device-time plane ({time.perf_counter() - t1:.1f} s; {_smi_line()}): "
+            f"{len(lat)} GraphQL tenant nearVector(limit {TENANT_K}) over {CLIENTS} clients "
+            f"to {len(queried)} tenants, {len(clean)} of them in {TENANT_TRAFFIC_S:.1f} s "
+            f"before the capture: {len(clean) / TENANT_TRAFFIC_S:.0f} QPS, p50 "
+            f"{np.percentile(clean, 50):.2f} ms, p90 {np.percentile(clean, 90):.2f} ms; "
+            f"{n_threads} threads in the process; meters sum {metered:.6f} s = total "
+            f"{total:.6f} s, {len(hot)} tenants metered, all of them queried; {len(recs)} "
+            f"drain dispatches with CUDA-event residency in (0, window], residency / window "
+            f"before the capture p50 {np.percentile(ratio, 50):.3f} max {ratio.max():.3f}; "
+            f"{kernelscope.snapshot()['cuda_event_pairs'] - pairs0} new CUDA-event pairs "
+            f"(pool {kernelscope.snapshot()['cuda_event_pairs']}); /v1/debug/profile?ms="
+            f"{PROFILE_MS} (answered in {t_prof:.1f} s; the 1 ms warm-up capture "
+            f"took {warm['s']:.1f} s) ranks {ranked[:4]} of "
+            f"{prof['total_device_ms']} device ms "
+            f"({prof['raw_events']} events; \"other\" {other}); launches {counts}")
+        for name in TENANT_KERNELS:
+            if counts[name] <= 0:
+                raise AssertionError(f"13b: the served traffic launched no {name}")
+
+        ks = client.request("GET", "/v1/debug/kernelscope")
+        out, err = second.communicate(timeout=300)
+        if second.returncode != 0:
+            raise AssertionError(f"13b: the second load failed: {err[-2000:]}")
+        cache = json.loads(out.strip().splitlines()[-1])
+        if cache["hit"] != len(K.launch_counts) or cache["miss"] != 0:
+            raise AssertionError(f"13b: second load's compile cache events {cache}")
+        log(f"phase 13b driftwatch and cache: one "
+            f"driftwatch cycle over {len(recalls)} canaries in {t_drift:.1f} s, canary "
+            f"recall@10 min {min(recalls)}, gate {drift['gateOk']}; /v1/debug/drift and "
+            f"/v1/debug/kernelscope answered ({len(ks['variants'])} variants, dispatches "
+            f"{ks['dispatches']}); a second process loaded the kernels: compile_cache_events "
+            f"{cache}")
+        log(f"phase 13 tenants and the device-time plane: {time.perf_counter() - t0:.1f} s")
+        return counts
+    finally:
+        warmer.join(timeout=300)
+        if second is not None and second.poll() is None:
+            second.kill()
+            second.wait()
+        if srv is not None:
+            srv.stop()
+        if db is not None:
+            db.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5238,6 +5665,9 @@ def main() -> int:
     ap.add_argument("--mesh-only", action="store_true",
                     help="only phases 0, 1 and 12 (row-sharded serving over a mesh), a "
                     "rehearsal of phase 12 (no result line)")
+    ap.add_argument("--tenants-only", action="store_true",
+                    help=f"only phases 0, 1 and 13 (multi-tenancy and the device-time "
+                    f"plane) at {TENANTS_ONLY} tenants (no result line)")
     ap.add_argument("--import-run", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.import_run:  # --import-times' child: one import run, its JSON line
@@ -5258,6 +5688,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     device = phase_card(torch)
+    special = (args.topk_times or args.bq_times or args.block_times or args.dist_times
+               or args.ann_only or args.mesh_only or args.import_times)
+    warm_up = None if special else profiler_warm_up()  # beside the build
     phase_build(K)
     if args.topk_times:
         X = scan_corpus(torch, args.seed)
@@ -5313,6 +5746,10 @@ def main() -> int:
         phase_mesh(torch, K, args.seed, args.rows)
         log(f"total {time.perf_counter() - t0:.1f} s")
         return 0
+    if args.tenants_only:
+        phase_tenants(torch, K, args.seed, TENANTS_ONLY, warm_up=warm_up)
+        log(f"total {time.perf_counter() - t0:.1f} s")
+        return 0
     if args.import_times:
         for part in import_times(torch, args.seed, args.hybrid_docs, args.import_rows):
             log(f"import times: {part}")
@@ -5356,14 +5793,18 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     counts12 = phase_mesh(torch, K, args.seed, args.rows)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts13 = phase_tenants(torch, K, args.seed, TENANTS, warm_up=warm_up)
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         # launches over the main paths: phases 4, 5, 6, 7, 8, the server's
-        # 9a, 9b and 9c, the epochs' 10, the ANN indexes' 11 and the mesh's
-        # 12, and phase 2's window for the two kernels that no path runs
+        # 9a, 9b and 9c, the epochs' 10, the ANN indexes' 11, the mesh's 12
+        # and the tenants' 13, and phase 2's window for the two kernels that
+        # no path runs
         launches = sum(c[name] for c in (counts4, counts5, counts6, counts7, counts8,
                                          counts9a, counts9b, counts9c, counts10, counts11,
-                                         counts12))
+                                         counts12, counts13))
         if name in PHASE2_PATH:
             launches += counts2[name]
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,

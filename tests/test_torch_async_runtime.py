@@ -133,12 +133,13 @@ def test_telemetry_disabled_env(monkeypatch):
     assert telemetry.disabled()
 
 
-# -- tenant activity (multi-tenancy is ROADMAP Queue 1 item 7) ---------------
+# -- tenant activity -----------------------------------------------------------
 
 
 def test_tenant_activity_needs_tenants(tmp_path):
-    """Tenant activity tracks tenants; a multi-tenant class is refused
-    with the item that ports it, and the activity route lists none."""
+    """Tenant activity tracks the tenants a multi-tenant class addresses
+    (reads and writes, untouched tenants absent), and a class without
+    tenants adds nothing to the activity route."""
     from weaviate_tpu_torch.api.client import Client
     from weaviate_tpu_torch.api.rest import RestServer
 
@@ -146,16 +147,27 @@ def test_tenant_activity_needs_tenants(tmp_path):
     srv = RestServer(db)
     srv.start()
     try:
-        with pytest.raises(NotImplementedError, match="item 7"):
-            db.create_collection(config_from_json({
-                "class": "MT",
-                "multiTenancyConfig": {"enabled": True},
-                "properties": [{"name": "p", "dataType": ["text"]}]}))
+        db.create_collection(config_from_json({
+            "class": "MT",
+            "multiTenancyConfig": {"enabled": True},
+            "properties": [{"name": "p", "dataType": ["text"]}]}))
+        db.add_tenants("MT", ["acme", "globex"])
+        col = db.get_collection("MT")
+        col.put_object({"p": "hello"}, vector=[1.0, 0.0], tenant="acme")
+        col.near_vector(np.asarray([1.0, 0.0]), k=1, tenant="acme")
+        col.near_vector(np.asarray([1.0, 0.0]), k=1, tenant="acme")
+        act = col.tenant_activity
+        assert act["acme"]["writes"] >= 1
+        assert act["acme"]["reads"] >= 2
+        assert act["acme"]["lastRead"] is not None
+        assert "globex" not in act  # untouched tenant stays cold
         c = Client(srv.address)
         c.create_class({"class": "Plain",
                         "properties": [{"name": "p", "dataType": ["text"]}]})
         c.create_object("Plain", {"p": "x"}, vector=[1.0])
-        assert c.request("GET", "/v1/tenant-activity") == {}
+        out = c.request("GET", "/v1/tenant-activity")
+        assert out["MT"]["acme"]["writes"] >= 1
+        assert "Plain" not in out
     finally:
         srv.stop()
         db.close()

@@ -188,14 +188,22 @@ def test_batch_delete(db, stub):
 
 
 def test_tenants_get(db, stub):
-    """Multi-tenant collections are ROADMAP Queue 1 item 7 and raise at
-    creation."""
+    """TenantsGet lists a multi-tenant collection's tenants (all of them,
+    or the named ones), as the JAX server does."""
     from weaviate_tpu_torch.schema.config import MultiTenancyConfig
 
-    with pytest.raises(NotImplementedError, match="item 7"):
-        db.create_collection(CollectionConfig(
-            name="MT", properties=[Property(name="t", data_type="text")],
-            multi_tenancy=MultiTenancyConfig(enabled=True)))
+    db.create_collection(CollectionConfig(
+        name="MT", properties=[Property(name="t", data_type="text")],
+        multi_tenancy=MultiTenancyConfig(enabled=True)))
+    db.add_tenants("MT", ["alice", "bob"])
+    reply = stub.TenantsGet(pb.TenantsGetRequest(collection="MT"))
+    assert [t.name for t in reply.tenants] == ["alice", "bob"]
+    assert all(t.activity_status == pb.TENANT_ACTIVITY_STATUS_HOT
+               for t in reply.tenants)
+    req = pb.TenantsGetRequest(collection="MT")
+    req.names.values.append("bob")
+    reply = stub.TenantsGet(req)
+    assert [t.name for t in reply.tenants] == ["bob"]
     _make_collection(db)
     # as the JAX server answers for a collection without tenants
     with pytest.raises(grpc.RpcError) as e:

@@ -2,9 +2,9 @@
 RestServer over a CPU ``Database`` (a copy of tests/test_rest_api.py).
 
 Reference pattern: test/acceptance/ runs black-box REST tests against a
-live server — here against RestServer on localhost. Multi-tenancy and the
-cluster are not ported (ROADMAP Queue 1 item 7): their cases pin the 500
-that names the item.
+live server — here against RestServer on localhost. The cluster is not
+ported (ROADMAP Queue 1 item 7b): its case pins the error that names the
+item.
 """
 
 import numpy as np
@@ -130,23 +130,26 @@ def test_batch_partial_failure(client):
 
 
 def test_multi_tenant_rest(client):
-    """A multi-tenant class is refused with the item that ports it."""
-    with pytest.raises(RestError) as e:
-        client.create_class({"name": "MT",
-                             "multi_tenancy": {"enabled": True}})
-    assert e.value.status == 500
-    assert "item 7" in str(e.value)
-    assert "MT" not in [c["class"] for c in client.get_schema()["classes"]]
+    client.create_class({"name": "MT",
+                         "multi_tenancy": {"enabled": True}})
+    client.add_tenants("MT", ["alpha", "beta"])
+    assert {t["name"] for t in client.get_tenants("MT")} == {"alpha", "beta"}
+    created = client.create_object("MT", {"x": 1}, vector=[1.0, 0.0],
+                                   tenant="alpha")
+    got = client.get_object("MT", created["id"], tenant="alpha")
+    assert got["properties"]["x"] == 1
+    with pytest.raises(RestError):
+        client.get_object("MT", created["id"], tenant="beta")
 
 
 def test_tenant_routes_on_a_plain_class(client):
     """A class without tenants lists none, as the JAX server's does, and
-    adding tenants answers 500 naming item 7."""
+    adding tenants to it is refused ("not a multi-tenant collection")."""
     client.create_class({"name": "Plain"})
     assert client.get_tenants("Plain") == []
     with pytest.raises(RestError) as e:
         client.add_tenants("Plain", ["alpha"])
-    assert e.value.status == 500 and "item 7" in str(e.value)
+    assert "not a multi-tenant collection" in str(e.value)
 
 
 def test_rest_over_cluster(tmp_path):
@@ -178,18 +181,21 @@ def test_validation_errors(client):
 
 
 def test_batch_cross_tenant_grouping(client):
-    """Per-tenant batch grouping needs tenants (item 7): a tenant named on
-    a plain class is ignored, as the JAX server ignores it, and every
-    object lands in the class."""
-    client.create_class({"name": "MTB"})
+    """Objects of one class but different tenants must land in their own
+    tenants (regression: grouping by class alone wrote both to the first)."""
+    client.create_class({"name": "MTB",
+                         "multi_tenancy": {"enabled": True}})
+    client.add_tenants("MTB", ["alpha", "beta"])
     res = client.batch_objects([
         {"class": "MTB", "tenant": "alpha", "properties": {"x": "a"}},
         {"class": "MTB", "tenant": "beta", "properties": {"x": "b"}},
     ])
     assert all(r["result"]["status"] == "SUCCESS" for r in res)
     a, b = res[0]["id"], res[1]["id"]
-    assert client.get_object("MTB", a)["properties"]["x"] == "a"
-    assert client.get_object("MTB", b)["properties"]["x"] == "b"
+    assert client.get_object("MTB", a, tenant="alpha")["properties"]["x"] == "a"
+    assert client.get_object("MTB", b, tenant="beta")["properties"]["x"] == "b"
+    with pytest.raises(RestError):
+        client.get_object("MTB", b, tenant="alpha")
 
 
 def test_patch_preserves_named_vectors_and_creation_time(client):

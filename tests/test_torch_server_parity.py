@@ -363,7 +363,8 @@ def test_profiler_port_and_native_plane_degrade_as_the_jax_server(
             assert "native gRPC data plane enabled" in caplog.text
         else:
             assert type(srv.grpc).__name__ == "GrpcServer"
-        assert "no profiler server until ROADMAP Queue 1 item 8" in caplog.text
+        assert ("kernel captures are served at /v1/debug/profile"
+                in caplog.text)
     finally:
         srv.stop()
 
@@ -377,11 +378,29 @@ def test_profiler_port_and_native_plane_degrade_as_the_jax_server(
     ("/debug/drift", "item 8"),
 ])
 def test_unported_debug_routes_answer_500(tmp_path, route, item):
+    """The route of a plane still unported (replication, ROADMAP Queue 1
+    item 7b) answers 500 naming its item. The device-time routes that
+    item 8 listed (kernelscope, profile, drift) are ported: they answer
+    with the port's snapshots, and an unknown capture id is a 404."""
     srv = TServer(_config(TConfig, tmp_path), device="cpu").start()
     try:
         status, out = _request(srv.rest.address, "GET", route)
-        assert status == 500
-        assert item in out["error"][0]["message"]
+        if item == "item 7":
+            assert status == 500
+            assert "item 7b" in out["error"][0]["message"]
+        elif route.endswith("?id=x"):
+            assert status == 404
+        else:
+            assert status == 200
+            if route == "/debug/kernelscope":
+                assert {"variants", "memcpy", "meters",
+                        "total_device_seconds"} <= set(out)
+            elif route == "/debug/drift":
+                assert out["enabled"] in (True, False) and "gateOk" in out
+            elif route == "/debug/profile?ms=10":
+                assert out["ms"] == 10 and "kernels" in out
+            else:
+                assert "captures" in out
         # the ported debug planes still answer
         for ok in ("/debug/traces", "/debug/memory", "/debug/slo",
                    "/debug/flight", "/debug/perf"):

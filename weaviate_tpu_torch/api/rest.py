@@ -86,7 +86,7 @@ DEBUG_ENDPOINTS = {
     "replication": "Anti-entropy convergence: hashbeat rounds, "
                    "divergent-entry estimates, staged-2PC state and "
                    "breaker/peer health per replicated shard (not "
-                   "ported: ROADMAP Queue 1 item 7, the route answers "
+                   "ported: ROADMAP Queue 1 item 7b, the route answers "
                    "500).",
     "perf": "Last benchkeeper perf-gate verdict: per-entry values, "
             "deltas vs the reasoned baseline, regressions/stale/"
@@ -100,25 +100,22 @@ DEBUG_ENDPOINTS = {
               "transfer-window occupancy), the structured slow-query "
               "log, and on-disk incident snapshots.",
     "kernelscope": "Device-time truth plane: per-(kind, batch, k) "
-                   "compiled-variant residency EWMAs with their "
-                   "drain/wall attribution source, the sampled memcpy "
-                   "estimator, per-tenant device-seconds meters and "
-                   "dispatch totals (not ported: ROADMAP Queue 1 item "
-                   "8, the route answers 500). Per-query plans ride "
-                   "?explain=true on /v1/graphql (or x-explain gRPC "
-                   "metadata).",
+                   "dispatch-variant residency EWMAs with their "
+                   "drain/wall attribution source (drain: CUDA-event "
+                   "time on the card), the sampled memcpy estimator, "
+                   "per-tenant device-seconds meters and dispatch "
+                   "totals. Per-query plans ride ?explain=true on "
+                   "/v1/graphql (or x-explain gRPC metadata).",
     "profile": "On-demand kernel profiles: paramless lists the last K "
                "persisted captures; ?ms=N runs a capture for N ms and "
                "returns per-kernel device-ms ranked by the kernel "
-               "registry (?id=<capture> fetches a full persisted "
-               "capture). Not ported: ROADMAP Queue 1 item 8, the "
-               "route answers 500.",
+               "registry from a torch.profiler capture (?id=<capture> "
+               "fetches a full persisted capture).",
     "drift": "Driftwatch verdict plane: open findings with the gate "
              "verdict, per-entry trend deltas from the last live "
              "telemetry classification against benchkeeper bands, and "
              "per-canary state (probe set, sealed references, recall/"
-             "residency history through the real query batcher). Not "
-             "ported: ROADMAP Queue 1 item 8, the route answers 500.",
+             "residency history through the real query batcher).",
 }
 
 
@@ -1165,7 +1162,7 @@ class RestServer:
         this message until it is."""
         raise NotImplementedError(
             "/v1/debug/replication: replication (replication/hashbeater.py)"
-            " is ROADMAP Queue 1 item 7")
+            " is ROADMAP Queue 1 item 7b")
 
     def _local_shard_details(self) -> list[dict]:
         """Per-shard breakdown for ?output=verbose (reference:

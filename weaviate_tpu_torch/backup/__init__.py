@@ -82,8 +82,8 @@ class BackupManager:
     def _rpc(self, node: str, path: str, payload: dict) -> dict:
         # reached only with a ClusterNode (``node``), which the port does
         # not build: the cluster fan-out (backup/cluster.py over the
-        # internal transport) is ROADMAP Queue 1 item 7
-        raise NotImplementedError("cluster backup: ROADMAP Queue 1 item 7")
+        # internal transport) is ROADMAP Queue 1 item 7b
+        raise NotImplementedError("cluster backup: ROADMAP Queue 1 item 7b")
 
     # -- backup --------------------------------------------------------------
 

@@ -5,7 +5,7 @@
 503 / UNAVAILABLE answer, so the types exist here with the JAX
 package's fields. The transport itself (``InternalServer``, ``rpc``,
 the per-peer circuit breakers) carries node-to-node traffic and is
-ROADMAP Queue 1 item 7, with the rest of the cluster.
+ROADMAP Queue 1 item 7b, with the rest of the cluster.
 """
 
 from __future__ import annotations

@@ -18,8 +18,6 @@ from weaviate_tpu_torch.parallel.mesh import host_count, placement
 from weaviate_tpu_torch.schema.config import CollectionConfig, Property
 from weaviate_tpu_torch.storage.kv import KVStore
 
-MULTI_TENANCY = "multi-tenancy: ROADMAP Queue 1 item 7"
-
 
 class Database:
     def __init__(self, data_dir: str = "./data", mesh=None,
@@ -40,6 +38,7 @@ class Database:
 
         tailboard.set_data_dir(data_dir)
         driftwatch.set_data_dir(data_dir)
+        driftwatch.set_device(self.device)
         # scrape-time per-host memory rollups need the mesh's host count
         ledger.set_host_count(host_count(mesh))
         self.local_node = local_node
@@ -49,6 +48,13 @@ class Database:
 
             sync_wal = _flag(os.environ, "PERSISTENCE_WAL_SYNC")
         self.sync_wal = sync_wal
+        # cluster hook fn(collection, [tenant]) routing auto tenant
+        # creation through Raft: stored for the cluster (ROADMAP Queue 1
+        # item 7b); None = local apply
+        self.auto_tenant_hook = None
+        # FROZEN-tier offload target (a backup backend); set by the server
+        # when modules are configured (set_offload_backend)
+        self.offload_backend = None
         os.makedirs(data_dir, exist_ok=True)
         self._lock = threading.RLock()
         self._schema_store = KVStore(os.path.join(data_dir, "_schema"),
@@ -62,9 +68,7 @@ class Database:
         self.memwatch.use_mesh(mesh)
         # background maintenance (reference: cyclemanager drives LSM
         # flush/compaction); off by default so embedded/test use stays
-        # deterministic — the server entry point enables it. The JAX
-        # package also registers the driftwatch canaries (ROADMAP Queue 1
-        # item 8), which are not ported.
+        # deterministic — the server entry point enables it
         self.cycles = CycleManager()
         self.cycles.register("lsm-maintenance", self._maintenance_cycle,
                              maintenance_interval)
@@ -74,6 +78,11 @@ class Database:
         # epoch to a sibling with headroom instead of refusing writes
         self.cycles.register("epoch-maintenance", self._epoch_cycle,
                              maintenance_interval)
+        # driftwatch: canary probes through the real batcher + the live
+        # telemetry classification against benchkeeper bands, on its own
+        # (longer) period — run_now("driftwatch") is the test entry
+        self.cycles.register("driftwatch", driftwatch.run_cycle,
+                             driftwatch.interval_s())
         if start_cycles:
             self.cycles.start()
         self._load_existing()
@@ -92,12 +101,15 @@ class Database:
         return did
 
     def _new_collection(self, config: CollectionConfig, sharding_state=None):
-        return Collection(self.data_dir, config, sharding_state=sharding_state,
-                          local_node=self.local_node,
-                          on_sharding_change=self._persist,
-                          sync_wal=self.sync_wal, memwatch=self.memwatch,
-                          async_indexing=self.async_indexing,
-                          device=self.device, mesh=self.mesh)
+        col = Collection(self.data_dir, config, sharding_state=sharding_state,
+                         local_node=self.local_node,
+                         on_sharding_change=self._persist,
+                         sync_wal=self.sync_wal, memwatch=self.memwatch,
+                         async_indexing=self.async_indexing,
+                         device=self.device, mesh=self.mesh)
+        col._auto_tenant_hook = self.auto_tenant_hook
+        col.offload_backend = self.offload_backend
+        return col
 
     def _load_existing(self):
         for key in self._schema.keys():
@@ -207,7 +219,7 @@ class Database:
             if new_cfg.replication.factor != cur.replication.factor:
                 raise NotImplementedError(
                     "replication factor changes (the scaler): ROADMAP "
-                    "Queue 1 item 7")
+                    "Queue 1 item 7b")
 
             def apply(cfg):
                 cfg.description = new_cfg.description
@@ -269,26 +281,47 @@ class Database:
         return {name: col.config.to_dict()
                 for name, col in sorted(self.collections.items())}
 
-    # -- tenants (creating a multi-tenant collection raises, so every
-    #    collection here has none) ----------------------------------------
+    # -- tenants -------------------------------------------------------------
+
+    def set_offload_backend(self, backend) -> None:
+        """Backup backend receiving FROZEN tenants (reference: offload
+        modules, OFFLOAD_* env). Propagates to every collection."""
+        self.offload_backend = backend
+        for col in self.collections.values():
+            col.offload_backend = backend
+
+    def set_auto_tenant_hook(self, hook) -> None:
+        """Stored for the cluster (item 7b); a collection creates its
+        auto tenants locally until then."""
+        with self._lock:
+            self.auto_tenant_hook = hook
+            for col in self.collections.values():
+                col._auto_tenant_hook = hook
 
     def add_tenants(self, collection: str, tenants: list[str]):
-        self.get_collection(collection)
-        raise NotImplementedError(MULTI_TENANCY)
+        col = self.get_collection(collection)
+        for t in tenants:
+            col.add_tenant(t)
+        with self._lock:
+            self._persist(col)
 
     def update_tenant_status(self, collection: str,
                              tenants: list[dict]) -> None:
-        self.get_collection(collection)
-        raise NotImplementedError(MULTI_TENANCY)
+        """[{name, activityStatus}] — HOT/COLD/FROZEN offload (reference:
+        PUT tenants)."""
+        col = self.get_collection(collection)
+        for t in tenants:
+            col.set_tenant_status(t["name"],
+                                  t.get("activityStatus", "HOT"))
+        with self._lock:
+            self._persist(col)
 
     def remove_tenants(self, collection: str, tenants: list[str]):
-        self.get_collection(collection)
-        raise NotImplementedError(MULTI_TENANCY)
-
-    def set_offload_backend(self, backend) -> None:
-        """The FROZEN tenant tier ships offloaded tenants to a backup
-        backend; there are no tenants here."""
-        raise NotImplementedError(f"OFFLOAD_BACKEND: {MULTI_TENANCY}")
+        col = self.get_collection(collection)
+        for t in tenants:
+            col.remove_tenant(t)
+        with self._lock:
+            self._persist(col)
 
     # -- lifecycle -----------------------------------------------------------
 

@@ -262,7 +262,66 @@ class Shard:
             idx = _make_vector_index(vc, dim, device=self.device,
                                      mesh=self.mesh)
         self.vector_indexes[vec_name] = idx
+        self._register_drift_canary(vec_name)
         return idx
+
+    def _register_drift_canary(self, vec_name: str) -> None:
+        """Hand this vector space to driftwatch as a canary target. The
+        callbacks resolve ``self.vector_indexes[vec_name]`` per call so
+        they survive compress() / DynamicIndex upgrades swapping stores
+        under the same key, and the probe search routes through
+        ``_query_batcher`` — the REAL serving dispatch (coalescing,
+        faultline point, kernelscope attribution), not a side channel.
+        The closures hold this shard: ``close`` unregisters them, or a
+        closed tenant's tensors would stay on the card."""
+        from weaviate_tpu_torch.runtime import driftwatch
+
+        def _idx():
+            return self.vector_indexes.get(vec_name)
+
+        def corpus_fn():
+            idx = _idx()
+            id_map = getattr(idx, "_id_to_slot", None)
+            if not id_map:
+                return None
+            doc_ids = sorted(int(d) for d in id_map)
+            objs = self.objects_by_doc_ids(doc_ids)
+            ids, vecs = [], []
+            for d, obj in zip(doc_ids, objs):
+                v = None if obj is None else obj.vectors.get(vec_name)
+                if v is not None:
+                    ids.append(d)
+                    vecs.append(np.asarray(v, dtype=np.float32))
+            if not ids:
+                return None
+            return np.asarray(ids, dtype=np.int64), np.stack(vecs)
+
+        def epoch_token_fn():
+            return self.epoch_token(vec_name)
+
+        def pairwise_fn(qs, vecs):
+            idx = _idx()
+            metric = getattr(idx, "metric", "l2-squared")
+            return Shard._host_pairwise(qs, vecs, metric)
+
+        def search_fn(queries, k):
+            idx = _idx()
+            if idx is None or getattr(idx, "search_by_vector_batch",
+                                      None) is None:
+                return None
+            b = self._query_batcher(vec_name, idx)
+            out = []
+            for q in np.asarray(queries, dtype=np.float32):
+                ids, _ = b.search(q, k, None)
+                ids = np.asarray(ids)
+                out.append(ids[ids >= 0].astype(np.int64))
+            return out
+
+        driftwatch.register_canary(
+            f"{self.collection_name}/{self.name}/{vec_name or '-'}",
+            collection=self.collection_name, shard=self.name,
+            search_fn=search_fn, corpus_fn=corpus_fn,
+            epoch_token_fn=epoch_token_fn, pairwise_fn=pairwise_fn)
 
     def _tenant_label(self) -> str:
         return self.name if self.config.multi_tenancy.enabled else ""
@@ -471,6 +530,11 @@ class Shard:
                     owner={"collection": self.collection_name,
                            "shard": self.name,
                            "tenant": self._tenant_label()},
+                    # kernelscope variant label: residency EWMAs key on
+                    # (index kind, b bucket, k bucket)
+                    kind=str(getattr(idx, "index_type", "index")),
+                    # residency on the card: CUDA events on this device
+                    device=self.device,
                 ))
         return b
 
@@ -498,9 +562,8 @@ class Shard:
     def epoch_token(self, vec_name: str = ""):
         """A token that changes whenever the vector space's contents or
         epoch layout change (per-epoch rows and live counts, the index
-        length): the key a canary's cached ground truth is held against
-        (driftwatch's canaries are ROADMAP Queue 1 item 8). None without
-        an index."""
+        length): the key a driftwatch canary's cached ground truth is held
+        against. None without an index."""
         idx = self.vector_indexes.get(vec_name)
         if idx is None:
             return None
@@ -1112,8 +1175,18 @@ class Shard:
         return did
 
     def close(self):
+        from weaviate_tpu_torch.runtime import driftwatch
+
+        driftwatch.unregister_canaries(
+            f"{self.collection_name}/{self.name}/")
         for q in self._index_queues.values():
             q.stop()
         for b in self._query_batchers.values():
             b.stop()
+        # the batchers' closures and the collection's rescue hook refer
+        # back to this shard: dropping them here breaks those cycles, so
+        # a closed (COLD / FROZEN) tenant's tensors leave the card when
+        # the collection lets go of the shard, not at a later gc pass
+        self._query_batchers.clear()
+        self.memory_rescue = None
         self.store.close()

@@ -55,7 +55,8 @@ from weaviate_tpu_torch.engine.store import (DeviceVectorStore, _next_pow2,
 from weaviate_tpu_torch.ops.bq import _auto_reduce_l
 from weaviate_tpu_torch.ops.topk import merge_epoch_topk
 from weaviate_tpu_torch.parallel.mesh import placement
-from weaviate_tpu_torch.runtime import hbm_ledger, tracing, transfer
+from weaviate_tpu_torch.runtime import (hbm_ledger, kernelscope, tracing,
+                                        transfer)
 from weaviate_tpu_torch.runtime.transfer import DeviceResultHandle
 
 #: default seal threshold (rows) when epochs are enabled without an
@@ -532,6 +533,11 @@ class EpochStore:
                 queries, k, self._slice_allow(allow_mask, ep))
             parts.append((d, i))
             maps.append(ep.slot_map_device())
+        # EXPLAIN (host ints, no-op without a sink): epoch fanout and
+        # the on-device merge shape of this dispatch
+        kernelscope.explain_note(
+            "epochs", epochs=len(parts), merge_fanin=len(parts),
+            k_merge=k, rescore_mode="none", queries=len(queries), k=k)
         md, mi = merge_epoch_topk(tuple(parts), tuple(maps), k=k,
                                   selection=self._selection)
 
@@ -586,6 +592,12 @@ class EpochStore:
                           else ep.local_of.copy(), tiers,
                           int(ep.store.count)))
         k_merge = k_cand if mode == "post" else k
+        # EXPLAIN: epoch fanout, merge shape and the (possibly plane->
+        # post degraded) rescore mode of this dispatch — host ints only
+        kernelscope.explain_note(
+            "epochs", epochs=len(parts), merge_fanin=len(parts),
+            k_merge=k_merge, k_cand=k_cand, rescore_mode=mode,
+            queries=len(queries), k=k)
         md, mi = merge_epoch_topk(tuple(parts), tuple(maps), k=k_merge,
                                   selection=self._selection)
         cap_total = self.capacity

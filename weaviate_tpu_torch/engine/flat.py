@@ -23,7 +23,7 @@ from weaviate_tpu_torch import native
 from weaviate_tpu_torch.engine.epochs import EpochStore
 from weaviate_tpu_torch.engine.quantized import QuantizedVectorStore
 from weaviate_tpu_torch.engine.store import DeviceVectorStore
-from weaviate_tpu_torch.runtime import hbm_ledger, tracing
+from weaviate_tpu_torch.runtime import hbm_ledger, kernelscope, tracing
 from weaviate_tpu_torch.runtime.transfer import DeviceResultHandle
 
 
@@ -177,6 +177,11 @@ class FlatIndex:
             with self._lock:
                 allow_mask = self._translate_batch_allow(
                     queries, allow_list, per_query)
+                kernelscope.explain_note(
+                    "index", kind=str(self.index_type),
+                    per_query_filters=bool(per_query),
+                    filtered=allow_list is not None,
+                    queries=len(queries), k=k)
                 d, slots = self.store.search(queries, k, allow_mask)
                 ids = np.where(slots >= 0, self._slot_to_id_safe(slots), -1)
                 return ids, d
@@ -217,6 +222,13 @@ class FlatIndex:
             with self._lock:
                 allow_mask = self._translate_batch_allow(
                     queries, allow_list, per_query)
+                # EXPLAIN: index-level plan facts (host ints only; the
+                # store layer notes the cutover it actually takes)
+                kernelscope.explain_note(
+                    "index", kind=str(self.index_type),
+                    per_query_filters=bool(per_query),
+                    filtered=allow_mask is not None,
+                    queries=len(queries), k=k)
                 handle = self.store.search_async(queries, k, allow_mask)
                 table = self._slot_to_id
 
@@ -369,6 +381,20 @@ class FlatIndex:
                     shared[:len(allow_mask)] = allow_mask
                     allow_mask = np.broadcast_to(
                         shared, (len(queries), self.store.capacity))
+                kernelscope.explain_note(
+                    "hybrid", queries=len(queries),
+                    hybrid_rows=len(live_ops), k=k, fetch=fetch,
+                    terms=int(sum(op.stats.get("terms", 0)
+                                  for op in live_ops)),
+                    candidates=int(sum(op.stats.get("candidates", 0)
+                                       for op in live_ops)),
+                    pruned_frac=round(float(np.mean(
+                        [op.stats.get("pruned_frac", 0.0)
+                         for op in live_ops])), 6) if live_ops else 0.0,
+                    fusion_ranked=int(sum(1 for op in live_ops
+                                          if op.fusion == 0)),
+                    fusion_relative=int(sum(1 for op in live_ops
+                                            if op.fusion == 1)))
                 handle = self.store.search_async(queries, f_depth,
                                                  allow_mask, keep_rows=True)
                 dn_d, dn_i = handle.arrays

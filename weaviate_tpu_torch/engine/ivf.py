@@ -60,7 +60,7 @@ from weaviate_tpu_torch.ops.kernels import (allow_bits_for_ids, as_bits_tensor,
                                             smallest_positions)
 from weaviate_tpu_torch.ops.kmeans import kmeans_assign, kmeans_fit
 from weaviate_tpu_torch.ops.topk import topk_smallest
-from weaviate_tpu_torch.runtime import hbm_ledger, tracing
+from weaviate_tpu_torch.runtime import hbm_ledger, kernelscope, tracing
 from weaviate_tpu_torch.runtime.transfer import DeviceResultHandle
 
 _SUPPORTED_METRICS = ("l2-squared", "dot", "cosine", "cosine-dot")
@@ -858,6 +858,18 @@ class IVFStore:
                         else self._allow_bits(allow_mask, b))
                 k_cand = k * self.rescore_limit if self.quantization else k
                 k_eff = min(k_cand, np_probe * self.list_cap)
+                # EXPLAIN: the probe plan, host ints only (no device
+                # reads); a no-op unless a sink is installed for this
+                # dispatch
+                kernelscope.explain_note(
+                    "ivf", nprobe=np_probe, nlist=self.nlist,
+                    lists_frac=(round(np_probe / self.nlist, 6)
+                                if self.nlist else 0.0),
+                    candidates=k_eff,
+                    rescored=(k_eff if self.quantization else 0),
+                    quantized=bool(self.quantization),
+                    filtered=bits is not None, queries=b, k=k,
+                    delta_leg=bool(legs_d))
                 q_all = self._t(queries)
                 outs_d, outs_i = [], []
                 for s in range(0, b, self.query_chunk):
@@ -889,6 +901,7 @@ class IVFStore:
                 legs_i.append((outs_i[0] if len(outs_i) == 1
                                else torch.cat(outs_i)).to(torch.int32))
             sp.set(nprobe=np_probe, nlist=self.nlist)
+            kernelscope.explain_note("ivf", merge_legs=len(legs_d))
             if not legs_d:
                 d_e = np.full((b, k), MASKED_DISTANCE, np.float32)
                 i_e = np.full((b, k), -1, np.int64)

@@ -51,7 +51,7 @@ from weaviate_tpu_torch.parallel.sharded_search import (RowSharded, grow_rows,
                                                         shard_array,
                                                         sharded_quantized_topk,
                                                         sharded_zeros)
-from weaviate_tpu_torch.runtime import hbm_ledger, tracing
+from weaviate_tpu_torch.runtime import hbm_ledger, kernelscope, tracing
 from weaviate_tpu_torch.runtime.transfer import DeviceResultHandle
 
 _DEFAULT_CHUNK = 8192
@@ -618,6 +618,15 @@ class QuantizedVectorStore:
                     k_cand = min(k, capacity)
                 # inline: the shards' rescored candidates merge to k
                 k_out = min(k, capacity) if inline_rescore else k_cand
+                # EXPLAIN: host ints only (no device reads), a no-op
+                # when nobody asked — the rescore plan of this dispatch
+                kernelscope.explain_note(
+                    "quantized", quantization=str(self.quantization),
+                    rescore_mode=mode, k_cand=k_cand, rows=capacity,
+                    queries=len(queries), k=k,
+                    path=("bitmask_batched" if allow_bits is not None
+                          else "shared_mask" if allow_mask is not None
+                          else "full_scan"))
                 q_dev = torch.from_numpy(np.ascontiguousarray(queries)).to(self.device)
                 d, i = self._scan(q_dev, k_cand, valid, allow_bits=allow_bits,
                                   k_out=k_out)

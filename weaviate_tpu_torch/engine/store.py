@@ -43,7 +43,8 @@ from weaviate_tpu_torch.parallel.sharded_search import (RowSharded, grow_rows,
                                                         sharded_topk,
                                                         sharded_zeros,
                                                         tracked_shard_array)
-from weaviate_tpu_torch.runtime import hbm_ledger, tracing, transfer
+from weaviate_tpu_torch.runtime import (hbm_ledger, kernelscope, tracing,
+                                        transfer)
 from weaviate_tpu_torch.runtime.transfer import DeviceResultHandle
 
 _DEFAULT_CHUNK = 8192
@@ -469,6 +470,11 @@ class DeviceVectorStore:
                 slot_buf = None
                 if allow_mask is not None and allow_mask.ndim == 2:
                     sp.set(path="bitmask_batched")
+                    # EXPLAIN notes are host ints only (no device reads)
+                    # and a one-contextvar-read no-op when nobody asked
+                    kernelscope.explain_note(
+                        "store", path="bitmask_batched", rows=capacity,
+                        queries=len(queries), k=k)
                     allow_bits = batched_mask_operands(
                         allow_mask, len(queries), capacity, self.device,
                         owner=self._hbm_owner, mesh=self.mesh)
@@ -487,12 +493,28 @@ class DeviceVectorStore:
                             and m_allowed <= capacity // 8
                             and bucket * row_bytes <= (1 << 30)):
                         sp.set(path="gathered", allowed=m_allowed)
+                        kernelscope.explain_note(
+                            "store", path="gathered", rows=capacity,
+                            m_allowed=m_allowed, queries=len(queries),
+                            k=k, selectivity=round(
+                                m_allowed / capacity, 6) if capacity
+                            else 0.0)
                         d, i, slot_buf = self._dispatch_gathered(
                             queries, k, allowed)
                     else:
+                        kernelscope.explain_note(
+                            "store", path="shared_mask", rows=capacity,
+                            m_allowed=m_allowed, queries=len(queries),
+                            k=k, selectivity=round(
+                                m_allowed / capacity, 6) if capacity
+                            else 0.0)
                         full = np.zeros(capacity, dtype=bool)
                         full[: len(allow_mask)] = allow_mask
                         valid = and_mask(valid, full, self.mesh)
+                else:
+                    kernelscope.explain_note(
+                        "store", path="full_scan", rows=capacity,
+                        queries=len(queries), k=k)
                 if slot_buf is None:
                     d, i = self._scan(queries, k, vectors, valid, norms,
                                       capacity, allow_bits)

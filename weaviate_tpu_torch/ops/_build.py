@@ -73,6 +73,15 @@ _funcs: dict[str, object] = {}
 build_seconds: float | None = None
 
 
+def _emit(event: str, name: str, seconds: float | None = None) -> None:
+    """A build-cache event for ``runtime/compile_cache.py``: "hit" (a
+    library found in the build directory), "miss" (nvcc built it, in
+    ``seconds``), "loaded" (a library loaded)."""
+    from weaviate_tpu_torch.runtime import compile_cache
+
+    compile_cache.on_build_event(event, name, seconds)
+
+
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
@@ -102,19 +111,21 @@ def _build_all_locked() -> None:
     for name in SIGNATURES:
         so = _lib_path(name)
         if os.path.exists(so):
+            _emit("hit", name)
             continue
         tmp = f"{so}.{os.getpid()}.tmp"
         log = open(log_path(name), "wb")
-        procs.append((name, so, tmp, log, subprocess.Popen(
+        procs.append((name, so, tmp, log, time.perf_counter(), subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", tmp,
              os.path.join(CSRC, f"{name}.cu")],
             stdout=log, stderr=subprocess.STDOUT, cwd=CSRC)))
     failed = []
-    for name, so, tmp, log, p in procs:
+    for name, so, tmp, log, t_start, p in procs:
         rc = p.wait()
         log.close()
         if rc == 0:
             os.replace(tmp, so)  # atomic: no process loads a half-written file
+            _emit("miss", name, time.perf_counter() - t_start)
         else:
             with open(log_path(name), errors="replace") as f:
                 failed.append(f"{name} (nvcc rc={rc}):\n{f.read()[-4000:]}")
@@ -125,6 +136,7 @@ def _build_all_locked() -> None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _funcs[name] = fn
+        _emit("loaded", name)
     for name, (sym, argtypes) in RESIDENCY.items():
         fn = getattr(ctypes.CDLL(_lib_path(name)), sym)
         fn.argtypes = argtypes

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from weaviate_tpu_torch.ops.distances import MASKED_DISTANCE, sq_norms
+from weaviate_tpu_torch.runtime.kernelscope import kernel_span
 
 # Metrics with a hand-written kernel; hamming and manhattan stay plain
 # torch (elementwise 3D intermediates — nothing for a kernel to win).
@@ -293,6 +294,7 @@ def _check_kernel_operands(q, x, metric, valid, x_sq_norms):
         raise ValueError("x_sq_norms must be a [N] tensor on the corpus device")
 
 
+@kernel_span("distance_block")
 def distance_query(q: torch.Tensor, metric: str):
     """The scan kernels' query operands for q [B, d]: (f32 rows, unit
     length for cosine; their squared norms for l2, else None). A loop
@@ -335,6 +337,7 @@ def _check_rc(name: str, rc: int) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
 
 
+@kernel_span("distance_block")
 def distance_block(q: torch.Tensor, x: torch.Tensor, metric: str = "l2-squared",
                    valid: torch.Tensor | None = None,
                    x_sq_norms: torch.Tensor | None = None) -> torch.Tensor:
@@ -347,6 +350,7 @@ def distance_block(q: torch.Tensor, x: torch.Tensor, metric: str = "l2-squared",
     return distance_block_prepared(distance_query(q, metric), x, metric, valid, x_sq_norms)
 
 
+@kernel_span("distance_block")
 def distance_block_prepared(query, x: torch.Tensor, metric: str = "l2-squared",
                             valid: torch.Tensor | None = None,
                             x_sq_norms: torch.Tensor | None = None) -> torch.Tensor:
@@ -405,6 +409,7 @@ def fused_topk_pairs_plain(vals: torch.Tensor, ids: torch.Tensor, k: int):
     return out_d, out_i
 
 
+@kernel_span("fused_topk_pairs")
 def fused_topk_pairs(vals: torch.Tensor, ids: torch.Tensor, k: int):
     """EXACT top-k over explicit (vals [B,M] f32, ids [B,M] i32) pairs ->
     ([B,k] f32 ascending, [B,k] i32). Entries >= MASKED_DISTANCE never
@@ -477,6 +482,7 @@ def scan_slices(n: int, b: int) -> tuple[int, int]:
     return per * 128, -(-tiles // per)
 
 
+@kernel_span("fused_topk_scan")
 def fused_topk_scan(q: torch.Tensor, x: torch.Tensor, k: int,
                     metric: str = "l2-squared",
                     valid: torch.Tensor | None = None,
@@ -797,6 +803,7 @@ def bq_scan_reduce_plain(q_bits, x_bits, valid=None, reduce_l=128,
     return vals, ids
 
 
+@kernel_span("bq_scan_reduce")
 def bq_scan_reduce(q_bits: torch.Tensor, x_bits: torch.Tensor,
                    valid: torch.Tensor | None = None, reduce_l: int = 128,
                    transposed: bool = False, sub_rows: int | None = None,
@@ -920,6 +927,7 @@ def pq4_scan_reduce_plain(lut, codes, valid=None, reduce_l=64, transposed=False,
     return vals, ids
 
 
+@kernel_span("pq4_scan_reduce")
 def pq4_scan_reduce(lut: torch.Tensor, codes: torch.Tensor,
                     valid: torch.Tensor | None = None, reduce_l: int = 64,
                     transposed: bool = False, sub_rows: int | None = None,
@@ -989,6 +997,7 @@ def bm25_block_plain(seg_tf, seg_len, seg_term, seg_boost, seg_avg, idf,
     return torch.where(live, -score, torch.full_like(score, MASKED_DISTANCE))
 
 
+@kernel_span("bm25_block")
 def bm25_block(seg_tf: torch.Tensor, seg_len: torch.Tensor, seg_term: torch.Tensor,
                seg_boost: torch.Tensor, seg_avg: torch.Tensor, idf: torch.Tensor,
                k1: torch.Tensor, b: torch.Tensor, omb: torch.Tensor,
@@ -1171,6 +1180,7 @@ def bq_hamming_launch(q_bits: torch.Tensor, x_bits: torch.Tensor, qn: int) -> to
     return out
 
 
+@kernel_span("bq_hamming_block")
 def bq_hamming_block(q_bits: torch.Tensor, x_bits: torch.Tensor) -> torch.Tensor:
     """Exact hamming distances between packed sign words (reference
     ``pallas_kernels.bq_hamming_block``): q_bits [B, W] and x_bits [N, W]
@@ -1297,6 +1307,7 @@ def bq_mxu_launch(q_words: torch.Tensor, qpop, x_bits: torch.Tensor,
     return out
 
 
+@kernel_span("bq_mxu_block")
 def bq_mxu_block(q_bits: torch.Tensor, x_bits: torch.Tensor,
                  x_pop: torch.Tensor | None = None, valid: torch.Tensor | None = None,
                  q_planes: torch.Tensor | None = None,
@@ -1408,6 +1419,7 @@ def pq4_lut_block_plain(lut, codes, valid=None):
     return out
 
 
+@kernel_span("pq4_lut_block")
 def pq4_lut_block(lut: torch.Tensor, codes: torch.Tensor,
                   valid: torch.Tensor | None = None) -> torch.Tensor:
     """ADC distances of 4-bit PQ codes through their LUT (reference
@@ -1580,6 +1592,7 @@ def pq4_recon_norms(centroids: torch.Tensor) -> torch.Tensor:
     return norms
 
 
+@kernel_span("pq4_recon_block")
 def pq4_recon_block(q: torch.Tensor, codes: torch.Tensor, centroids: torch.Tensor,
                     metric: str = "l2-squared",
                     valid: torch.Tensor | None = None) -> torch.Tensor:

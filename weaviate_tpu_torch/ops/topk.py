@@ -36,6 +36,7 @@ from weaviate_tpu_torch.ops.kernels import (
     smallest_positions,
     unpack_allow_bitmask,
 )
+from weaviate_tpu_torch.runtime.kernelscope import kernel_span
 
 
 def topk_smallest(dists: torch.Tensor, ids: torch.Tensor, k: int):
@@ -107,6 +108,7 @@ def merge_topk(dists: torch.Tensor, ids: torch.Tensor, k: int):
     return topk_smallest(dists, ids, k)
 
 
+@kernel_span("chunked_topk")
 def chunked_topk_distances(
     q: torch.Tensor,
     x: torch.Tensor,

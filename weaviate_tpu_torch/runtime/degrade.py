@@ -107,13 +107,25 @@ _unhealthy: dict[str, dict] = {}
 def mark_unhealthy(component: str, reason: str) -> None:
     """Flip a component's health flag (idempotent; first reason+time
     stick until it recovers)."""
+    flipped = False
     with _health_lock:
         if component not in _unhealthy:
             _unhealthy[component] = {"reason": reason,
                                      "since": time.time()}
             _set_gauge(component, 1.0)
+            flipped = True
         else:
             _unhealthy[component]["reason"] = reason
+    if flipped:
+        # a component FLIPPING unhealthy is an incident: capture the
+        # dispatch history that led here (flight-recorder snapshot,
+        # cooldown-limited) — outside the health lock on purpose
+        try:
+            from weaviate_tpu_torch.runtime import tailboard
+
+            tailboard.on_component_unhealthy(component, reason)
+        except Exception:  # pragma: no cover — never fail the caller
+            pass
 
 
 def mark_healthy(component: str) -> None:

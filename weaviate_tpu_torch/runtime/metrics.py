@@ -778,9 +778,9 @@ def scrape(openmetrics: bool = False) -> tuple[bytes, str]:
     """One metrics scrape, shared by the REST /v1/metrics route and the
     monitoring port: run the read-point refreshes (benchkeeper verdict
     pickup, per-host GPU memory attribution, tailboard fold + SLO burn
-    gauges), then render the negotiated exposition. Returns
-    ``(body, content_type)``; every refresh is best-effort — a broken
-    helper must never fail a scrape."""
+    gauges, the driftwatch gate), then render the negotiated exposition.
+    Returns ``(body, content_type)``; every refresh is best-effort — a
+    broken helper must never fail a scrape."""
     try:
         from weaviate_tpu_torch.runtime import perfgate
 
@@ -797,6 +797,12 @@ def scrape(openmetrics: bool = False) -> tuple[bytes, str]:
         from weaviate_tpu_torch.runtime import tailboard
 
         tailboard.scrape_refresh()
+    except Exception:
+        pass
+    try:
+        from weaviate_tpu_torch.runtime import driftwatch
+
+        driftwatch.scrape_refresh()
     except Exception:
         pass
     body = registry.expose(openmetrics=openmetrics).encode()

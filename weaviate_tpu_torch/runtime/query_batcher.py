@@ -1,6 +1,5 @@
 """Server-side dynamic query batching (port of
-``weaviate_tpu/runtime/query_batcher.py`` without the kernelscope /
-tailboard hooks, which the port does not have yet).
+``weaviate_tpu/runtime/query_batcher.py``).
 
 Continuous batching, not a fixed window: a request that finds the device
 idle dispatches IMMEDIATELY; requests that arrive while a dispatch is in
@@ -32,17 +31,26 @@ worker launches batch N's kernels and hands the handle to a dedicated
 transfer thread (runtime/transfer.py, depth 2), then drains and
 dispatches batch N+1 while N's results cross to the host. Results are
 identical to the sync path — same program, same padding, same slicing.
+
+Every dispatch feeds kernelscope and tailboard as in the JAX package: the
+flight record, the per-variant residency, the per-tenant meter and the
+per-request phases. On the card an async dispatch's residency is the
+elapsed time of a pair of pooled CUDA events the worker records around
+its launches on the dispatching stream; the drain reads them after the
+``handle.result()`` it already waits on, so no host sync is added.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
 
 import numpy as np
 
-from weaviate_tpu_torch.runtime import degrade, faultline, retry, tracing
+from weaviate_tpu_torch.runtime import (degrade, faultline, kernelscope, retry,
+                                        tailboard, tracing)
 from weaviate_tpu_torch.runtime.transfer import TransferPipeline
 
 #: bounded intake: past this queue depth the batcher sheds load with a
@@ -70,7 +78,9 @@ class _Pending:
     __slots__ = ("query", "k", "allow", "sparse", "event", "ids", "dists",
                  "error", "ctx", "t_enqueue", "t_exec_start", "t_exec_end",
                  "batch_size", "t_mask_start", "t_mask_end",
-                 "t_fetch_start", "t_fetch_end")
+                 "t_fetch_start", "t_fetch_end", "epochs",
+                 "device_s", "transfer_s", "device_source",
+                 "explain_on", "explain")
 
     def __init__(self, query, k, allow, sparse=None):
         self.query = query
@@ -95,6 +105,20 @@ class _Pending:
         self.t_fetch_start: float | None = None
         self.t_fetch_end: float | None = None
         self.batch_size = 1
+        # epoch fanout of the dispatch this request rode in (0 for a
+        # single-buffer store)
+        self.epochs = 0
+        # kernelscope attribution of that dispatch: device residency and
+        # the memcpy share (source "drain") or the dispatch wall window
+        # (source "wall": a sync path)
+        self.device_s: float | None = None
+        self.transfer_s = 0.0
+        self.device_source: str | None = None
+        # per-query EXPLAIN: captured on the request thread at enqueue
+        # (the worker has no request context); the dispatch plan is
+        # merged back into the request sink after the waiter wakes
+        self.explain_on = kernelscope.explain_enabled()
+        self.explain: dict | None = None
 
 
 class QueryBatcher:
@@ -113,7 +137,10 @@ class QueryBatcher:
     sparse operands (None = unavailable for this dispatch shape).
     ``pad_pow2`` pads drains to pow2 B/k buckets (bounded shapes for the
     device programs); a per-row host index like HNSW opts out (padded
-    rows would run real graph searches).
+    rows would run real graph searches). ``kind`` labels kernelscope's
+    per-variant residency (the shard passes the index's ``index_type``);
+    ``device`` is the card whose async dispatches are timed with CUDA
+    events (None or the CPU: the drain window).
     """
 
     def __init__(self, batch_fn, max_batch: int = 256,
@@ -121,11 +148,14 @@ class QueryBatcher:
                  capacity_fn=None, pad_pow2: bool = True,
                  owner: dict | None = None, async_batch_fn=None,
                  transfer_depth: int = 2,
-                 max_queue: int | None = None, hybrid_batch_fn=None):
+                 max_queue: int | None = None, hybrid_batch_fn=None,
+                 kind: str = "index", device=None):
         from weaviate_tpu_torch.runtime import hbm_ledger
 
         self._batch_fn = batch_fn
         self._hybrid_fn = hybrid_batch_fn
+        self.kind = str(kind)
+        self._device = device
         self._async_fn = async_batch_fn
         self._transfer: TransferPipeline | None = None
         self._transfer_depth = transfer_depth
@@ -137,6 +167,11 @@ class QueryBatcher:
         self.pad_pow2 = pad_pow2
         # device-memory ledger labels for the padded dispatch buffer
         self._hbm_owner = owner or hbm_ledger.current_owner()
+        # metering labels: one batcher serves one (shard, vector), so
+        # every request a dispatch coalesces shares these
+        self._meter_labels = (
+            str(self._hbm_owner.get("collection") or "-"),
+            str(self._hbm_owner.get("tenant") or "-"))
         # health key scoped to THIS batcher's owner: a healthy shard's
         # batch must not clear the flag a broken shard set
         scope = "/".join(str(v) for v in (
@@ -149,6 +184,9 @@ class QueryBatcher:
         self._queue: list[_Pending] = []
         self._worker: threading.Thread | None = None
         self._stopped = False
+        # queue depth after the last drain: the flight recorder's
+        # congestion signal
+        self._queue_depth_at_drain = 0
         # observability: tests and chip_smoke.py assert coalescing and
         # pipelining through these
         self.dispatches = 0
@@ -232,7 +270,9 @@ class QueryBatcher:
                                     item.t_mask_end or item.t_mask_start)
             tracing.record_span("batcher.execute", item.t_exec_start,
                                 item.t_exec_end or time.perf_counter(),
-                                batch=item.batch_size)
+                                batch=item.batch_size,
+                                **({"epochs": item.epochs}
+                                   if item.epochs else {}))
             if item.t_fetch_start is not None:
                 tracing.record_span("batcher.transfer", item.t_fetch_start,
                                     item.t_fetch_end or item.t_fetch_start)
@@ -250,6 +290,29 @@ class QueryBatcher:
 
                 batcher_transfer_duration.observe(
                     item.t_fetch_end - item.t_fetch_start)
+            # always-on phase attribution (tailboard), folded into this
+            # request's live timeline on the request thread: "device" is
+            # kernelscope's attributed residency, "transfer" the memcpy
+            # share; a dispatch that died before attribution keeps the
+            # wall split
+            tailboard.phase("queue_wait", item.t_exec_start - t_enqueue)
+            if item.device_s is not None:
+                tailboard.phase("device", item.device_s)
+                if item.transfer_s > 0:
+                    tailboard.phase("transfer", item.transfer_s)
+            elif item.t_fetch_start is not None:
+                tailboard.phase("device",
+                                item.t_fetch_start - item.t_exec_start)
+                tailboard.phase("transfer",
+                                (item.t_fetch_end or item.t_fetch_start)
+                                - item.t_fetch_start)
+            elif item.t_exec_end is not None:
+                tailboard.phase("device",
+                                item.t_exec_end - item.t_exec_start)
+        if item.explain is not None:
+            # fold the dispatch's plan into the request-level explain
+            # sink (installed by the REST/gRPC edge on THIS thread)
+            kernelscope.merge_into_request(item.explain)
         if item.error is not None:
             raise item.error
         return item.ids, item.dists
@@ -274,6 +337,7 @@ class QueryBatcher:
                     return
                 drained = self._queue[: self.max_batch]
                 del self._queue[: len(drained)]
+                self._queue_depth_at_drain = len(self._queue)
             try:
                 from weaviate_tpu_torch.runtime.metrics import \
                     batcher_batch_size
@@ -319,17 +383,43 @@ class QueryBatcher:
             else:
                 coal.append(it)
         for it in solo:
+            plan = {} if it.explain_on else None
             try:
                 it.t_exec_start = time.perf_counter()
-                ids, dists = tracing.run_in(
-                    it.ctx, self._batch_fn, it.query[None, :], it.k,
-                    it.allow)
+                with (kernelscope.explain_scope(plan) if plan is not None
+                      else contextlib.nullcontext()):
+                    ids, dists = tracing.run_in(
+                        it.ctx, self._batch_fn, it.query[None, :], it.k,
+                        it.allow)
                 it.ids, it.dists = ids[0], dists[0]
             except Exception as e:  # noqa: BLE001
                 it.error = e
             it.t_exec_end = time.perf_counter()
+            # a solo dispatch is a sync device call: wall-window
+            # attribution, metered against this batcher's owner
+            wall = max(0.0, it.t_exec_end - it.t_exec_start)
+            it.device_s, it.transfer_s, it.device_source = wall, 0.0, "wall"
+            kernelscope.record_dispatch(self.kind, 1, it.k, wall, "wall")
+            kernelscope.meter(*self._meter_labels, wall)
+            if plan is not None:
+                plan["batcher"] = {
+                    "batch": 1, "b_pad": 1, "k_bucket": it.k,
+                    "queue_depth": self._queue_depth_at_drain,
+                    "filtered": int(it.allow is not None), "solo": True,
+                    "async": False, "kind": self.kind}
+                it.explain = plan
             it.event.set()
         if not coal:
+            # a purely-solo drain still leaves a flight record (batch 0)
+            if solo:
+                tailboard.record_dispatch(
+                    "batcher", batch=0, b_pad=0, k=0,
+                    queue_depth=self._queue_depth_at_drain,
+                    wait_ms=round(max(
+                        ((it.t_exec_start or it.t_enqueue) - it.t_enqueue)
+                        * 1000.0 for it in solo), 3),
+                    filtered=len(solo), solo=len(solo),
+                    window_inflight=0, epochs=0)
             return
         b = len(coal)
         # pow2 B/k buckets; padded query rows are zero vectors whose
@@ -368,12 +458,49 @@ class QueryBatcher:
             batcher_filtered_batched.inc(len(filtered))
         # the shared dispatch runs under ONE waiter's trace context
         ctx = next((it.ctx for it in coal if it.ctx is not None), None)
+        # per-query EXPLAIN: the engine's host-side plan notes of THIS
+        # dispatch land in one shared sink when any waiter asked; explain
+        # never changes what is dispatched
+        plan = {} if any(it.explain_on for it in coal) else None
         t0 = time.perf_counter()
         for it in coal:
             it.t_exec_start = t0
             it.batch_size = b
             if filtered:
                 it.t_mask_start, it.t_mask_end = t_mask0, t_mask1
+        # flight-recorder dispatch record (lock-free ring); epochs is
+        # patched in once the async handle reports its fanout
+        tp0 = self._transfer
+        flight_rec = tailboard.record_dispatch(
+            "batcher", batch=b, b_pad=b_pad, k=k_bucket,
+            queue_depth=self._queue_depth_at_drain,
+            wait_ms=round(max(
+                (t0 - it.t_enqueue) * 1000.0 for it in coal), 3),
+            filtered=len(filtered), solo=len(solo),
+            window_inflight=tp0.inflight if tp0 is not None else 0,
+            epochs=0)
+
+        def _attribute(device_s: float, transfer_s: float, source: str,
+                       window_s: float | None = None):
+            """Kernelscope fold for this dispatch: stamp every waiter's
+            attribution, feed the per-variant residency EWMA and
+            histogram, patch the flight record, and meter the residency
+            apportioned over the coalesced requests (one batcher serves
+            one (shard, vector), so the tenant meter sees the whole
+            dispatch once)."""
+            device_s = max(0.0, device_s)
+            for it in coal:
+                it.device_s = device_s
+                it.transfer_s = max(0.0, transfer_s)
+                it.device_source = source
+            flight_rec["device_ms"] = round(device_s * 1000.0, 3)
+            flight_rec["t_source"] = source
+            if window_s is not None:
+                flight_rec["window_ms"] = round(window_s * 1000.0, 3)
+            kernelscope.record_dispatch(self.kind, b_pad, k_bucket,
+                                        device_s, source)
+            for share in kernelscope.apportion(device_s, [1.0] * len(coal)):
+                kernelscope.meter(*self._meter_labels, share)
         # the padded query block becomes a device upload inside batch_fn —
         # ledger-registered until the results leave the device
         from weaviate_tpu_torch.runtime.hbm_ledger import ledger as _hbm
@@ -394,8 +521,10 @@ class QueryBatcher:
 
         def _sync_batch():
             faultline.fire("batcher.dispatch", batch=b, k=k_bucket)
-            return tracing.run_in(ctx, self._batch_fn, queries, k_bucket,
-                                  allows)
+            with (kernelscope.explain_scope(plan) if plan is not None
+                  else contextlib.nullcontext()):
+                return tracing.run_in(ctx, self._batch_fn, queries,
+                                      k_bucket, allows)
 
         def _retry_once(first_err: BaseException):
             """Faulted device batch: ONE sync retry. A second failure
@@ -423,6 +552,36 @@ class QueryBatcher:
             if degrade.is_unhealthy(self._component):
                 degrade.mark_healthy(self._component)
 
+        timer = None
+
+        def _launch(fn, *args):
+            """One async launch, between a pooled pair of CUDA events on
+            the dispatching stream when on the card; the pair is kept
+            only when a handle came back (the drain reads it)."""
+            nonlocal timer
+            t = kernelscope.start_timer(self._device)
+            try:
+                with (kernelscope.explain_scope(plan) if plan is not None
+                      else contextlib.nullcontext()):
+                    h = tracing.run_in(ctx, fn, *args)
+            except BaseException:
+                if t is not None:
+                    t.release()
+                raise
+            if t is not None:
+                if h is None:
+                    t.release()
+                else:
+                    t.stop()
+                    timer = t
+            return h
+
+        def _release_timer():
+            nonlocal timer
+            if timer is not None:
+                timer.release()
+                timer = None
+
         handle = None
         ids = dists = None
         try:
@@ -434,8 +593,8 @@ class QueryBatcher:
                 # remainder re-dispatches normally
                 if self._hybrid_fn is not None:
                     faultline.fire("batcher.dispatch", batch=b, k=k_bucket)
-                    handle = tracing.run_in(ctx, self._hybrid_fn, queries,
-                                            k_bucket, allows, sparses)
+                    handle = _launch(self._hybrid_fn, queries, k_bucket,
+                                     allows, sparses)
                 if handle is None:
                     _hbm.release(pad_key)
                     err = DeviceHybridUnavailable(
@@ -459,11 +618,17 @@ class QueryBatcher:
                 # dispatch-and-go: launch, hand the handle to the transfer
                 # thread, return to drain the NEXT batch
                 faultline.fire("batcher.dispatch", batch=b, k=k_bucket)
-                handle = tracing.run_in(ctx, self._async_fn, queries,
-                                        k_bucket, allows)
+                handle = _launch(self._async_fn, queries, k_bucket, allows)
+            if handle is not None:
+                n_ep = int(handle.attrs.get("epochs", 0) or 0)
+                if n_ep:
+                    flight_rec["epochs"] = n_ep
+                    for it in coal:
+                        it.epochs = n_ep
             if handle is None:
                 ids, dists = _sync_batch()
         except Exception as e:  # noqa: BLE001
+            _release_timer()
             if hybrid:
                 # no sparse-aware sync retry exists — surface the fault
                 _fail(e)
@@ -473,9 +638,22 @@ class QueryBatcher:
                 return
             ids, dists = result
             handle = None
+        if plan is not None:
+            plan["batcher"] = {
+                "batch": b, "b_pad": b_pad, "k_bucket": k_bucket,
+                "queue_depth": self._queue_depth_at_drain,
+                "filtered": len(filtered), "hybrid": len(hybrid),
+                "solo": False, "async": handle is not None,
+                "kind": self.kind}
+            for it in coal:
+                if it.explain_on:
+                    it.explain = plan
         if handle is None:
             _hbm.release(pad_key)
-            self._deliver(coal, ids, dists, time.perf_counter())
+            t1 = time.perf_counter()
+            # a sync path: no drain stamps, the dispatch wall window
+            _attribute(t1 - t0, 0.0, "wall")
+            self._deliver(coal, ids, dists, t1)
             _mark_served()
             return
         self.async_dispatches += 1
@@ -495,12 +673,36 @@ class QueryBatcher:
         def _complete(res, err, t_fetch0, t_fetch1):
             for it in coal:
                 it.t_fetch_start, it.t_fetch_end = t_fetch0, t_fetch1
+            if err is not None:
+                _release_timer()
             if err is not None and hybrid:
                 # the sync retry path can't re-run a hybrid program (no
                 # sparse-operand slot) — deliver the fault
                 _fail(err)
                 return
             if err is None:
+                # the drain window: dispatch-submit (t0) .. transfer-
+                # complete (t_fetch1); the drain waited on this handle's
+                # copy anyway, so reading the residency adds no sync
+                window = t_fetch1 - t0
+                nbytes = kernelscope.result_nbytes(res)
+                if timer is not None:
+                    # on the card: the CUDA events' elapsed time (the copy
+                    # waited past the end event); a failed read raises to
+                    # the waiters, never a wall fallback
+                    try:
+                        dev_s = timer.elapsed_s()
+                    except Exception as e:  # noqa: BLE001
+                        _release_timer()
+                        _fail(e)
+                        return
+                    _release_timer()
+                    mem_s = min(kernelscope.memcpy_estimate(nbytes),
+                                max(0.0, window - dev_s))
+                else:
+                    # the window minus the sampled-memcpy EWMA
+                    dev_s, mem_s = kernelscope.attribute(window, nbytes)
+                _attribute(dev_s, mem_s, "drain", window)
                 _finish(res)
                 return
 
@@ -510,6 +712,8 @@ class QueryBatcher:
             def _retry_path():
                 res2 = _retry_once(err)
                 if res2 is not None:
+                    # served by the sync path: wall attribution
+                    _attribute(time.perf_counter() - t0, 0.0, "wall")
                     _finish(res2)
 
             threading.Thread(target=_retry_path, daemon=True,
@@ -522,6 +726,7 @@ class QueryBatcher:
                 batcher_overlapped.inc()
             tp.submit(handle, _complete, ctx=ctx)
         except Exception as e:  # noqa: BLE001 — stopped mid-shutdown
+            _release_timer()
             _fail(e)
 
     @staticmethod

@@ -10,14 +10,16 @@ of ``weaviate_tpu/runtime/tracing.py`` the flat query path calls).
   per request). The wait is a CUDA event recorded on the current stream
   and synchronized — the torch form of ``jax.block_until_ready``.
 - ``d2h`` is the one sanctioned device->host copy (``.cpu()``), under a
-  ``transfer.d2h`` span.
+  ``transfer.d2h`` span. On a sampled trace the device wait is timed
+  apart from the copy, and the copy's seconds feed kernelscope's memcpy
+  estimator.
 - ``propagate`` / ``capture`` / ``run_in`` carry the request context onto
   worker threads (contextvars do not flow into them).
 - Finished traces land in a ring (``recent_traces``, GET
   /v1/debug/traces), feed the tailboard's keep-at-completion decision and
   the structured slow-query log. The W3C traceparent helpers and remote
   segments of the JAX module ride the cluster transport (ROADMAP Queue 1
-  item 7).
+  item 7b).
 
 Every finished span also feeds the ``weaviate_tpu_span_duration_seconds``
 histogram (runtime/metrics.py).
@@ -418,11 +420,28 @@ def d2h(*values):
     n_arrays = sum(1 for v in values if v is not None)
     with span("transfer.d2h", arrays=n_arrays) as sp:
         cur = _current.get()
+        synced = False
         if cur is not None and cur[0].sampled and n_arrays:
             t0 = time.perf_counter()
             if _wait_device([v for v in values if v is not None]):
                 sp.set(device_ms=round((time.perf_counter() - t0) * 1000.0, 3))
-        return tuple(None if v is None else v.cpu().numpy() for v in values)
+            synced = True  # CPU tensors are computed when they exist
+        t_copy = time.perf_counter()
+        out = tuple(None if v is None else v.cpu().numpy() for v in values)
+        if synced:
+            # the device wait above already drained, so the copy here is
+            # (close to) pure memcpy — the one place the device/copy
+            # split of a transfer window is directly measurable;
+            # kernelscope's EWMA subtracts it from the CPU drain windows
+            try:
+                from weaviate_tpu_torch.runtime import kernelscope
+
+                kernelscope.observe_memcpy(
+                    time.perf_counter() - t_copy,
+                    sum(a.nbytes for a in out if a is not None))
+            except Exception:
+                pass
+    return out
 
 
 # -- cross-thread propagation -------------------------------------------------

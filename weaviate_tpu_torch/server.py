@@ -4,7 +4,7 @@
 Reference: cmd/weaviate-server/main.go → configure_api.go:456 — assemble
 config, auth, modules, DB, REST + gRPC + metrics listeners, then serve
 until signaled. The port serves one node: a cluster (``RAFT_JOIN`` with
-more than one member, ``CLUSTER_JOIN``; ROADMAP Queue 1 item 7) raises
+more than one member, ``CLUSTER_JOIN``; ROADMAP Queue 1 item 7b) raises
 instead of serving without its modules.
 
 The database's vectors live on ``device``: the CUDA card by default; a
@@ -29,7 +29,7 @@ logger = logging.getLogger("weaviate_tpu_torch.server")
 
 VERSION = "0.1.0"
 
-CLUSTER = "cluster mode: ROADMAP Queue 1 item 7"
+CLUSTER = "cluster mode: ROADMAP Queue 1 item 7b"
 
 
 class Server:
@@ -91,9 +91,12 @@ class Server:
         if len(cfg.raft_join) > 1 or cfg.cluster_join:
             raise NotImplementedError(
                 f"RAFT_JOIN / CLUSTER_JOIN: {CLUSTER}")
-        # The JAX server warms its persistent XLA compilation cache here
-        # (ensure_compile_cache). The port has no counterpart: its kernel
-        # build directory (build/torch_kernels) is its cache.
+        # the kernel build cache (build/torch_kernels) and its hit / miss
+        # / nvcc-duration metrics, before the first kernel launch
+        from weaviate_tpu_torch.runtime.compile_cache import \
+            ensure_compile_cache
+
+        ensure_compile_cache()
 
         from weaviate_tpu_torch.auth import AuthConfig, AuthStack
         from weaviate_tpu_torch.modules import default_provider
@@ -145,16 +148,20 @@ class Server:
         tailboard.configure(data_dir=data_dir,
                             enabled=cfg.tailboard_enabled,
                             slos_json=cfg.slo_config or None)
-        # kernelscope and driftwatch are configuration only in the port
-        # (their planes are ROADMAP Queue 1 item 8)
-        kernelscope.configure(data_dir=data_dir, keep=cfg.profile_keep)
+        # kernelscope: on-demand profile captures persist under
+        # <data_dir>/kernelscope, pruned to the last PROFILING_KEEP, and
+        # trace the serving device. driftwatch: history ring + sealed
+        # live baseline under <data_dir>/driftwatch; the cycle itself is
+        # registered by Database (start_cycles=True here runs it)
+        kernelscope.configure(data_dir=data_dir, keep=cfg.profile_keep,
+                              device=self.device)
         driftwatch.configure(data_dir=data_dir,
                              enabled=cfg.driftwatch_enabled,
                              interval=cfg.drift_interval_s)
 
         self.modules = default_provider(self.db, enabled=cfg.enabled_modules)
-        # the FROZEN tenant tier (OFFLOAD_BACKEND) needs tenants: the
-        # Database raises, naming item 7
+        # FROZEN tenant tier: ship offloaded tenants through a backup
+        # backend (reference: offload-s3 module + tenantactivity FROZEN)
         offload_name = os.environ.get("OFFLOAD_BACKEND", "")
         if offload_name:
             self.db.set_offload_backend(
@@ -212,12 +219,14 @@ class Server:
     def _start_profiler(self, port: int) -> bool:
         """Returns whether a profiler server was started.
         ``PROFILING_PORT=0`` (the default) means never. The JAX server
-        starts ``jax.profiler``'s server, best effort; the port has no
-        profiler server until ROADMAP Queue 1 item 8 and says so."""
+        starts ``jax.profiler``'s server; torch has no counterpart, so
+        the port starts none and says where captures are served: ``GET
+        /v1/debug/profile?ms=N`` runs a torch.profiler capture inline."""
         if not port:
             return False
-        logger.warning("PROFILING_PORT=%s: the port has no profiler server "
-                       "until ROADMAP Queue 1 item 8", port)
+        logger.info("PROFILING_PORT=%s: torch has no profiler server; "
+                    "kernel captures are served at /v1/debug/profile?ms=N",
+                    port)
         return False
 
     def _setup_logging(self) -> None:
