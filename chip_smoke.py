@@ -18,6 +18,7 @@ Run from the repository root:
     python3 chip_smoke.py --ann-only [--ann-rows N]  # phases 0-1 and 11 only
     python3 chip_smoke.py --mesh-only [--rows N]     # phases 0-1 and 12 only
     python3 chip_smoke.py --tenants-only             # phases 0-1 and 13 at 1,000 tenants
+    python3 chip_smoke.py --cluster-only [--rows N]  # phases 0-1 and 14 at 1,000,000 rows
 
 It drives the port's flat nearVector path at VectorDBBench's
 Performance768D1M case (Cohere wiki-22-12: 1,000,000 x 768, cosine,
@@ -173,7 +174,7 @@ is downloaded), in phases:
    fused_topk_pairs is held to its plain version and timed at the epoch
    merge's shapes [256 / 8, 8 x k], k = 10 and 100, beside torch.topk.
 
-11. ANN indexes, last, at the SIFT1M row of Weaviate's published ANN
+11. ANN indexes, in the second process (below), at the SIFT1M row of Weaviate's published ANN
    benchmark (1,000,000 x 128, l2-squared, maxConnections 32,
    efConstruction 128, limit 10; ``--ann-rows`` cuts the depth), 1,000
    queries (half near a row, half fresh), exact answers in f64 on the
@@ -201,7 +202,7 @@ is downloaded), in phases:
    in-process ones. 11a must launch fused_topk_scan and fused_topk_pairs,
    11b distance_block and fused_topk_pairs.
 
-12. mesh, last: row-sharded serving (weaviate_tpu_torch/parallel) on the
+12. mesh, in the second process after phase 11: row-sharded serving (weaviate_tpu_torch/parallel) on the
    card, whose mesh repeats it: 8 row shards on cuda:0, each with its own
    tensors and its own scan, then the real merge. 12a: phase 3's corpus
    (1M x 768 cosine, 10,000 deleted) in a FlatIndex on the 8-shard 1-D
@@ -251,7 +252,46 @@ is downloaded), in phases:
    (compile_cache_events: all hits, no miss). The served traffic must
    launch distance_block, fused_topk_scan and fused_topk_pairs.
 
-Phases 5, 6, 7, 8, 9a, 9b, 9c, 10, 11, 12 and 13 each reset the launch counters as they start
+14. the cluster, last: three ClusterNodes in this process (node-0, node-1,
+   node-2; real sockets on port 0, real gossip and Raft, every store on
+   the card) hold a Performance768D1M collection (768-d cosine flat,
+   desired_count 3, replication factor 1) between them. 14a imports
+   through node-0's batch_put for at most 20 s (``--cluster-only``: all
+   1,000,000 rows), two thirds of each batch crossing the internal
+   transport, and the same sequential batches into a one-node Database
+   on the same card with the same shard names (same routing, same doc
+   ids). 14b: 8 GraphQL clients of nearVector k 100 (32 queries a run;
+   ``--cluster-only`` 256) through node-0's REST, without and with where(views >= 90), then a few through node-1
+   and node-2 and a pass under selection "fused": ids (tie-aware) and
+   distances bit for bit the reference's, object_count, an aggregation
+   and the batched object fetch equal, QPS / p50 / p99 beside the
+   reference's over the same route; distance_block, fused_topk_pairs and
+   fused_topk_scan must launch and every node's batcher must serve. 14c
+   splits one traced query, stitched from the remote segments, into the
+   remote hop, the owning node's batcher and kernels, and the merge, and
+   prints the bytes of one remote search reply. 14d: an epoch-backed
+   collection (4 sealed epochs of 2,048 rows, ``--cluster-only`` 65,536)
+   whose shard on node-0 passes its quota. Each node reads its own
+   shards' device bytes: while node-1 is made to read heavier than node-0
+   nothing may move; then the epoch policy ships node-0's coldest sealed
+   epoch to the sibling shard on node-1 over the shard RPC; every
+   acknowledged write is held exactly once and the answers
+   before and after are equal bit for bit. 14e: a schema write through a
+   follower, timed; the leader node stops, the survivors elect within
+   10 s and commit a schema write, and a nearVector through a survivor
+   answers with the missing_shard marker, equal bit for bit to the
+   reference restricted to the survivors' shards.
+
+Phases 11 and 12 read nothing of phases 3 to 10, so they run in a second
+process on the same card (the hidden ``--lane`` mode), started when phase
+2 ends and joined after phase 8; its lines are printed when it ends, with
+a line saying how long it ran beside the first. Phase 2's kernel times,
+which the kernels line reports, are taken before it starts, and phases 13
+and 14 after it ends; the times of phases 3 to 12 are taken with both
+processes on the card and the host's cores (``--ann-only`` and
+``--mesh-only`` run phases 11 and 12 alone).
+
+Phases 5, 6, 7, 8, 9a, 9b, 9c, 10, 11, 12, 13 and 14 each reset the launch counters as they start
 and read them as they end: every kernel in QUANT_KERNELS must have run in
 phases 5 and 6, and ``bm25_block`` and ``distance_block`` in phase 7,
 whose run (d) must launch ``fused_topk_scan``.
@@ -375,6 +415,18 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+PHASE_SECONDS: dict = {}  # phase -> wall seconds, for the closing line
+
+
+def timed(phase: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its wall seconds kept in PHASE_SECONDS."""
+    t = time.perf_counter()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        PHASE_SECONDS[phase] = time.perf_counter() - t
+
+
 # -- data ---------------------------------------------------------------------
 
 def centers(seed: int) -> np.ndarray:
@@ -389,6 +441,19 @@ def clustered(seed: int, start: int, count: int, cent: np.ndarray) -> np.ndarray
     assign = rng.integers(0, len(cent), count)
     scale = rng.uniform(0.3, 1.2, (count, 1)).astype(np.float32)
     return cent[assign] + scale * rng.standard_normal((count, DIM), dtype=np.float32)
+
+
+_CORPUS_BATCHES: dict = {}  # (seed, start, count) -> corpus_batch's rows
+
+
+def corpus_batch(seed: int, start: int, count: int) -> np.ndarray:
+    """``clustered(seed, start, count, centers(seed))``, made once a run:
+    phases 2, 3, 5 and 12 read the same 1M-row corpus (3 GB on the host),
+    which takes the host seconds to draw each time."""
+    key = (seed, start, count)
+    if key not in _CORPUS_BATCHES:
+        _CORPUS_BATCHES[key] = clustered(seed, start, count, centers(seed))
+    return _CORPUS_BATCHES[key]
 
 
 def near_queries(seed: int, rows: np.ndarray, corpus_fn, noise: float = 0.3) -> np.ndarray:
@@ -471,11 +536,10 @@ def _bound_text(o: dict) -> str:
 def scan_corpus(torch, seed: int, n: int = 1 << 20):
     """The full capacity of the 1M-row store on the card: unit rows of
     the clustered corpus, f32."""
-    cent = centers(seed)
     X = torch.empty((n, DIM), dtype=torch.float32, device="cuda")
     for s in range(0, n, ADD_BATCH):
         X[s:s + ADD_BATCH] = torch.nn.functional.normalize(
-            torch.from_numpy(clustered(seed, s, ADD_BATCH, cent)).to("cuda"), dim=1)
+            torch.from_numpy(corpus_batch(seed, s, ADD_BATCH)).to("cuda"), dim=1)
     return X
 
 
@@ -1942,14 +2006,13 @@ def phase_index(torch, seed: int, rows: int) -> dict:
     from weaviate_tpu_torch.engine.flat import FlatIndex
 
     dev = "cuda"
-    cent = centers(seed)
     rng = np.random.default_rng([seed, 3])
     idx = FlatIndex(dim=DIM, metric=METRIC, chunk_size=CHUNK, device=dev)
     ref = torch.empty((rows, DIM), dtype=torch.float32, device=dev)
     corpus = np.empty((rows, DIM), dtype=np.float32)
     t0 = time.perf_counter()
     for s in range(0, rows, ADD_BATCH):
-        v = clustered(seed, s, min(ADD_BATCH, rows - s), cent)
+        v = corpus_batch(seed, s, min(ADD_BATCH, rows - s))
         corpus[s:s + len(v)] = v
         idx.add_batch(np.arange(s, s + len(v)), v)
         ref[s:s + len(v)] = torch.nn.functional.normalize(torch.from_numpy(v).to(dev), dim=1)
@@ -2293,10 +2356,9 @@ def phase_quantized_index(torch, K, seed: int, rows: int) -> dict:
     from weaviate_tpu_torch.ops.distances import normalize_np
 
     dev = "cuda"
-    cent = centers(seed)
     rng = np.random.default_rng([seed, 5])
     # made once on the host (3 GB at 1M rows) and added to all three indexes
-    corpus = np.concatenate([clustered(seed, s, min(ADD_BATCH, rows - s), cent)
+    corpus = np.concatenate([corpus_batch(seed, s, min(ADD_BATCH, rows - s))
                              for s in range(0, rows, ADD_BATCH)])
     ref = torch.empty((rows, DIM), dtype=torch.float32, device=dev)
     for s in range(0, rows, ADD_BATCH):
@@ -4937,12 +4999,11 @@ def _mesh_build(torch, seed: int, rows: int, meshes: dict):
     from weaviate_tpu_torch.ops import pq as pq_ops
     from weaviate_tpu_torch.ops.distances import normalize_np
 
-    cent = centers(seed)
     common = dict(dim=DIM, metric=METRIC, chunk_size=CHUNK, capacity=rows)
     flat = {"one buffer": FlatIndex(device="cuda", **common)}
     flat.update({name: FlatIndex(mesh=m, **common) for name, m in meshes.items()})
     t0 = time.perf_counter()
-    train = normalize_np(np.concatenate([clustered(seed, s, ADD_BATCH, cent)
+    train = normalize_np(np.concatenate([corpus_batch(seed, s, ADD_BATCH)
                                          for s in (0, ADD_BATCH)]))
     cb = pq_ops.pq_fit(train, m=pq_ops.default_pq_segments(DIM, 16), k=16,
                        device="cuda")
@@ -4956,7 +5017,7 @@ def _mesh_build(torch, seed: int, rows: int, meshes: dict):
     spent = dict.fromkeys(list(flat) + [f"{q} {n}" for q, n in quant], 0.0)
     t0 = time.perf_counter()
     for s in range(0, rows, ADD_BATCH):
-        v = clustered(seed, s, min(ADD_BATCH, rows - s), cent)
+        v = corpus_batch(seed, s, min(ADD_BATCH, rows - s))
         ids = np.arange(s, s + len(v))
         for name, idx in list(flat.items()) + [(f"{q} {n}", i) for (q, n), i in quant.items()]:
             t1 = time.perf_counter()
@@ -5626,6 +5687,611 @@ def phase_tenants(torch, K, seed: int, n_tenants: int, rows: int = TENANT_ROWS,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- phase 14: the cluster ----------------------------------------------------------
+
+CLUSTER_NODES = ("node-0", "node-1", "node-2")
+CLUSTER_SHARDS = 3
+# the default run's sizes keep phase 14 within about 60 s: the script ran
+# 1,134 s of its 1,200 s before it; --cluster-only runs the full sizes
+CLUSTER_BUDGET_S = 20.0     # the default run's import through node-0
+CLUSTER_QUERIES = 32        # each REST run: 8 clients x 4 (--cluster-only: 8 x 32)
+CLUSTER_ONLY_QUERIES = CLIENTS * CALLS
+CLUSTER_SIDE = 2            # through node-1 and node-2 each, one of them filtered
+CLUSTER_FUSED = 8           # the second pass, selection "fused"
+CLUSTER_K = 100
+CLUSTER_EPOCHS = 4          # sealed epochs of 14d's source shard
+CLUSTER_EPOCH_ROWS = 2048   # the default run's; --cluster-only: 65,536
+CLUSTER_EPOCH_ONLY_ROWS = 65_536
+CLUSTER_EPOCH_SIBLING = 2048  # rows of 14d's sibling shard of its own
+CLUSTER_EPOCH_Q = 8
+CLUSTER_DEGRADED_Q = 4      # 14e's nearVector through a survivor
+CLUSTER_ELECT_S = 10.0      # survivors elect a leader within this
+CLUSTER_RPC_S = 120.0       # per-attempt ceiling of a shard RPC (14d's ingest)
+CLUSTER_KERNELS = ("distance_block", "fused_topk_pairs", "fused_topk_scan")
+
+
+def _cluster_config(name: str, epoch_rows: int = 0, shards: int = CLUSTER_SHARDS):
+    from weaviate_tpu_torch.schema.config import (CollectionConfig, Property,
+                                                  ShardingConfig, VectorConfig,
+                                                  VectorIndexConfig)
+
+    return CollectionConfig(
+        name=name,
+        properties=[Property(name="category", data_type="text"),
+                    Property(name="views", data_type="int")],
+        vectors=[VectorConfig(index=VectorIndexConfig(
+            index_type="flat", metric=METRIC, epoch_rows=epoch_rows))],
+        sharding=ShardingConfig(desired_count=shards))
+
+
+def _cluster_boot(base: str, dev: str) -> list:
+    """Three ClusterNodes in this process: real sockets on port 0, real
+    gossip and Raft, every store on ``dev``."""
+    from weaviate_tpu_torch.cluster import ClusterNode
+
+    nodes = [ClusterNode(n, os.path.join(base, n), raft_peers=list(CLUSTER_NODES),
+                         gossip_interval=0.1, election_timeout=(0.3, 0.6),
+                         remote_timeout=CLUSTER_RPC_S, device=dev)
+             for n in CLUSTER_NODES]
+    for n in nodes:
+        n.membership.join([p.address for p in nodes])
+    for n in nodes:
+        n.start()
+        # each node's cycles would run the process-wide driftwatch registry,
+        # every node's canaries three times over (one process a node runs
+        # its own); phase 13 drives driftwatch
+        n.db.cycles.unregister("driftwatch")
+    for n in nodes:
+        n.raft.wait_for_leader(timeout=20.0)
+    return nodes
+
+
+def _cluster_wait(cond, timeout: float, what: str) -> float:
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        if cond():
+            return time.perf_counter() - t0
+        time.sleep(0.01)
+    raise AssertionError(f"phase 14: timed out waiting for {what}")
+
+
+def _cluster_schema(fn, done, what: str) -> None:
+    """A schema write, retried while leadership moves under it; a propose
+    that timed out after it committed shows up as ``done()``."""
+    last = None
+    for _ in range(5):
+        try:
+            fn()
+            return
+        except Exception as e:  # noqa: BLE001 — a leader change, retried
+            last = e
+            if done():
+                return
+            time.sleep(0.2)
+    raise AssertionError(f"phase 14: {what} failed: {last}")
+
+
+def _cluster_rows(seed: int, start: int, n: int, cent, prefix: int) -> list:
+    v = clustered(seed, start, n, cent)
+    views = np.random.default_rng([seed, start, 14]).integers(0, 100, n)
+    return [{"uuid": _uuid(prefix, start + i),
+             "properties": {"category": f"cat{(start + i) % 100}", "views": int(views[i])},
+             "vector": v[i]} for i in range(n)]
+
+
+def _gql_answers(out: list) -> tuple:
+    ids = np.asarray([[int(h["_additional"]["id"].rsplit("-", 1)[1]) for h in res]
+                      for res in out])
+    dists = np.asarray([[h["_additional"]["distance"] for h in res] for res in out])
+    return ids, dists
+
+
+def _same_cluster_answers(got: list, want: list, what: str) -> None:
+    """ids through tie_aware_mismatches, distances bit for bit."""
+    if [len(r) for r in got] != [len(r) for r in want]:
+        raise AssertionError(f"phase 14 {what}: answer lengths differ")
+    ai, ad = _gql_answers(got)
+    bi, bd = _gql_answers(want)
+    bad = tie_aware_mismatches(ai, ad, bi, bd)
+    if bad or not np.array_equal(ad, bd) or not np.isfinite(ad).all():
+        raise AssertionError(f"phase 14 {what}: {bad} id mismatches, distances "
+                             f"equal {np.array_equal(ad, bd)}")
+
+
+def _equal_hits(got: list, want: list) -> bool:
+    """Two answers as (uuid, distance[, properties]) lists, bit for bit."""
+    return got == want
+
+
+def _dispatches(nodes, name: str) -> dict:
+    out = {}
+    for n in nodes:
+        col = n.db.collections.get(name)
+        out[n.name] = sum(b.dispatches for s in (col.shards.values() if col else ())
+                          for b in s._query_batchers.values())
+    return out
+
+
+def _trace_split(trace: dict) -> str:
+    """One traced query's spans: the remote hop (rpc.client less the owning
+    node's shard.vector_search: encode, socket, decode, handler), the
+    owning node's batcher and kernels (its shard.vector_search, and the
+    batcher's wait / execute / transfer in it), and the merge (the query
+    less its slowest leg)."""
+    spans = trace["spans"]
+    by_parent: dict = {}
+    for s in spans:
+        by_parent.setdefault(s.get("parent_id"), []).append(s)
+
+    def below(s, name):
+        out, todo = [], [s]
+        while todo:
+            x = todo.pop()
+            for c in by_parent.get(x["span_id"], []):
+                if c["name"] == name:
+                    out.append(c)
+                todo.append(c)
+        return out
+
+    query = next(s for s in spans if s["name"] == "query.vector")
+    legs = []
+    for c in below(query, "rpc.client"):
+        sv = below(c, "shard.vector_search")
+        serve = sum(x["duration_ms"] for x in sv)
+        parts = {n: sum(x["duration_ms"] for x in below(c, n))
+                 for n in ("batcher.wait", "batcher.execute", "batcher.transfer")}
+        legs.append((c["duration_ms"], c["duration_ms"] - serve, serve, parts,
+                     c["attrs"].get("addr")))
+    local = [s for s in below(query, "shard.vector_search") if not s["attrs"].get("remote")]
+    slowest = max([x[0] for x in legs] + [s["duration_ms"] for s in local])
+    text = [f"query {query['duration_ms']:.2f} ms"]
+    for total, hop, serve, parts, addr in legs:
+        text.append(f"remote leg {total:.2f} ms = hop {hop:.2f} ms + owning node "
+                    f"{serve:.2f} ms (batcher wait {parts['batcher.wait']:.2f}, execute "
+                    f"{parts['batcher.execute']:.2f}, transfer "
+                    f"{parts['batcher.transfer']:.2f})")
+    for s in local:
+        text.append(f"local leg {s['duration_ms']:.2f} ms")
+    text.append(f"merge and the rest {query['duration_ms'] - slowest:.2f} ms")
+    return "; ".join(text)
+
+
+def phase_cluster(torch, K, seed: int, rows: int, budget_s: float, epoch_rows: int,
+                  nq: int = CLUSTER_QUERIES, dev: str = "cuda") -> dict:
+    """14: three ClusterNodes hold a Performance768D1M collection between
+    them; every answer is held to a one-node Database on the same card."""
+    from weaviate_tpu_torch.api.client import Client
+    from weaviate_tpu_torch.api.rest import RestServer
+    from weaviate_tpu_torch.cluster import transport
+    from weaviate_tpu_torch.db import Database
+    from weaviate_tpu_torch.db.collection import Collection, SearchResult
+    from weaviate_tpu_torch.db.sharding import ShardingState
+    from weaviate_tpu_torch.runtime import degrade, tracing
+    from weaviate_tpu_torch.runtime.hbm_ledger import ledger
+    from weaviate_tpu_torch.schema.config import Property
+
+    smi = _smi_line() if dev == "cuda" else "cpu"
+    base = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    nodes, closed, ref, rsrv = [], set(), None, None
+    paused = contextlib.ExitStack()
+    # the reference's class has its own name (the ledger keys its bytes by
+    # collection and shard) and the same shard names as the cluster's
+    name, rname, ename = "Cluster768", "Cluster768Ref", "ClusterEpochs"
+    try:
+        t0 = time.perf_counter()
+        nodes = _cluster_boot(base, dev)
+        boot_s = time.perf_counter() - t0
+        ref = Database(os.path.join(base, "ref"), device=dev)
+        _cluster_schema(lambda: nodes[0].create_collection(_cluster_config(name)),
+                        lambda: name in nodes[0].db.collections, "create_collection")
+        _cluster_wait(lambda: all(name in n.db.collections for n in nodes), 20.0,
+                      "the collection on every node")
+        ref.create_collection(_cluster_config(rname))
+        col = nodes[0].get_collection(name)
+        rcol = ref.get_collection(rname)
+        owner = {s: col.sharding.nodes_for(s)[0] for s in col.sharding.shard_names}
+        if sorted(owner.values()) != sorted(CLUSTER_NODES):
+            raise AssertionError(f"phase 14: shards not spread over the nodes: {owner}")
+
+        # 14a: the import, the same sequential batches into both
+        cent = centers(seed + 14)
+        done, cl_s, ref_s, crossed, first = 0, 0.0, 0.0, 0, None
+        while done < rows and cl_s < budget_s:
+            n = min(IMPORT_BATCH, rows - done)
+            batch = _cluster_rows(seed + 14, done, n, cent, 1400)
+            if first is None:
+                first = np.stack([o["vector"] for o in batch])
+            crossed += sum(owner[col.sharding.shard_for(o["uuid"])] != "node-0"
+                           for o in batch)
+            t1 = time.perf_counter()
+            res = col.batch_put(batch)
+            cl_s += time.perf_counter() - t1
+            t1 = time.perf_counter()
+            rres = rcol.batch_put(batch)
+            ref_s += time.perf_counter() - t1
+            if any(r["status"] != "SUCCESS" for r in res + rres):
+                raise AssertionError(f"phase 14: batch_put failed: {res[0]} {rres[0]}")
+            done += n
+        cut = "" if done == rows else (f" (cut from {rows}: the import budget of "
+                                       f"{budget_s:.0f} s ran out)")
+        per_node = {n.name: sum(s.object_count() for s in n.get_collection(name).shards.values())
+                    for n in nodes}
+        log(f"phase 14a cluster import [{smi}]: 3 nodes booted in {boot_s:.2f} s; {done} rows"
+            f"{cut} through node-0's batch_put in {cl_s:.1f} s ({done / cl_s:.0f} rows/s), "
+            f"{crossed} of them ({crossed / done:.1%}) over the internal transport; the "
+            f"one-node reference took the same batches in {ref_s:.1f} s "
+            f"({done / ref_s:.0f} rows/s); rows a node {per_node}")
+        if col.object_count() != done or rcol.object_count() != done \
+                or sum(per_node.values()) != done:
+            raise AssertionError(f"phase 14: object counts {col.object_count()} / "
+                                 f"{rcol.object_count()} / {per_node} != {done}")
+
+        # 14b: answers through REST, held bit for bit to the reference's. The
+        # nodes' background cycles (LSM flush and compaction after the
+        # import) wait while 14b and 14c measure, as the reference's
+        # Database runs none; a cycle in flight finishes first
+        t_part = time.perf_counter()
+        for n in nodes:
+            paused.enter_context(n.db.cycles.pause())
+        pause_s = time.perf_counter() - t_part
+        for n in nodes:
+            n.serve_rest()
+        rsrv = RestServer(ref)
+        rsrv.start()
+        clients = [Client(n.rest.address) for n in nodes]
+        rclient = Client(rsrv.address)
+        rng = np.random.default_rng([seed, 14])
+        queries = near_queries(seed + 14, rng.integers(0, len(first), nq),
+                               lambda r: first[r])
+
+        def asker(client, filtered, cls=name):
+            q = _near_gql(CLUSTER_K, filtered) % cls
+            return lambda i: _gql(client, q, {"v": queries[i].tolist()})
+
+        def set_selection(selection):
+            for c in [n.get_collection(name) for n in nodes] + [rcol]:
+                for s in c.shards.values():
+                    s.vector_indexes[""].store.selection = selection
+
+        nf = CLUSTER_FUSED
+        want, timings = {}, {}
+        for filtered in (False, True):  # the reference first: its launches do not count
+            want[filtered], lat, wall = _run_clients(asker(rclient, filtered, rname), nq)
+            timings[("ref", filtered)] = _timed_text(lat, wall, nq)
+        set_selection("fused")
+        want["fused"] = [asker(rclient, i % 2 == 1, rname)(i) for i in range(nf)]
+        set_selection("approx")
+        before = _dispatches(nodes, name)
+        K.reset_launch_counts()  # the cluster's run starts here
+        got = {}
+        for filtered in (False, True):
+            got[filtered], lat, wall = _run_clients(asker(clients[0], filtered), nq)
+            timings[("cluster", filtered)] = _timed_text(lat, wall, nq)
+        side = {}
+        for c in (1, 2):
+            side[c] = [asker(clients[c], i % 2 == 1)(i) for i in range(CLUSTER_SIDE)]
+        set_selection("fused")
+        got["fused"] = [asker(clients[0], i % 2 == 1)(i) for i in range(nf)]
+        set_selection("approx")
+        counts = dict(K.launch_counts)  # ... and ends here
+        after = _dispatches(nodes, name)
+        for filtered in (False, True):
+            _same_cluster_answers(got[filtered], want[filtered],
+                                  "filtered" if filtered else "unfiltered")
+        for c in (1, 2):
+            ref_side = [want[i % 2 == 1][i] for i in range(CLUSTER_SIDE)]
+            _same_cluster_answers(side[c], ref_side, f"through node-{c}")
+        _same_cluster_answers(got["fused"], want["fused"], "selection fused")
+        served = {k: after[k] - before[k] for k in after}
+        if dev == "cuda":
+            for kname in CLUSTER_KERNELS:
+                if counts[kname] <= 0:
+                    raise AssertionError(f"{kname} was not launched in phase 14")
+        if any(v <= 0 for v in served.values()):
+            raise AssertionError(f"phase 14: a node's batcher served nothing: {served}")
+        # object_count, an aggregation and the batched fetch
+        agg, ragg = col.aggregate(properties=["views"]), rcol.aggregate(properties=["views"])
+        if agg != ragg:
+            raise AssertionError(f"phase 14: aggregate {agg} != {ragg}")
+        hits = col.near_vector(queries[0], k=CLUSTER_K, include_objects=False)
+        t1 = time.perf_counter()
+        col._attach_objects(hits)
+        fetch_ms = (time.perf_counter() - t1) * 1e3
+        rhits = rcol.near_vector(queries[0], k=CLUSTER_K)
+        if not _equal_hits([(r.uuid, r.distance, r.object.properties) for r in hits],
+                           [(r.uuid, r.distance, r.object.properties) for r in rhits]):
+            raise AssertionError("phase 14: the batched fetch differs from the reference")
+        log(f"phase 14b cluster answers [{smi}]: GraphQL nearVector k={CLUSTER_K} from "
+            f"{CLIENTS} clients through node-0's REST, ids (tie-aware) and distances bit for "
+            f"bit the one-node reference's: unfiltered {timings[('cluster', False)]} "
+            f"(reference {timings[('ref', False)]}); where(views >= {VIEWS_CUT}) "
+            f"{timings[('cluster', True)]} (reference {timings[('ref', True)]}); "
+            f"{CLUSTER_SIDE} each through node-1 and node-2 and {nf} under selection "
+            f"\"fused\" equal too; object_count {col.object_count()}, aggregate(views) "
+            f"and the batched fetch of {len(hits)} objects ({fetch_ms:.1f} ms) equal; "
+            f"launches {counts}; batcher dispatches a node {served} "
+            f"({time.perf_counter() - t_part:.1f} s, {pause_s:.1f} s of it waiting for the "
+            "nodes' cycles in flight)")
+
+        # 14c: where one query's time goes, from its stitched trace
+        with tracing.trace("cluster.nearVector", force=True):
+            col.near_vector(queries[1], k=CLUSTER_K, include_objects=False)
+        split = _trace_split(tracing.recent_traces(1)[0])
+        rshard = next(s for s, o in owner.items() if o != "node-0")
+        items = col.remote.search_shard(owner[rshard], name, rshard, vector=queries[1],
+                                        k=CLUSTER_K, include_objects=False)
+        items_obj = col.remote.search_shard(owner[rshard], name, rshard,
+                                            vector=queries[1], k=CLUSTER_K)
+        nbytes = len(transport.dumps({"results": items}))
+        nbytes_obj = len(transport.dumps({"results": items_obj}))
+        log(f"phase 14c where the time goes [{smi}]: one traced nearVector k={CLUSTER_K} "
+            f"through node-0: {split}; one remote search reply {nbytes} bytes "
+            f"({nbytes_obj} with the objects)")
+
+        paused.close()
+
+        # 14d: the cross-node epoch migration under a quota
+        t_part = time.perf_counter()
+        src_node, dst_node = nodes[0], nodes[1]
+        state = ShardingState(shard_names=["shard-0", "shard-1"],
+                              placement={"shard-0": [src_node.name],
+                                         "shard-1": [dst_node.name]})
+        _cluster_schema(lambda: src_node.create_collection(
+            _cluster_config(ename, epoch_rows=epoch_rows, shards=2),
+            sharding_state=ShardingState.from_dict(state.to_dict())),
+            lambda: ename in src_node.db.collections, "the epoch collection")
+        _cluster_wait(lambda: all(ename in n.db.collections for n in nodes), 20.0,
+                      "the epoch collection on every node")
+        ecol = src_node.get_collection(ename)
+        want_src = CLUSTER_EPOCHS * epoch_rows
+        ecent = centers(seed + 15)
+        acked, n_src, n_dst, start = [], 0, 0, 0
+        t1 = time.perf_counter()
+        while n_src < want_src or n_dst < CLUSTER_EPOCH_SIBLING:
+            batch = _cluster_rows(seed + 15, start, IMPORT_BATCH, ecent, 1500)
+            start += IMPORT_BATCH
+            keep = []
+            for o in batch:
+                if ecol.sharding.shard_for(o["uuid"]) == "shard-0":
+                    if n_src < want_src:
+                        keep.append(o)
+                        n_src += 1
+                elif n_dst < CLUSTER_EPOCH_SIBLING:
+                    keep.append(o)
+                    n_dst += 1
+            res = ecol.batch_put(keep)
+            if any(r["status"] != "SUCCESS" for r in res):
+                raise AssertionError(f"phase 14d: batch_put failed: {res[0]}")
+            acked += [o["uuid"] for o in keep]
+        eimport_s = time.perf_counter() - t1
+        src = ecol.shards["shard-0"]
+        es = src.vector_indexes[""].epoch_store
+        es.seal_active()
+        dst_shard = dst_node.get_collection(ename).shards["shard-1"]
+        eq = near_queries(seed + 15, rng.integers(0, len(first), CLUSTER_EPOCH_Q),
+                          lambda r: first[r])
+        answers_before = [[(r.uuid, r.distance) for r in
+                           ecol.near_vector(q, k=CLUSTER_K, include_objects=False)]
+                          for q in eq]
+
+        def node_bytes():
+            # the three nodes share this process's ledger, so each node's
+            # reading (the source's own and its peers') is the bytes of the
+            # epoch collection's shards it owns: the big collection's shards
+            # weigh the same on every node but for the power-of-two steps of
+            # their stores, which would decide the choice by chance
+            return {n.name: sum(ledger.shard_bytes(ename, s)
+                                for s in n.get_collection(ename).shards)
+                    for n in nodes if n.name not in closed}
+
+        moved_before, dst_before = es.migrations_total, dst_shard.object_count()
+        src_bytes = ledger.shard_bytes(ename, "shard-0")
+        own = node_bytes()
+        if own[dst_node.name] >= own[src_node.name]:
+            raise AssertionError(f"phase 14d: node-1 reads {own[dst_node.name]} bytes, not "
+                                 f"under node-0's {own[src_node.name]}")
+        with src_node.db.cycles.pause():
+            src.shard_hbm_limit = 1  # past its watermark: the epoch policy moves
+            src_node.db.local_hbm_provider = lambda: node_bytes()[src_node.name]
+            try:
+                # the only remote sibling's node reads heavier: nothing moves
+                src_node.db.node_hbm_provider = lambda: {
+                    **node_bytes(), dst_node.name: node_bytes()[src_node.name] + 1}
+                src_node.db._epoch_cycle()
+                if es.migrations_total != moved_before or src._migrated_count \
+                        or dst_shard.object_count() != dst_before:
+                    raise AssertionError("phase 14d: an epoch moved to a heavier node")
+                src_node.db.node_hbm_provider = node_bytes
+                t1 = time.perf_counter()
+                with tracing.trace("cluster.migrate", force=True):
+                    src_node.db._epoch_cycle()
+                mig_s = time.perf_counter() - t1
+            finally:
+                src.shard_hbm_limit = 0
+                src_node.db.node_hbm_provider = src_node._gossiped_hbm
+                src_node.db.local_hbm_provider = None
+        mig_spans = tracing.recent_traces(1)[0]["spans"]
+        ingest = [x for x in mig_spans if x["name"] == "rpc.client"
+                  and x["attrs"].get("path", "").endswith("/objects")]
+        served = [x for x in mig_spans if x["name"] == "rpc.server"
+                  and x["attrs"].get("remote")]
+        mig_split = (f"the ingest RPC {sum(x['duration_ms'] for x in ingest):.0f} ms, "
+                     f"node-1's handler {sum(x['duration_ms'] for x in served):.0f} ms "
+                     "of it") if ingest else "no ingest span"
+        moved = dst_shard.object_count() - dst_before
+        if es.migrations_total != moved_before + 1 or moved <= 0:
+            raise AssertionError(f"phase 14d: {es.migrations_total - moved_before} "
+                                 f"migrations, {moved} rows on node-1's shard-1")
+        answers_after = [[(r.uuid, r.distance) for r in
+                          ecol.near_vector(q, k=CLUSTER_K, include_objects=False)]
+                         for q in eq]
+        if not all(_equal_hits(a, b) for a, b in zip(answers_after, answers_before)):
+            raise AssertionError("phase 14d: answers after the migration differ")
+        src_ids = set(src._doc_to_uuid.values())
+        dst_ids = set(dst_shard._doc_to_uuid.values())
+        if src_ids & dst_ids or (src_ids | dst_ids) != set(acked) \
+                or len(src_ids) + len(dst_ids) != len(acked):
+            raise AssertionError("phase 14d: an acknowledged write is not held exactly once")
+        migrated = [u for u in acked if src.migrated_to(u) == "shard-1"]
+        if len(migrated) != moved:
+            raise AssertionError(f"phase 14d: {len(migrated)} routing markers for {moved} "
+                                 "rows moved")
+        for u in migrated[::max(1, len(migrated) // 256)]:
+            obj = ecol.get_object(u)
+            if obj is None or obj.uuid != u:
+                raise AssertionError(f"phase 14d: migrated {u} does not read back")
+        if ecol.object_count() != len(acked):
+            raise AssertionError("phase 14d: object_count after the migration")
+        log(f"phase 14d cross-node epoch migration [{smi}]: {len(acked)} rows ({n_src} on "
+            f"node-0's shard-0 in {CLUSTER_EPOCHS} sealed epochs of {epoch_rows}, {n_dst} on "
+            f"node-1's shard-1) imported in {eimport_s:.1f} s; shard-0 over its quota: with "
+            f"node-1 reading heavier than node-0 nothing moved; with the nodes' own readings "
+            f"(node-0 {own[src_node.name]}, node-1 {own[dst_node.name]} bytes) the "
+            f"epoch policy moved one epoch ({moved} rows) to node-1 over the shard RPC in "
+            f"{mig_s:.2f} s ({mig_split}); shard-0's ledger {src_bytes} -> "
+            f"{ledger.shard_bytes(ename, 'shard-0')} bytes; every acknowledged write held "
+            f"exactly once, the markers route reads, {CLUSTER_EPOCH_Q} nearVector k="
+            f"{CLUSTER_K} answers bit for bit the ones before "
+            f"({time.perf_counter() - t_part:.1f} s)")
+
+        # 14e: Raft — a schema write through a follower, then the leader stops
+        t_part = time.perf_counter()
+        follower = next(n for n in nodes if not n.raft.is_leader)
+        def has(n, prop):
+            return n.get_collection(name).config.property(prop) is not None
+
+        t1 = time.perf_counter()
+        _cluster_schema(lambda: follower.add_property(name, Property("extra", "int")),
+                        lambda: has(follower, "extra"), "add_property through a follower")
+        _cluster_wait(lambda: all(has(n, "extra") for n in nodes), 20.0,
+                      "the property on every node")
+        write_s = time.perf_counter() - t1
+        leader = next(n for n in nodes if n.raft.is_leader)
+        survivors = [n for n in nodes if n is not leader]
+        dead = {s for s, o in owner.items() if o == leader.name}
+        t1 = time.perf_counter()
+        leader.close()
+        closed.add(leader.name)
+        stop_s = time.perf_counter() - t1
+        elect_s = _cluster_wait(lambda: any(n.raft.is_leader for n in survivors),
+                                CLUSTER_ELECT_S, f"a leader within {CLUSTER_ELECT_S} s")
+        new_leader = next(n for n in survivors if n.raft.is_leader)
+        t1 = time.perf_counter()
+        _cluster_schema(lambda: new_leader.add_property(name, Property("afterFailover", "int")),
+                        lambda: has(new_leader, "afterFailover"),
+                        "a schema write after the failover")
+        _cluster_wait(lambda: all(has(n, "afterFailover") for n in survivors), 20.0,
+                      "the post-failover property on the survivors")
+        commit_s = time.perf_counter() - t1
+        scol = survivors[0].get_collection(name)
+        mismatched = 0
+        for q in queries[:CLUSTER_DEGRADED_Q]:
+            with degrade.collecting():
+                res = scol.near_vector(q, k=CLUSTER_K, include_objects=False)
+                markers = degrade.snapshot()
+            if not any(m["kind"] == "missing_shard" and m["shard"] in dead for m in markers):
+                raise AssertionError(f"phase 14e: no missing_shard marker: {markers}")
+            lists = []
+            for s in rcol.sharding.shard_names:
+                if s in dead:
+                    continue
+                sh = rcol.shards[s]
+                ids, d = sh.vector_search(np.asarray(q, np.float32), CLUSTER_K, "", None)
+                lists.append([SearchResult(uuid=sh._doc_to_uuid[i], distance=x, shard=s)
+                              for i, x in zip(ids.tolist(), d.tolist())
+                              if i in sh._doc_to_uuid])
+            exp = Collection._merge_by_distance(lists, CLUSTER_K)
+            mismatched += not _equal_hits([(r.uuid, r.distance) for r in res],
+                                          [(r.uuid, r.distance) for r in exp])
+        if mismatched:
+            raise AssertionError(f"phase 14e: {mismatched} degraded answers differ from the "
+                                 "reference restricted to the survivors' shards")
+        log(f"phase 14e raft [{smi}]: add_property through follower {follower.name} applied "
+            f"on every node in {write_s * 1e3:.1f} ms; leader {leader.name} stopped, "
+            f"{new_leader.name} elected in {elect_s:.2f} s (deadline {CLUSTER_ELECT_S:.0f} s), "
+            f"a schema write committed on the survivors in {commit_s * 1e3:.1f} ms; "
+            f"{CLUSTER_DEGRADED_Q} nearVector through {survivors[0].name} answered with "
+            f"missing_shard for {sorted(dead)}, equal bit for bit to the reference over the "
+            f"survivors' shards (the leader node's close took {stop_s:.1f} s; 14e "
+            f"{time.perf_counter() - t_part:.1f} s)")
+        return counts
+    finally:
+        paused.close()
+        if rsrv is not None:
+            rsrv.stop()
+        for n in nodes:
+            if n.name not in closed:
+                n.close()
+        if ref is not None:
+            ref.close()
+        shutil.rmtree(base, ignore_errors=True)
+        gc.collect()
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+
+
+# -- phases 11 and 12 in a second process -----------------------------------------
+
+LANE_TAG = "lane result: "  # the second process's closing line, before its JSON
+LANE_TIMEOUT_S = 1500.0     # past the script's own limit: a hang fails the run
+
+
+def start_lane(seed: int, ann_rows: int, rows: int, out_dir: str):
+    """Start phases 11 and 12 in a second process on the same card (the
+    hidden ``--lane`` mode), its standard output into ``out_dir`` and its
+    standard error beside this one's. The kernels and the native host
+    library load from the build directory phase 1 filled. Returns the
+    process and the path of its output."""
+    path = os.path.join(out_dir, "lane.log")
+    here = os.path.abspath(__file__)
+    with open(path, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, here, "--lane", "--seed", str(seed), "--ann-rows", str(ann_rows),
+             "--rows", str(rows)], stdout=out, cwd=os.path.dirname(here))
+    return proc, path
+
+
+def join_lane(proc, path: str, t_start: float) -> tuple[dict, dict]:
+    """Wait for ``start_lane``'s process, print its lines and return the
+    launches of phases 11 and 12; its phase seconds join PHASE_SECONDS.
+    A non-zero exit or a missing result fails the run."""
+    try:
+        rc = proc.wait(timeout=max(1.0, LANE_TIMEOUT_S - (time.perf_counter() - t_start)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    result = None
+    with open(path) as f:
+        for line in f.read().splitlines():
+            if line.startswith(LANE_TAG):
+                result = json.loads(line[len(LANE_TAG):])
+            else:
+                log(line)
+    log(f"phases 11 and 12: a second process on the same card, beside phases 3 to 8 of "
+        f"the first, from the end of phase 2 for {time.perf_counter() - t_start:.1f} s "
+        f"(exit {rc})")
+    if rc is None:
+        raise AssertionError(f"phases 11 and 12: the second process did not end within "
+                             f"{LANE_TIMEOUT_S:.0f} s and was stopped")
+    if rc != 0 or result is None:
+        raise AssertionError("phases 11 and 12 failed in the second process "
+                             f"(exit {rc}; its traceback is on standard error)")
+    PHASE_SECONDS.update(result["seconds"])
+    return result["11"], result["12"]
+
+
+def run_lane(torch, K, seed: int, ann_rows: int, rows: int) -> None:
+    """The second process: phases 11 and 12, then LANE_TAG and a JSON
+    object of their launches and seconds."""
+    counts11 = timed("11", phase_ann, torch, K, seed, ann_rows)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts12 = timed("12", phase_mesh, torch, K, seed, rows)
+    print(LANE_TAG + json.dumps({"11": counts11, "12": counts12, "seconds": PHASE_SECONDS}),
+          flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5668,7 +6334,12 @@ def main() -> int:
     ap.add_argument("--tenants-only", action="store_true",
                     help=f"only phases 0, 1 and 13 (multi-tenancy and the device-time "
                     f"plane) at {TENANTS_ONLY} tenants (no result line)")
+    ap.add_argument("--cluster-only", action="store_true",
+                    help="only phases 0, 1 and 14 (the cluster) at --rows rows, no import "
+                    f"budget, and sealed epochs of {CLUSTER_EPOCH_ONLY_ROWS:,} rows (no result "
+                    "line)")
     ap.add_argument("--import-run", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--lane", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.import_run:  # --import-times' child: one import run, its JSON line
         import torch
@@ -5686,10 +6357,13 @@ def main() -> int:
 
     from weaviate_tpu_torch.db import Database
 
+    if args.lane:  # the default run's second process: phases 11 and 12
+        run_lane(torch, K, args.seed, args.ann_rows, args.rows)
+        return 0
     t0 = time.perf_counter()
     device = phase_card(torch)
     special = (args.topk_times or args.bq_times or args.block_times or args.dist_times
-               or args.ann_only or args.mesh_only or args.import_times)
+               or args.ann_only or args.mesh_only or args.import_times or args.cluster_only)
     warm_up = None if special else profiler_warm_up()  # beside the build
     phase_build(K)
     if args.topk_times:
@@ -5750,65 +6424,83 @@ def main() -> int:
         phase_tenants(torch, K, args.seed, TENANTS_ONLY, warm_up=warm_up)
         log(f"total {time.perf_counter() - t0:.1f} s")
         return 0
+    if args.cluster_only:
+        phase_cluster(torch, K, args.seed, args.rows, float("inf"),
+                      CLUSTER_EPOCH_ONLY_ROWS, CLUSTER_ONLY_QUERIES)
+        log(f"total {time.perf_counter() - t0:.1f} s")
+        return 0
     if args.import_times:
         for part in import_times(torch, args.seed, args.hybrid_docs, args.import_rows):
             log(f"import times: {part}")
         log(f"card after (SM clock, max SM clock, power, temperature): {card_clocks()}")
         return 0
-    numbers, counts2 = phase_kernels(torch, K, args.seed)
+    numbers, counts2 = timed("2", phase_kernels, torch, K, args.seed)
     log(f"card after phase 2 (SM clock, max SM clock, power, temperature): {card_clocks()}")
-    st3 = phase_index(torch, args.seed, args.rows)
-    counts10 = phase_epochs(torch, K, args.seed, args.rows, st3)
-    del st3
-    gc.collect()
-    torch.cuda.empty_cache()
-    merge_times(torch, K)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-    db = srv = None
+    # phases 11 and 12 run in a second process from here to phase 8's end
+    lane_dir = tempfile.mkdtemp(prefix="chip_smoke_lane_")
+    t_lane = time.perf_counter()
+    lane, lane_log = start_lane(args.seed, args.ann_rows, args.rows, lane_dir)
     try:
-        db = Database(tmp, device="cuda")
-        # each path counts its own launches: phase 4 the plain one, phase 5
-        # the quantized index, phase 6 the quantized collections, phase 7
-        # hybrid, phase 9a/9b the server's socket runs and 9c the native
-        # plane's (the server serves phase 4's database from here on; 9a
-        # and 9c run before phase 6 compresses its collection), phase 10
-        # (above) the epoch stores
-        counts4, st4 = phase_end_to_end(torch, K, args.seed, args.rows, db)
-        srv = start_server(db)
-        counts9a, st9a = phase_server_plain(torch, K, args.seed, srv, st4)
-        counts9c = (phase_server_plane(torch, K, srv, st4, st9a) if srv.grpc is not None
-                    else dict.fromkeys(K.launch_counts, 0))
-        counts5 = phase_quantized_index(torch, K, args.seed, args.rows)
-        counts6 = phase_quantized_end_to_end(torch, K, args.seed, db, st4)
-        counts7, st7 = phase_hybrid(torch, K, args.seed, db, args.hybrid_docs)
-        counts9b = phase_server_rest(torch, K, args.seed, srv, db, st7, args.rows)
+        st3 = timed("3", phase_index, torch, args.seed, args.rows)
+        counts10 = timed("10", phase_epochs, torch, K, args.seed, args.rows, st3)
+        del st3
+        gc.collect()
+        torch.cuda.empty_cache()
+        timed("10 merge shapes", merge_times, torch, K)
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+        db = srv = None
+        try:
+            db = Database(tmp, device="cuda")
+            # each path counts its own launches: phase 4 the plain one, phase 5
+            # the quantized index, phase 6 the quantized collections, phase 7
+            # hybrid, phase 9a/9b the server's socket runs and 9c the native
+            # plane's (the server serves phase 4's database from here on; 9a
+            # and 9c run before phase 6 compresses its collection), phase 10
+            # (above) the epoch stores
+            counts4, st4 = timed("4", phase_end_to_end, torch, K, args.seed, args.rows, db)
+            srv = start_server(db)
+            counts9a, st9a = timed("9a", phase_server_plain, torch, K, args.seed, srv, st4)
+            counts9c = (timed("9c", phase_server_plane, torch, K, srv, st4, st9a)
+                        if srv.grpc is not None else dict.fromkeys(K.launch_counts, 0))
+            counts5 = timed("5", phase_quantized_index, torch, K, args.seed, args.rows)
+            counts6 = timed("6", phase_quantized_end_to_end, torch, K, args.seed, db, st4)
+            counts7, st7 = timed("7", phase_hybrid, torch, K, args.seed, db, args.hybrid_docs)
+            counts9b = timed("9b", phase_server_rest, torch, K, args.seed, srv, db, st7,
+                             args.rows)
+        finally:
+            if srv is not None:
+                srv.stop()
+            if db is not None:
+                db.close()
+            shutil.rmtree(tmp, ignore_errors=True)
+        counts8 = timed("8", phase_conformance, K)
+        counts11, counts12 = join_lane(lane, lane_log, t_lane)
     finally:
-        if srv is not None:
-            srv.stop()
-        if db is not None:
-            db.close()
-        shutil.rmtree(tmp, ignore_errors=True)
-    counts8 = phase_conformance(K)
-    counts11 = phase_ann(torch, K, args.seed, args.ann_rows)
+        if lane.poll() is None:  # this process failed first: stop the second
+            lane.kill()
+            lane.wait()
+        shutil.rmtree(lane_dir, ignore_errors=True)
+    _CORPUS_BATCHES.clear()  # no phase after 5 reads the corpus
     gc.collect()
     torch.cuda.empty_cache()
-    counts12 = phase_mesh(torch, K, args.seed, args.rows)
-    gc.collect()
-    torch.cuda.empty_cache()
-    counts13 = phase_tenants(torch, K, args.seed, TENANTS, warm_up=warm_up)
+    counts13 = timed("13", phase_tenants, torch, K, args.seed, TENANTS, warm_up=warm_up)
+    counts14 = timed("14", phase_cluster, torch, K, args.seed, args.rows, CLUSTER_BUDGET_S,
+                     CLUSTER_EPOCH_ROWS)
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         # launches over the main paths: phases 4, 5, 6, 7, 8, the server's
-        # 9a, 9b and 9c, the epochs' 10, the ANN indexes' 11, the mesh's 12
-        # and the tenants' 13, and phase 2's window for the two kernels that
-        # no path runs
+        # 9a, 9b and 9c, the epochs' 10, the ANN indexes' 11, the mesh's 12,
+        # the tenants' 13 and the cluster's 14, and phase 2's window for the
+        # two kernels that no path runs
         launches = sum(c[name] for c in (counts4, counts5, counts6, counts7, counts8,
                                          counts9a, counts9b, counts9c, counts10, counts11,
-                                         counts12, counts13))
+                                         counts12, counts13, counts14))
         if name in PHASE2_PATH:
             launches += counts2[name]
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=launches, **numbers[name]))
+    log("phase seconds: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items()))
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -16,11 +16,10 @@ Two holds:
 
 Collection-level cases (migration, crash points, the quota rescue) run one
 scenario through each package's ``Database`` and compare what a client
-sees. The mesh form (ROADMAP Queue 1 item 6) and the cross-node half of
-migration (item 7) are not ported: their cases pin the message.
+sees; the cross-node half of migration runs the JAX package's cases
+through the port with a remote shard client double.
 """
 
-import logging
 import os
 import tempfile
 import threading
@@ -766,10 +765,42 @@ def test_epoch_compress_keeps_results(rng):
     _same(answers[1], answers[0])
 
 
-# -- the cross-node half: ROADMAP Queue 1 item 7 --------------------------------
+# -- the cross-node half -------------------------------------------------------
 
-def _two_node_collection(tmpdir):
-    """A port collection whose sibling shard is placed on another node."""
+
+class _FakeRemote:
+    """Remote shard client double (the JAX test's): captures cross-node
+    ingests and serves GET / DELETE from the captured store."""
+
+    def __init__(self, fail=False):
+        self.fail = fail
+        self.calls = []
+        self.objects = {}  # (node, shard) -> {uuid: raw}
+
+    def put_objects(self, node, collection, shard, raw_objects):
+        from weaviate_tpu_torch.cluster.transport import RpcError
+        from weaviate_tpu_torch.storage.objects import StorageObject
+
+        if self.fail:
+            raise RpcError("target at watermark", status=507)
+        self.calls.append(("put", node, collection, shard, len(raw_objects)))
+        bucket = self.objects.setdefault((node, shard), {})
+        for raw in raw_objects:
+            bucket[StorageObject.from_bytes(raw).uuid] = raw
+
+    def get_object(self, node, collection, shard, uuid):
+        return self.objects.get((node, shard), {}).get(uuid)
+
+    def delete_object(self, node, collection, shard, uuid):
+        return self.objects.get((node, shard), {}).pop(uuid, None) \
+            is not None
+
+
+def _two_node_collection(tmpdir, remote=None, peer_bytes=0, local_bytes=None):
+    """A port collection whose sibling shard is placed on another node,
+    which gossips ``peer_bytes`` of device-memory ledger (lighter than this
+    one's by default). ``local_bytes``: this node's own reading (None =
+    the process's ledger)."""
     from weaviate_tpu_torch.db.collection import Collection
     from weaviate_tpu_torch.db.sharding import ShardingState
     from weaviate_tpu_torch.schema.config import (CollectionConfig,
@@ -785,6 +816,11 @@ def _two_node_collection(tmpdir):
             index_type="flat", epoch_rows=16))],
         sharding=ShardingConfig(desired_count=2))
     return Collection(tmpdir, cfg, sharding_state=state, local_node="node-a",
+                      remote=remote,
+                      nodes_provider=lambda: ["node-a", "node-b"],
+                      node_hbm_provider=lambda: {"node-b": peer_bytes},
+                      local_hbm_provider=(None if local_bytes is None
+                                          else lambda: local_bytes),
                       device="cpu")
 
 
@@ -799,39 +835,97 @@ def _fill_local(col, n, seed):
     return shard, uuids
 
 
-def test_cross_node_epoch_migration_durable_cutover(caplog):
-    """With the only sibling on another node, the JAX package ships the
-    epoch over the shard RPC. The port has no remote shard client (ROADMAP
-    Queue 1 item 7): it finds no sibling, logs the item, moves nothing and
-    writes no marker, and every object stays served from its shard."""
+def test_cross_node_epoch_migration_durable_cutover():
+    """No LOCAL sibling has headroom (the only sibling lives on node-b):
+    migrate_epoch ships the coldest sealed epoch over the shard RPC behind
+    the same durable-marker cutover. Reads follow the marker to the remote
+    copy, deletes clean both sides, and the epoch's device memory is
+    released locally (the JAX package's test, through the port)."""
+    from weaviate_tpu_torch.runtime.hbm_ledger import ledger
+
     with tempfile.TemporaryDirectory() as d:
-        col = _two_node_collection(d)
+        remote = _FakeRemote()
+        col = _two_node_collection(d, remote)
         try:
             shard, uuids = _fill_local(col, 24, 1)
-            with caplog.at_level(logging.INFO, "weaviate_tpu_torch.db.collection"):
-                assert col.migrate_epoch("shard-0") == 0
-            assert "Queue 1 item 7" in caplog.text
-            assert not any(shard.migrated_to(u) for u in uuids)
-            assert all(shard.get_object(u) is not None for u in uuids)
-            assert shard.vector_indexes[""].epoch_store.coldest_sealed() is not None
+            before = ledger.shard_bytes("XNode", "shard-0")
+            moved = col.migrate_epoch("shard-0")
+            assert moved > 0
+            assert remote.calls and remote.calls[0][:4] == (
+                "put", "node-b", "XNode", "shard-1")
+            assert ledger.shard_bytes("XNode", "shard-0") < before
+            migrated = [u for u in uuids if shard.migrated_to(u) == "shard-1"]
+            assert len(migrated) == moved
+            for u in migrated[:5]:
+                obj = col.get_object(u)
+                assert obj is not None and obj.uuid == u
+            victim = migrated[0]
+            assert col.delete_object(victim)
+            assert shard.migrated_to(victim) is None
+            assert remote.get_object("node-b", "XNode", "shard-1",
+                                     victim) is None
         finally:
             col.close()
 
 
-def test_cross_node_migration_rpc_failure_aborts_markers_kept(caplog):
-    """The JAX package keeps its markers when the cross-node ingest RPC
-    fails. In the port a move to a named shard on another node is refused
-    before any marker is written (item 7), and a later local move still
-    works."""
+def test_cross_node_migration_rpc_failure_aborts_markers_kept():
+    """An ingest RPC failure is ambiguous (the put may have landed before
+    the reply was lost), so the abort keeps the routing markers, cuts
+    nothing over, and the source still serves every object; a later retry
+    re-marks and completes (the JAX package's test, through the port)."""
+    with tempfile.TemporaryDirectory() as d:
+        remote = _FakeRemote(fail=True)
+        col = _two_node_collection(d, remote)
+        try:
+            shard, uuids = _fill_local(col, 12, 2)
+            assert col.migrate_epoch("shard-0") == 0
+            marked = [u for u in uuids if shard.migrated_to(u) == "shard-1"]
+            assert marked  # kept, not rolled back
+            for u in uuids:  # the ring copy still answers
+                assert col.get_object(u) is not None
+            remote.fail = False
+            assert col.migrate_epoch("shard-0") > 0
+            for u in uuids:
+                assert col.get_object(u) is not None
+        finally:
+            col.close()
+
+
+def test_cross_node_migration_without_a_remote_client_stays_local():
+    """A collection with no remote client (one node's view of a placement
+    that names another node) finds no remote sibling: nothing moves, no
+    marker is written, every object stays served from its shard."""
     with tempfile.TemporaryDirectory() as d:
         col = _two_node_collection(d)
         try:
-            shard, uuids = _fill_local(col, 12, 2)
-            with caplog.at_level(logging.WARNING, "weaviate_tpu_torch.db.collection"):
-                assert col.migrate_epoch("shard-0", dst_name="shard-1") == 0
-            assert "Queue 1 item 7" in caplog.text
+            shard, uuids = _fill_local(col, 12, 3)
+            assert col.migrate_epoch("shard-0") == 0
             assert shard._migrated_count == 0
             assert all(shard.get_object(u) is not None for u in uuids)
+        finally:
+            col.close()
+
+
+@pytest.mark.parametrize("peer_bytes,moves", [(1 << 20, True), (3 << 20, False)])
+def test_cross_node_migration_reads_this_nodes_own_ledger(peer_bytes, moves):
+    """The remote sibling is chosen against THIS node's own reading, not
+    the process's ledger (which holds every node's shards when several
+    share a process): a peer lighter than this node's 2 MiB takes the
+    epoch; a heavier one is skipped and nothing moves, no marker written."""
+    with tempfile.TemporaryDirectory() as d:
+        remote = _FakeRemote()
+        col = _two_node_collection(d, remote, peer_bytes=peer_bytes,
+                                   local_bytes=2 << 20)
+        try:
+            shard, uuids = _fill_local(col, 24, 4)
+            moved = col.migrate_epoch("shard-0")
+            if moves:
+                assert moved > 0 and remote.calls
+                assert remote.calls[0][:4] == ("put", "node-b", "XNode", "shard-1")
+            else:
+                assert moved == 0 and not remote.calls
+                assert shard._migrated_count == 0
+                assert all(shard.get_object(u) is not None for u in uuids)
         finally:
             col.close()
 

@@ -2,9 +2,8 @@
 RestServer over a CPU ``Database`` (a copy of tests/test_rest_api.py).
 
 Reference pattern: test/acceptance/ runs black-box REST tests against a
-live server — here against RestServer on localhost. The cluster is not
-ported (ROADMAP Queue 1 item 7b): its case pins the error that names the
-item.
+live server — here against RestServer on localhost, and the cluster
+case against three port ClusterNodes on the CPU.
 """
 
 import numpy as np
@@ -153,19 +152,47 @@ def test_tenant_routes_on_a_plain_class(client):
 
 
 def test_rest_over_cluster(tmp_path):
-    """The cluster (gossip + Raft + the internal data plane) is not
-    ported: a server asked to join one raises before it serves."""
-    from weaviate_tpu_torch.config import ServerConfig
-    from weaviate_tpu_torch.server import Server
+    """REST against a 3-node cluster: schema via Raft, data via the
+    scatter-gather data plane (reference: multi_node acceptance tests)."""
+    import time
 
-    for kw in ({"raft_join": ["n0", "n1", "n2"]},
-               {"cluster_join": ["10.0.0.1:7946"]}):
-        cfg = ServerConfig(data_path=str(tmp_path / "d"), rest_port=0,
-                           grpc_port=0, disable_telemetry=True, **kw)
-        srv = Server(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 7"):
-            srv.start()
-        assert srv.rest is None and srv.db is None
+    from weaviate_tpu_torch.cluster import ClusterNode
+
+    names = ["n0", "n1", "n2"]
+    nodes = [ClusterNode(n, str(tmp_path / n), raft_peers=names,
+                         gossip_interval=0.1, election_timeout=(0.2, 0.4),
+                         device="cpu")
+             for n in names]
+    try:
+        for n in nodes:
+            n.membership.join([p.address for p in nodes])
+        for n in nodes:
+            n.start()
+        for n in nodes:
+            n.raft.wait_for_leader(10.0)
+        clients = [Client(n.serve_rest().address) for n in nodes]
+        clients[1].create_class({"name": "Multi",
+                                 "sharding": {"desired_count": 4}})
+        deadline = time.time() + 5
+        while time.time() < deadline:
+            if all("Multi" in n.db.collections for n in nodes):
+                break
+            time.sleep(0.05)
+        ids = [clients[0].create_object("Multi", {"i": i},
+                                        vector=[float(i), 1.0])["id"]
+               for i in range(12)]
+        # every node's REST API sees every object
+        for c in clients:
+            assert c.get_object("Multi", ids[5])["properties"]["i"] == 5
+            assert len(c.list_objects("Multi", limit=50)["objects"]) == 12
+        statuses = {n["name"]: n["status"] for n in clients[2].nodes()}
+        assert statuses == {"n0": "HEALTHY", "n1": "HEALTHY", "n2": "HEALTHY"}
+    finally:
+        for n in nodes:
+            try:
+                n.close()
+            except Exception:
+                pass
 
 
 def test_validation_errors(client):

@@ -192,12 +192,14 @@ def test_port_imports_without_jax():
 
 
 def test_port_sources_never_import_the_jax_package():
-    """Every module of the port, and chip_smoke.py, which drives it on
-    the card."""
+    """Every module of the port (the cluster's among them), and
+    chip_smoke.py, which drives it on the card."""
     offenders = []
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _dirs, files in os.walk(PORT):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    for mod in ("transport", "membership", "raft", "fsm", "remote", "node"):
+        assert os.path.join(PORT, "cluster", f"{mod}.py") in paths, mod
     for path in paths:
         tree = ast.parse(open(path).read(), path)
         for node in ast.walk(tree):

@@ -80,10 +80,10 @@ class BackupManager:
         return owners
 
     def _rpc(self, node: str, path: str, payload: dict) -> dict:
-        # reached only with a ClusterNode (``node``), which the port does
-        # not build: the cluster fan-out (backup/cluster.py over the
-        # internal transport) is ROADMAP Queue 1 item 7b
-        raise NotImplementedError("cluster backup: ROADMAP Queue 1 item 7b")
+        from weaviate_tpu_torch.cluster.transport import rpc
+
+        return rpc(self.node.membership.resolve(node), path, payload,
+                   timeout=600.0)
 
     # -- backup --------------------------------------------------------------
 

@@ -1,10 +1,29 @@
-"""Cluster layer (port of ``weaviate_tpu/cluster``).
+"""Cluster layer: membership, schema consensus, remote shard data plane
+(port of ``weaviate_tpu/cluster``, replication factor 1).
 
-Only the transport's error types are ported so far: the REST and gRPC
-handlers map them to answers. Membership, Raft, the remote shard data
-plane and the internal transport are ROADMAP Queue 1 item 7b.
+Reference: usecases/cluster/ (memberlist gossip), cluster/ (raft schema
+store), adapters/handlers/rest/clusterapi/ + adapters/clients/ (internal
+HTTP data plane), usecases/sharding (remote index). Replication (the
+scaler, 2PC, read repair, hashbeat) is ROADMAP Queue 1 item 7b.
 """
 
-from weaviate_tpu_torch.cluster.transport import CircuitOpenError, RpcError
+from weaviate_tpu_torch.cluster.membership import Membership, NodeInfo
+from weaviate_tpu_torch.cluster.node import ClusterNode
+from weaviate_tpu_torch.cluster.raft import RaftNode
+from weaviate_tpu_torch.cluster.remote import RemoteShardClient, register_incoming
+from weaviate_tpu_torch.cluster.transport import (CircuitOpenError,
+                                                  InternalServer, RpcError,
+                                                  rpc)
 
-__all__ = ["CircuitOpenError", "RpcError"]
+__all__ = [
+    "Membership",
+    "NodeInfo",
+    "ClusterNode",
+    "RaftNode",
+    "RemoteShardClient",
+    "register_incoming",
+    "InternalServer",
+    "rpc",
+    "CircuitOpenError",
+    "RpcError",
+]

@@ -1,5 +1,5 @@
 """Collection: shard routing + scatter-gather queries (port of
-``weaviate_tpu/db/collection.py`` for one node and replication factor 1).
+``weaviate_tpu/db/collection.py`` for replication factor 1).
 
 Reference: adapters/repos/db/index.go — putObject routes by sharding
 state, objectVectorSearch scatter-gathers across shards and merges by
@@ -7,13 +7,18 @@ distance; keyword (bm25) and hybrid search scatter-gather the same way,
 and a hybrid query on one shard runs as one fused device program. Under
 a shard's memory quota the coldest sealed epoch of an epoch-backed index
 migrates to a sibling shard on this node behind durable routing markers
-(``migrate_epoch``). Multi-tenant collections address one shard per
-tenant; a COLD tenant's shard is closed (its device memory released, its
-files kept) and a FROZEN tenant's files ship to an offload backend.
-Replication and remote shards — the cross-node half of epoch migration
-among them — are a later slice of the port (ROADMAP Queue 1 item 7b). The
-write methods keep the JAX package's ``consistency`` keyword, which a
-single-replica collection ignores, as the JAX one does.
+(``migrate_epoch``), or to a sibling on a lighter node over the shard
+RPC when no local one has room. Multi-tenant collections address one
+shard per tenant; a COLD tenant's shard is closed (its device memory
+released, its files kept) and a FROZEN tenant's files ship to an offload
+backend. In a cluster a shard placed on another node is reached through
+``remote`` (``cluster/remote.RemoteShardClient``): writes, reads, counts,
+aggregations and the nearVector / BM25 scatter legs go to the owning
+node, which searches its shard on its own card and batcher; a shard
+whose node is unreachable answers nothing and the query carries a
+``missing_shard`` marker. Replication (a factor above 1) is ROADMAP Queue
+1 item 7b. The write methods keep the JAX package's ``consistency``
+keyword, which a single-replica collection ignores, as the JAX one does.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import numpy as np
 from weaviate_tpu_torch import native
 from weaviate_tpu_torch.db.shard import Shard
 from weaviate_tpu_torch.db.sharding import ShardingState
+from weaviate_tpu_torch.runtime import degrade
 from weaviate_tpu_torch.runtime import metrics as monitoring
 from weaviate_tpu_torch.runtime import tracing
 from weaviate_tpu_torch.schema.config import CollectionConfig
@@ -53,6 +59,14 @@ class SearchResult:
 
     def __repr__(self):
         return f"SearchResult({self.uuid}, dist={self.distance}, score={self.score})"
+
+
+def _remote_result(item: dict, shard_name: str) -> "SearchResult":
+    raw = item.get("object")
+    return SearchResult(
+        uuid=item["uuid"], distance=item.get("distance"),
+        score=item.get("score"), shard=shard_name,
+        object=StorageObject.from_bytes(raw) if raw else None)
 
 
 def _timed(query_type: str):
@@ -82,11 +96,39 @@ def _timed(query_type: str):
     return deco
 
 
+def local_hbm_bytes(provider=None) -> int:
+    """This node's device-memory ledger bytes: ``provider()``, or the
+    process's ledger when none is given."""
+    if provider is not None:
+        return int(provider())
+    from weaviate_tpu_torch.runtime.hbm_ledger import ledger
+
+    return ledger.total_bytes()
+
+
+def rank_by_ledger(nodes, reported: dict, local_node: str,
+                   local_provider=None) -> list[str]:
+    """Placement candidates, lightest device-memory ledger first (a
+    stable sort keeps ``nodes``' order among equals). ``reported`` holds
+    the peers' gossiped readings; the local node reads its own. Ranking
+    engages only once a PEER has reported: comparing the live local
+    ledger with unreported peers taken as zero would demote this node on
+    every start."""
+    nodes = list(nodes)
+    if not any(n != local_node for n in reported):
+        return nodes
+    hbm = dict(reported)
+    hbm[local_node] = local_hbm_bytes(local_provider)
+    return sorted(nodes, key=lambda n: hbm.get(n, 0))
+
+
 class Collection:
     def __init__(self, data_dir: str, config: CollectionConfig,
                  sharding_state: ShardingState | None = None, mesh=None,
                  local_node: str = "node-0", on_sharding_change=None,
                  sync_wal: bool | None = None, memwatch=None,
+                 remote=None, nodes_provider=None, node_hbm_provider=None,
+                 local_hbm_provider=None,
                  async_indexing: bool | None = None, device=None):
         config.validate()
         if config.replication.factor > 1:
@@ -101,6 +143,17 @@ class Collection:
         self.async_indexing = async_indexing  # None = env decides per shard
         self.local_node = local_node
         self.sync_wal = sync_wal  # None = shard reads PERSISTENCE_WAL_SYNC
+        # cross-node data plane: shards placed on other nodes are reached
+        # through it (None on a single node)
+        self.remote = remote
+        self._nodes_provider = nodes_provider or (lambda: [local_node])
+        # node -> device-memory ledger bytes (gossiped meta in a cluster):
+        # feeds placement and the cross-node epoch migration's target
+        # choice. None = only the local ledger is known.
+        self._node_hbm_provider = node_hbm_provider
+        # this node's own reading (None = the process's device-memory
+        # ledger, which is this node's when it runs alone in its process)
+        self._local_hbm_provider = local_hbm_provider
         self._lock = threading.RLock()
         # reentrancy guard of the epoch memory-pressure rescue (a
         # migration's target-side ingest runs admission too)
@@ -114,7 +167,7 @@ class Collection:
         # striped read-modify-write locks (PATCH, reference adds)
         self._uuid_locks = [threading.RLock() for _ in range(64)]
         # cluster hook fn(collection_name, [tenant]) routing auto tenant
-        # creation through Raft (item 7b); None = apply locally
+        # creation through Raft; None = apply locally
         self._auto_tenant_hook = None
         # FROZEN-tier offload target (a backup backend); set by Database
         self.offload_backend = None
@@ -122,9 +175,11 @@ class Collection:
             if config.multi_tenancy.enabled:
                 sharding_state = ShardingState.create_partitioned()
             else:
+                # placement by device-memory headroom: the round-robin
+                # starts at the lightest node
                 sharding_state = ShardingState.create(
-                    config.sharding.desired_count, nodes=[local_node],
-                    replication_factor=1)
+                    config.sharding.desired_count,
+                    nodes=self._placement_nodes(), replication_factor=1)
         self.sharding = sharding_state
         # persistence hook: auto-created tenants must reach the schema
         # store or they vanish from the sharding state on restart
@@ -254,8 +309,8 @@ class Collection:
 
     def _ensure_tenant_shard(self, tenant: str | None) -> None:
         """A write's tenant: an existing one must be active; a missing one
-        is created when ``autoTenantCreation`` is on. Only the local
-        branch exists: the cluster's hook (Raft) is item 7b."""
+        is created when ``autoTenantCreation`` is on, locally on one node
+        and through the cluster's hook (Raft) on a cluster."""
         if not self.config.multi_tenancy.enabled:
             return
         with self._lock:
@@ -265,10 +320,87 @@ class Collection:
                 return
             if not self.config.multi_tenancy.auto_tenant_creation:
                 raise KeyError(f"tenant {tenant!r} does not exist")
-            self.sharding.add_tenant(tenant, nodes=[self.local_node],
-                                     replication_factor=1)
-            self._on_sharding_change(self)
-            self._record_tenant(tenant, "write")
+            hook = self._auto_tenant_hook
+            if hook is None:
+                self.sharding.add_tenant(tenant, nodes=self._nodes_provider(),
+                                         replication_factor=1)
+                self._on_sharding_change(self)
+                self._record_tenant(tenant, "write")
+                return
+        # cluster: the tenant goes through Raft so every node applies the
+        # same placement. Called OUTSIDE the collection lock: the FSM apply
+        # (another thread on followers) needs that lock to add the tenant.
+        hook(self.config.name, [tenant])
+        if tenant not in self.sharding.shard_names:
+            raise RuntimeError(f"auto tenant creation for {tenant!r} did "
+                               "not converge")
+        self._record_tenant(tenant, "write")
+
+    def _reported_hbm(self) -> dict:
+        """The device-memory provider's reading (gossiped ``hbmBytes`` meta
+        in a cluster), {} when none is wired or it fails: stale gossip
+        must never fail a collection's creation or a migration."""
+        if self._node_hbm_provider is None:
+            return {}
+        try:
+            return {str(k): int(v) for k, v in
+                    dict(self._node_hbm_provider()).items()}
+        except Exception:  # noqa: BLE001
+            return {}
+
+    def _node_hbm_bytes(self, reported: dict | None = None) -> dict:
+        """node -> known device-memory ledger bytes. The local node reads
+        its own ledger; other nodes come from the provider (``reported``
+        reuses a reading already fetched)."""
+        out = dict(reported) if reported is not None \
+            else self._reported_hbm()
+        out[self.local_node] = local_hbm_bytes(self._local_hbm_provider)
+        return out
+
+    def _placement_nodes(self) -> list[str]:
+        return rank_by_ledger(self._nodes_provider(), self._reported_hbm(),
+                              self.local_node, self._local_hbm_provider)
+
+    def _require_remote(self, shard_name: str):
+        if self.remote is None:
+            raise RuntimeError(
+                f"shard {shard_name!r} is placed on "
+                f"{self.sharding.nodes_for(shard_name)} but node "
+                f"{self.local_node!r} has no remote client configured")
+        return self.remote
+
+    def _read_node(self, shard_name: str) -> str:
+        """The node a read goes to: this one if it owns the shard, else
+        the placed node."""
+        if self._is_local(shard_name):
+            return self.local_node
+        return self.sharding.nodes_for(shard_name)[0]
+
+    def _remote_search_degraded(self, shard_name: str, **kwargs):
+        """A remote shard's scatter leg: the placed node answers, or, when
+        it is unreachable (the per-peer circuit breaker makes a known-dead
+        node cost ~0 of the deadline), the leg returns ``None``, the query
+        still answers without that shard, and a ``missing_shard`` marker
+        rides the response."""
+        from weaviate_tpu_torch.cluster.transport import RpcError
+
+        remote = self._require_remote(shard_name)
+        nodes = [n for n in self.sharding.nodes_for(shard_name)
+                 if n != self.local_node]
+        last: Exception | None = None
+        for node in nodes:
+            try:
+                return remote.search_shard(node, self.config.name,
+                                           shard_name, **kwargs)
+            except RpcError as e:
+                last = e
+                logger.warning("node %s failed for %s/%s: %s",
+                               node, self.config.name, shard_name, e)
+        degrade.report("missing_shard", collection=self.config.name,
+                       shard=shard_name,
+                       detail=str(last) if last is not None
+                       else "no reachable replica")
+        return None
 
     def _target_shard_names(self, tenant: str | None,
                             kind: str = "read") -> list[str]:
@@ -283,15 +415,17 @@ class Collection:
         return list(self.sharding.shard_names)
 
     def _target_shards(self, tenant: str | None = None) -> list[Shard]:
-        """The shards a query addresses (every shard is local here)."""
-        return [self._load_shard(n) for n in self._target_shard_names(tenant)]
+        """The LOCAL shards a query addresses (all of them on one node; the
+        subset placed here in a cluster)."""
+        return [self._load_shard(n) for n in self._target_shard_names(tenant)
+                if self._is_local(n)]
 
     # -- tenants -------------------------------------------------------------
 
     def add_tenant(self, tenant: str, nodes: list[str] | None = None):
         with self._lock:
             self.sharding.add_tenant(
-                tenant, nodes=nodes or [self.local_node],
+                tenant, nodes=nodes or self._nodes_provider(),
                 replication_factor=1)
             if self._is_local(tenant):
                 self._load_shard(tenant)
@@ -427,6 +561,14 @@ class Collection:
         return uuid
 
     def _write_to_shard(self, shard_name: str, objs: list[StorageObject]) -> None:
+        """Write a batch to the shard's one replica: here, or on its node
+        over the shard RPC (the objects cross as their stored bytes)."""
+        node = self.sharding.nodes_for(shard_name)[0]
+        if node != self.local_node:
+            self._require_remote(shard_name).put_objects(
+                node, self.config.name, shard_name,
+                [o.to_bytes() for o in objs])
+            return
         shard = self._load_shard(shard_name)
         shard.put_object_batch(objs)
         # clean any migrated sibling copy AFTER the fresh write landed: a
@@ -478,30 +620,50 @@ class Collection:
                    consistency: str | None = None) -> StorageObject | None:
         self._check_tenant(tenant)
         name = self.sharding.shard_for(uuid, tenant)
+        if not self._is_local(name):
+            raw = self._require_remote(name).get_object(
+                self._read_node(name), self.config.name, name, uuid)
+            return None if raw is None else StorageObject.from_bytes(raw)
         shard = self._load_shard(name)
         obj = shard.get_object(uuid)
         if obj is None:
-            # epoch migration moved this object to a sibling: the durable
-            # marker keeps the routing right
+            # epoch migration moved this object to a sibling (on this node
+            # or another): the durable marker keeps the routing right
             dst = shard.migrated_to(uuid)
-            if dst and dst != name and self._is_local(dst):
-                return self._load_shard(dst).get_object(uuid)
+            if dst and dst != name:
+                if self._is_local(dst):
+                    return self._load_shard(dst).get_object(uuid)
+                if self.remote is not None:
+                    raw = self.remote.get_object(
+                        self._read_node(dst), self.config.name, dst, uuid)
+                    if raw is not None:
+                        return StorageObject.from_bytes(raw)
         return obj
 
     def delete_object(self, uuid: str, tenant: str | None = None,
                       consistency: str = "QUORUM") -> bool:
         self._check_tenant(tenant, kind="write")  # deletes are writes
         name = self.sharding.shard_for(uuid, tenant)
-        shard = self._load_shard(name)
-        ok = shard.delete_object(uuid)
-        # a migrated copy (or the crash window's second copy) lives at the
-        # marker's destination: delete it too so no copy remains, and
-        # drop the marker
-        dst = shard.migrated_to(uuid)
-        if dst and dst != name and self._is_local(dst):
-            ok = self._load_shard(dst).delete_object(uuid) or ok
-        if dst:
-            shard.clear_migrated(uuid)
+        node = self.sharding.nodes_for(name)[0]
+        if node != self.local_node:
+            ok = self._require_remote(name).delete_object(
+                node, self.config.name, name, uuid)
+        else:
+            shard = self._load_shard(name)
+            ok = shard.delete_object(uuid)
+            # a migrated copy (or the crash window's second copy) lives at
+            # the marker's destination: delete it too so no copy remains,
+            # and drop the marker (a cross-node move deletes over the RPC)
+            dst = shard.migrated_to(uuid)
+            if dst and dst != name:
+                if self._is_local(dst):
+                    ok = self._load_shard(dst).delete_object(uuid) or ok
+                elif self.remote is not None:
+                    ok = self.remote.delete_object(
+                        self._read_node(dst), self.config.name, dst,
+                        uuid) or ok
+            if dst:
+                shard.clear_migrated(uuid)
         if ok:
             monitoring.objects_total.labels(self.config.name, "delete").inc()
         return ok
@@ -509,7 +671,15 @@ class Collection:
     def object_count(self, tenant: str | None = None) -> int:
         if self.config.multi_tenancy.enabled and not tenant:
             return 0
-        return sum(s.object_count() for s in self._target_shards(tenant))
+        total = 0
+        for name in self._target_shard_names(tenant):
+            if self._is_local(name):
+                total += self._load_shard(name).object_count()
+            elif self.remote is not None:
+                total += self.remote.overview(
+                    self._read_node(name), self.config.name,
+                    name)["object_count"]
+        return total
 
     def batch_delete(self, where, tenant: str | None = None,
                      dry_run: bool = False, verbose: bool = False,
@@ -525,6 +695,13 @@ class Collection:
         for name in names:
             if len(uuids) >= max_matches:
                 break
+            if not self._is_local(name):
+                raws = self._require_remote(name).list_objects(
+                    self._read_node(name), self.config.name, name,
+                    limit=max_matches - len(uuids),
+                    where=where.to_dict() if where is not None else None)
+                uuids.extend(StorageObject.from_bytes(r).uuid for r in raws)
+                continue
             shard = self._load_shard(name)
             mask = shard.allow_mask(where) if where is not None else None
             with shard._lock:
@@ -573,10 +750,17 @@ class Collection:
         if after is not None and sort:
             raise ValueError("'after' cursor cannot be combined with sort")
         names = self._target_shard_names(tenant)
+        where_dict = where.to_dict() if where is not None else None
         if sort:
             # property sort needs the values: materialize candidates
             objs: list[StorageObject] = []
             for name in names:
+                if not self._is_local(name):
+                    raws = self._require_remote(name).list_objects(
+                        self._read_node(name), self.config.name, name,
+                        where=where_dict)
+                    objs.extend(StorageObject.from_bytes(r) for r in raws)
+                    continue
                 shard = self._load_shard(name)
                 mask = shard.allow_mask(where) if where is not None else None
                 for _key, raw in shard.objects.iter_items():
@@ -586,10 +770,20 @@ class Collection:
                         continue
                     objs.append(obj)
             return sort_objects(objs, sort)[offset: offset + limit]
-        # uuid-ordered page: select uuids from the in-RAM docid map, only
-        # deserialize what is actually returned
-        candidates: list[tuple[str, str]] = []  # (uuid, shard name)
+        # uuid-ordered page: select uuids from the in-RAM docid map (or a
+        # remote page), only deserialize what is actually returned
+        candidates: list[tuple[str, object]] = []  # (uuid, shard name | obj)
         for name in names:
+            if not self._is_local(name):
+                # each remote shard over-fetches its own first
+                # offset+limit matches; the merge below trims to the page
+                raws = self._require_remote(name).list_objects(
+                    self._read_node(name), self.config.name, name,
+                    limit=offset + limit, after=after, where=where_dict)
+                for raw in raws:
+                    obj = StorageObject.from_bytes(raw)
+                    candidates.append((obj.uuid, obj))
+                continue
             shard = self._load_shard(name)
             mask = shard.allow_mask(where) if where is not None else None
             with shard._lock:  # snapshot: writers mutate _doc_to_uuid
@@ -604,8 +798,9 @@ class Collection:
         candidates.sort(key=lambda t: t[0])
         page = candidates[offset: offset + limit]
         out = []
-        for uid, name in page:
-            obj = self._load_shard(name).get_object(uid)
+        for uid, src in page:
+            obj = src if isinstance(src, StorageObject) else \
+                self._load_shard(src).get_object(uid)
             if obj is not None:
                 out.append(obj)
         return out
@@ -641,6 +836,11 @@ class Collection:
                                           properties, group_by)]
         else:
             def one(name: str):
+                if not self._is_local(name):
+                    return self._require_remote(name).aggregate(
+                        self._read_node(name), self.config.name, name,
+                        properties, group_by,
+                        where.to_dict() if where is not None else None)
                 shard = self._load_shard(name)
                 mask = shard.allow_mask(where) if where is not None else None
 
@@ -663,13 +863,38 @@ class Collection:
     # -- search --------------------------------------------------------------
 
     def _attach_objects(self, results: list[SearchResult]) -> None:
-        """Fill in .object for results that don't carry one yet."""
-        missing = [r for r in results if r.object is None]
+        """Fill in .object for results that don't carry one yet: a local
+        lookup, or ONE batched remote get per remote shard."""
+        missing: dict[str, list[SearchResult]] = {}
+        for r in results:
+            if r.object is None:
+                missing.setdefault(r.shard, []).append(r)
         if not missing:
             return
-        with tracing.span("objects.fetch", n=len(missing)):
-            for r in missing:
-                r.object = self._load_shard(r.shard).get_object(r.uuid)
+        from weaviate_tpu_torch.cluster.transport import RpcError
+
+        with tracing.span("objects.fetch",
+                          n=sum(len(rs) for rs in missing.values()),
+                          shards=len(missing)):
+            for name, rs in missing.items():
+                if self._is_local(name):
+                    shard = self._load_shard(name)
+                    for r in rs:
+                        r.object = shard.get_object(r.uuid)
+                    continue
+                try:
+                    raws = self._require_remote(name).get_objects(
+                        self._read_node(name), self.config.name, name,
+                        [r.uuid for r in rs])
+                except RpcError as e:
+                    # the node died between the search and the fetch: serve
+                    # the ids and distances with a degraded marker
+                    degrade.report("objects_unavailable",
+                                   collection=self.config.name,
+                                   shard=name, detail=str(e))
+                    continue
+                for r, raw in zip(rs, raws):
+                    r.object = StorageObject.from_bytes(raw) if raw else None
 
     @staticmethod
     def _merge_by_distance(gathered: list[list], k: int) -> list:
@@ -754,6 +979,15 @@ class Collection:
         names = self._target_shard_names(tenant)
 
         def one(name: str) -> list[SearchResult]:
+            if not self._is_local(name):
+                # the owning node evaluates the filter and resolves the
+                # objects; an unreachable node degrades to missing_shard
+                items = self._remote_search_degraded(
+                    name, vector=query, k=k, vec_name=vec_name,
+                    where=where.to_dict() if where is not None else None,
+                    include_objects=include_objects)
+                return [] if items is None else \
+                    [_remote_result(i, name) for i in items]
             shard = self._load_shard(name)
             allow = self._shard_allow(shard, name, allow_list_by_shard, where)
             ids, dists = shard.vector_search(query, k, vec_name, allow)
@@ -788,6 +1022,13 @@ class Collection:
         names = self._target_shard_names(tenant)
 
         def one(name: str) -> list[SearchResult]:
+            if not self._is_local(name):
+                items = self._remote_search_degraded(
+                    name, query=query, k=k, properties=properties,
+                    where=where.to_dict() if where is not None else None,
+                    include_objects=include_objects)
+                return [] if items is None else \
+                    [_remote_result(i, name) for i in items]
             shard = self._load_shard(name)
             allow = self._shard_allow(shard, name, allow_list_by_shard, where)
             ids, scores = shard.bm25_search(query, k, properties, allow)
@@ -842,14 +1083,18 @@ class Collection:
             alpha = 0.0  # degrade to sparse-only (reference does the same
             # when no vectorizer can produce a query vector)
         # evaluate the filter once per shard and let both legs reuse the
-        # masks (every shard is local in the port)
+        # masks when every target shard is local; with remote shards the
+        # filter tree travels down instead
         names = self._target_shard_names(tenant)
         allow_by_shard = None
-        if where is not None:
+        where_down = where
+        if where is not None and all(self._is_local(n) for n in names):
             allow_by_shard = {n: self._load_shard(n).allow_mask(where)
                               for n in names}
+            where_down = None
 
-        if vector is not None and len(names) == 1:
+        if (vector is not None and len(names) == 1
+                and self._is_local(names[0]) and where_down is None):
             dev = self._hybrid_device(
                 names[0], query, vector, alpha, k, properties, vec_name,
                 fusion, None if allow_by_shard is None
@@ -881,14 +1126,14 @@ class Collection:
                 args=("sparse", self.bm25, query, fetch, properties),
                 kwargs=dict(include_objects=False,
                             allow_list_by_shard=allow_by_shard,
-                            tenant=tenant)))
+                            where=where_down, tenant=tenant)))
         if vector is not None and alpha > 0.0:
             threads.append(threading.Thread(
                 target=tracing.propagate(run),
                 args=("dense", self.near_vector, vector, fetch, vec_name),
                 kwargs=dict(include_objects=False,
                             allow_list_by_shard=allow_by_shard,
-                            tenant=tenant)))
+                            where=where_down, tenant=tenant)))
         for t in threads:
             t.start()
         for t in threads:
@@ -955,7 +1200,8 @@ class Collection:
         from weaviate_tpu_torch.runtime.transfer import DeviceResultHandle
 
         names = self._target_shard_names(tenant)
-        if vector is not None and len(names) == 1 and where is None:
+        if (vector is not None and len(names) == 1
+                and self._is_local(names[0]) and where is None):
             shard = self._load_shard(names[0])
             h = shard.hybrid_search_async(
                 query, np.asarray(vector, np.float32), k, alpha=alpha,
@@ -979,8 +1225,13 @@ class Collection:
             return
         for obj in objs:
             dst = shard.migrated_to(obj.uuid)
-            if dst and dst != shard.name and self._is_local(dst):
-                self._load_shard(dst).delete_object(obj.uuid)
+            if dst and dst != shard.name:
+                if self._is_local(dst):
+                    self._load_shard(dst).delete_object(obj.uuid)
+                elif self.remote is not None:
+                    self.remote.delete_object(
+                        self._read_node(dst), self.config.name, dst,
+                        obj.uuid)
             if dst:
                 shard.clear_migrated(obj.uuid)
 
@@ -1017,18 +1268,28 @@ class Collection:
         return best if best_bytes < src_bytes else None
 
     def _remote_sibling_with_headroom(self, src_name: str) -> str | None:
-        """The cross-NODE half of epoch migration (a sibling placed on a
-        lighter node, shipped over the shard RPC) needs the cluster, ROADMAP
-        Queue 1 item 7b. The port has no remote shard client: it finds no
-        remote sibling, and says so when one exists."""
-        remote = [n for n in self.sharding.shard_names
-                  if n != src_name and not self._is_local(n)]
-        if remote:
-            logger.info("epoch migration %s/%s: no local sibling with "
-                        "headroom; siblings %s are on other nodes, and "
-                        "cross-node migration is ROADMAP Queue 1 item 7b",
-                        self.config.name, src_name, remote)
-        return None
+        """The cross-NODE half of epoch migration: a sibling shard placed
+        on another node, chosen by that node's gossiped device-memory
+        ledger bytes. Only nodes whose reported footprint is BELOW this
+        node's qualify (a local move cannot relieve device-global
+        pressure, since the shards of one node share its card; shipping
+        to a lighter node does). A node with no reading is skipped: an
+        epoch is never shipped blind."""
+        if self.remote is None:
+            return None
+        hbm = self._node_hbm_bytes()
+        local_bytes = hbm.get(self.local_node, 0)
+        best, best_bytes = None, None
+        for name in self.sharding.shard_names:
+            if name == src_name or self._is_local(name):
+                continue
+            node = self.sharding.nodes_for(name)[0]
+            b = hbm.get(node)
+            if b is None or b >= local_bytes:
+                continue
+            if best_bytes is None or b < best_bytes:
+                best, best_bytes = name, b
+        return best
 
     def migrate_epoch(self, src_name: str, vec_name: str = "",
                       dst_name: str | None = None) -> int:
@@ -1042,6 +1303,7 @@ class Collection:
         first, the ring copy answers until the cutover, the marker after
         it, and the window where both copies exist is deduped by uuid in
         the merge. Returns the objects moved (0 = nothing to do).
+        The target may be on another node (``_migrate_one_remote``).
         Single-replica collections without tenants only."""
         if (self.config.replication.factor > 1
                 or self.config.multi_tenancy.enabled
@@ -1064,13 +1326,11 @@ class Collection:
                     dst = self._remote_sibling_with_headroom(src_name)
                 if dst is None or dst == src_name:
                     return moved_total
-                if not self._is_local(dst):
-                    logger.warning(
-                        "epoch migration %s/%s -> %s: the target is on "
-                        "another node; cross-node migration is ROADMAP "
-                        "Queue 1 item 7b", self.config.name, src_name, dst)
-                    return moved_total
-                moved_total += self._migrate_one(src, idx, es, eid, dst)
+                if self._is_local(dst):
+                    moved_total += self._migrate_one(src, idx, es, eid, dst)
+                else:
+                    moved_total += self._migrate_one_remote(
+                        src, idx, es, eid, dst)
         return moved_total
 
     def _migrate_one(self, src: Shard, idx, es, eid: int, dst: str) -> int:
@@ -1123,6 +1383,62 @@ class Collection:
         monitoring.epoch_migrations.labels(self.config.name, src_name).inc()
         logger.info("epoch migration: %s/%s e%d -> %s (%d objects)",
                     self.config.name, src_name, eid, dst, len(objs))
+        return len(objs)
+
+    def _migrate_one_remote(self, src: Shard, idx, es, eid: int,
+                            dst: str) -> int:
+        """Cross-node twin of ``_migrate_one``: the same marker-first
+        cutover, with the target's durable ingest riding the remote shard
+        client (``put_objects`` -> the owning node's
+        ``Shard.put_object_batch``: the vectors land in ITS card's epochs
+        under ITS admission control). An ingest RPC failure aborts with
+        nothing cut over and the markers LEFT in place: a timeout is
+        ambiguous (the put may have landed), and dropping the markers
+        would orphan such a copy where no delete reaches it. Kept markers
+        keep every copy reachable: deletes and re-puts clean both sides,
+        search dedups by uuid, and a retry re-marks and re-ingests
+        (idempotent by uuid). The source shard's lock spans the RPC, as
+        the local twin's spans its ingest; the RPC's per-attempt deadline
+        and the per-peer circuit breaker bound it. The same
+        ``epoch.migrate.*`` fault points fire."""
+        from weaviate_tpu_torch.cluster.transport import RpcError
+        from weaviate_tpu_torch.runtime import faultline
+
+        src_name = src.name
+        dst_node = self.sharding.nodes_for(dst)[0]
+        with src._lock:
+            doc_ids = idx.epoch_doc_ids(eid)
+            if not len(doc_ids):
+                es.drop_epoch(eid)
+                return 0
+            objs = [o for o in src.objects_by_doc_ids(doc_ids)
+                    if o is not None]
+            if not objs:
+                return 0
+            src.mark_migrating([o.uuid for o in objs], dst)
+            faultline.fire("epoch.migrate.pre_ingest", shard=src_name,
+                           epoch=eid, docs=len(doc_ids))
+            try:
+                self._require_remote(dst).put_objects(
+                    dst_node, self.config.name, dst,
+                    [o.to_bytes() for o in objs])
+            except RpcError as e:
+                logger.warning(
+                    "cross-node epoch migration %s/%s e%d -> %s@%s "
+                    "aborted (markers kept, nothing cut over): %s",
+                    self.config.name, src_name, eid, dst, dst_node, e)
+                return 0
+            faultline.fire("epoch.migrate.post_ingest", shard=src_name,
+                           epoch=eid)
+            src.migrate_out([o.uuid for o in objs], dst)
+            faultline.fire("epoch.migrate.post_cutover", shard=src_name,
+                           epoch=eid)
+            es.drop_epoch(eid)
+            es.migrations_total += 1
+        monitoring.epoch_migrations.labels(self.config.name, src_name).inc()
+        logger.info("cross-node epoch migration: %s/%s e%d -> %s@%s "
+                    "(%d objects)", self.config.name, src_name, eid, dst,
+                    dst_node, len(objs))
         return len(objs)
 
     def epoch_maintenance(self) -> bool:

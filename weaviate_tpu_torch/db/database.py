@@ -1,10 +1,13 @@
 """Database facade: schema store + collections (port of
-``weaviate_tpu/db/database.py`` for one node).
+``weaviate_tpu/db/database.py``).
 
 The schema is persisted in its own KV bucket in the JAX package's format,
 so a data directory written by ``weaviate_tpu.db.Database`` opens here and
 answers the same queries. Every collection's vectors live on ``device``
-(default: the CUDA card; ``device="cpu"`` only when asked).
+(default: the CUDA card; ``device="cpu"`` only when asked). In a cluster
+(``cluster/node.py``) the database holds this node's shards and reaches
+the others through ``remote``; schema changes arrive through the Raft FSM
+by the same methods a single node calls directly.
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ from __future__ import annotations
 import os
 import threading
 
-from weaviate_tpu_torch.db.collection import Collection
+from weaviate_tpu_torch.db.collection import Collection, local_hbm_bytes, rank_by_ledger
 from weaviate_tpu_torch.db.sharding import ShardingState
 from weaviate_tpu_torch.parallel.mesh import host_count, placement
 from weaviate_tpu_torch.schema.config import CollectionConfig, Property
@@ -23,7 +26,8 @@ class Database:
     def __init__(self, data_dir: str = "./data", mesh=None,
                  local_node: str = "node-0", start_cycles: bool = False,
                  maintenance_interval: float = 5.0,
-                 memory_monitor=None, async_indexing: bool | None = None,
+                 memory_monitor=None, remote=None, nodes_provider=None,
+                 async_indexing: bool | None = None,
                  sync_wal: bool | None = None, device=None):
         # resolved once, up front: no CUDA and no device= raises here,
         # before anything touches the data directory. On a mesh the
@@ -42,15 +46,26 @@ class Database:
         # scrape-time per-host memory rollups need the mesh's host count
         ledger.set_host_count(host_count(mesh))
         self.local_node = local_node
+        # cross-node data plane (cluster/remote.RemoteShardClient); None on
+        # a single node
+        self.remote = remote
         self.async_indexing = async_indexing  # None = env decides per shard
         if sync_wal is None:
             from weaviate_tpu_torch.config import _flag
 
             sync_wal = _flag(os.environ, "PERSISTENCE_WAL_SYNC")
         self.sync_wal = sync_wal
+        self.nodes_provider = nodes_provider or (lambda: [local_node])
+        # node -> gossiped device-memory ledger bytes; set by ClusterNode
+        # (membership meta). Collections bind _node_hbm lazily, so a hook
+        # installed after startup still reaches loaded collections'
+        # placement and cross-node migration choices.
+        self.node_hbm_provider = None
+        # this node's own device-memory reading (None = the process's
+        # ledger); set where several nodes share one process
+        self.local_hbm_provider = None
         # cluster hook fn(collection, [tenant]) routing auto tenant
-        # creation through Raft: stored for the cluster (ROADMAP Queue 1
-        # item 7b); None = local apply
+        # creation through Raft (set by ClusterNode); None = local apply
         self.auto_tenant_hook = None
         # FROZEN-tier offload target (a backup backend); set by the server
         # when modules are configured (set_offload_backend)
@@ -100,11 +115,32 @@ class Database:
             did = col.epoch_maintenance() or did
         return did
 
+    def _node_hbm(self) -> dict:
+        """Late-binding wrapper: collections built before the cluster
+        layer installs ``node_hbm_provider`` still see it."""
+        if self.node_hbm_provider is None:
+            return {}
+        return self.node_hbm_provider()
+
+    def _local_hbm(self) -> int:
+        """Late-binding wrapper of ``local_hbm_provider``."""
+        return local_hbm_bytes(self.local_hbm_provider)
+
+    def placement_nodes(self) -> list[str]:
+        """A new collection's candidate nodes, lightest device-memory
+        ledger first (``collection.rank_by_ledger``)."""
+        return rank_by_ledger(self.nodes_provider(), self._node_hbm(),
+                              self.local_node, self._local_hbm)
+
     def _new_collection(self, config: CollectionConfig, sharding_state=None):
         col = Collection(self.data_dir, config, sharding_state=sharding_state,
                          local_node=self.local_node,
                          on_sharding_change=self._persist,
                          sync_wal=self.sync_wal, memwatch=self.memwatch,
+                         remote=self.remote,
+                         nodes_provider=self.nodes_provider,
+                         node_hbm_provider=self._node_hbm,
+                         local_hbm_provider=self._local_hbm,
                          async_indexing=self.async_indexing,
                          device=self.device, mesh=self.mesh)
         col._auto_tenant_hook = self.auto_tenant_hook
@@ -122,6 +158,8 @@ class Database:
 
     def create_collection(self, config: CollectionConfig,
                           sharding_state=None) -> Collection:
+        """``sharding_state``: a placement computed elsewhere (the Raft
+        proposer computes it once so every node applies the same one)."""
         config.validate()
         with self._lock:
             if config.name in self.collections:
@@ -208,15 +246,20 @@ class Database:
         if new_cfg.multi_tenancy.enabled != cur.multi_tenancy.enabled:
             raise ValueError("multiTenancy.enabled is immutable")
 
-    def update_collection(self, new_cfg: CollectionConfig) -> None:
+    def update_collection(self, new_cfg: CollectionConfig,
+                          allow_scale: bool = True) -> None:
         """Apply a schema update to a live collection: validate, persist
         the runtime-mutable fields, then push them into the live shards
         (runtime compression included). A replication-factor change moves
-        shard data through the scaler, which is not ported: it raises."""
+        shard data through the scaler, which is not ported: it raises.
+        ``allow_scale=False`` is the Raft FSM's apply path, which ignores
+        a factor change as the JAX package's does (a factor only ever
+        commits through the "update_sharding" op)."""
         with self._lock:
             self.validate_collection_update(new_cfg)
             cur = self.get_collection(new_cfg.name).config
-            if new_cfg.replication.factor != cur.replication.factor:
+            if allow_scale and \
+                    new_cfg.replication.factor != cur.replication.factor:
                 raise NotImplementedError(
                     "replication factor changes (the scaler): ROADMAP "
                     "Queue 1 item 7b")
@@ -291,8 +334,8 @@ class Database:
             col.offload_backend = backend
 
     def set_auto_tenant_hook(self, hook) -> None:
-        """Stored for the cluster (item 7b); a collection creates its
-        auto tenants locally until then."""
+        """``hook(collection, [tenant])``: the cluster routes auto tenant
+        creation through Raft (``ClusterNode.add_tenants``)."""
         with self._lock:
             self.auto_tenant_hook = hook
             for col in self.collections.values():

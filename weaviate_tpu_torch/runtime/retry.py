@@ -147,12 +147,25 @@ RETRIABLE_STATUSES = frozenset({0, 429, 502, 503, 504})
 
 
 def default_retriable(exc: BaseException) -> bool:
-    """The repo-wide retriable-vs-terminal line. The port is single
-    node: it has no cluster transport, so only overload is retriable
-    and a spent deadline is terminal."""
-    if isinstance(exc, DeadlineExceeded):
+    """The repo-wide retriable-vs-terminal line. Circuit-open is
+    TERMINAL here: the breaker already knows the peer is down, and
+    burning backoff against it is exactly the budget leak breakers
+    exist to stop — callers fail over to another replica instead."""
+    from weaviate_tpu_torch.cluster.transport import CircuitOpenError, RpcError
+
+    if isinstance(exc, (DeadlineExceeded, CircuitOpenError)):
         return False
-    return isinstance(exc, OverloadedError)
+    if isinstance(exc, OverloadedError):
+        return True
+    if isinstance(exc, RpcError):
+        # a per-attempt TIMEOUT already burned its full time ceiling —
+        # retrying burns another. Fast transport failures (refused,
+        # reset, half-dead HTTP) stay retriable; slow death is the
+        # failover layers' job.
+        if exc.timed_out:
+            return False
+        return exc.status in RETRIABLE_STATUSES
+    return False
 
 
 @dataclass

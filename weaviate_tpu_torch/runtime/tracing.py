@@ -17,9 +17,12 @@ of ``weaviate_tpu/runtime/tracing.py`` the flat query path calls).
   worker threads (contextvars do not flow into them).
 - Finished traces land in a ring (``recent_traces``, GET
   /v1/debug/traces), feed the tailboard's keep-at-completion decision and
-  the structured slow-query log. The W3C traceparent helpers and remote
-  segments of the JAX module ride the cluster transport (ROADMAP Queue 1
-  item 7b).
+  the structured slow-query log.
+- Cross-node stitching: ``current_traceparent()`` emits a W3C-style
+  ``00-{trace}-{span}-{flags}`` header that the cluster transport
+  forwards; the serving node adopts it with ``remote_segment`` and exports
+  its finished spans back in the RPC reply, which the caller ``absorb``s
+  into the live trace: one trace per distributed query.
 
 Every finished span also feeds the ``weaviate_tpu_span_duration_seconds``
 histogram (runtime/metrics.py).
@@ -100,16 +103,18 @@ NULL_SPAN = _NullSpan()
 
 
 class Trace:
-    """Collects finished spans for one request. Appends are thread safe."""
+    """Collects finished spans for one request (or one remote segment of
+    a distributed request). Appends are thread safe."""
 
     MAX_SPANS = 512  # bound memory when an instrumented loop runs hot
 
     __slots__ = ("trace_id", "sampled", "spans", "dropped", "started_at",
-                 "_t0", "_lock")
+                 "_t0", "remote", "_lock")
 
-    def __init__(self, trace_id: str, sampled: bool):
+    def __init__(self, trace_id: str, sampled: bool, remote: bool = False):
         self.trace_id = trace_id
         self.sampled = sampled
+        self.remote = remote
         self.spans: list[dict] = []
         self.dropped = 0
         self.started_at = time.time()
@@ -492,3 +497,97 @@ def propagate(fn):
             degrade.reset_markers(tokens[1])
 
     return wrapper
+
+
+# -- traceparent propagation (cluster transport) ------------------------------
+
+def current_traceparent() -> str | None:
+    """W3C-shaped ``00-{trace_id}-{span_id}-{flags}`` naming the CURRENT
+    span as the remote parent; flags bit 0 carries the sampled decision."""
+    cur = _current.get()
+    if cur is None:
+        return None
+    tr, sp = cur
+    return f"00-{tr.trace_id}-{sp.span_id}-{'01' if tr.sampled else '00'}"
+
+
+def parse_traceparent(header: str | None):
+    """-> (trace_id, parent_span_id, sampled) or None on any malformation
+    (an unparseable header must never fail the RPC carrying it)."""
+    if not header:
+        return None
+    parts = header.strip().split("-")
+    if len(parts) != 4:
+        return None
+    _ver, trace_id, parent_id, flags = parts
+    if not trace_id or not parent_id:
+        return None
+    return trace_id, parent_id, flags == "01"
+
+
+class RemoteSegment:
+    """Handle yielded by ``remote_segment``: after the block exits,
+    ``export()`` returns the segment's finished spans for the RPC
+    response (None when there is nothing to ship)."""
+
+    __slots__ = ("_trace",)
+
+    def __init__(self, tr: Trace | None):
+        self._trace = tr
+
+    MAX_EXPORT = 64  # response-header budget
+
+    def export(self) -> list[dict] | None:
+        if self._trace is None:
+            return None
+        with self._trace._lock:
+            spans = list(self._trace.spans)[: self.MAX_EXPORT]
+        return spans or None
+
+
+@contextlib.contextmanager
+def remote_segment(traceparent: str | None, name: str = "rpc.server",
+                   **attrs):
+    """Adopt an incoming traceparent on the serving node: spans recorded
+    inside chain to the caller's span id and are EXPORTED (via
+    ``RemoteSegment``) instead of entering the local ring — the caller
+    absorbs them, yielding one stitched trace."""
+    parsed = parse_traceparent(traceparent)
+    if parsed is None or _current.get() is not None:
+        # no incoming context (or already tracing in-process): plain span
+        with span(name, **attrs):
+            yield RemoteSegment(None)
+        return
+    trace_id, parent_id, sampled = parsed
+    tr = Trace(trace_id, sampled=sampled, remote=True)
+    root = Span(trace_id, parent_id, name, dict(attrs), 0.0)
+    token = _current.set((tr, root))
+    try:
+        yield RemoteSegment(tr)
+    finally:
+        _finish(tr, root)
+        _current.reset(token)
+
+
+def absorb(span_dicts: list[dict], base_ms: float = 0.0) -> None:
+    """Merge spans exported by a remote segment into the live trace.
+    ``base_ms``: the caller-side start of the RPC span, used to shift the
+    remote segment's relative clock onto this trace's timeline."""
+    cur = _current.get()
+    if cur is None:
+        return
+    tr, _ = cur
+    for d in span_dicts:
+        if not isinstance(d, dict) or "name" not in d:
+            continue
+        shifted = dict(d)
+        try:
+            shifted["start_ms"] = round(float(d.get("start_ms", 0.0))
+                                        + base_ms, 3)
+        except (TypeError, ValueError):
+            shifted["start_ms"] = base_ms
+        attrs = shifted.get("attrs")
+        if not isinstance(attrs, dict):  # corrupt spans must not fail the RPC
+            attrs = {}
+        shifted["attrs"] = {**attrs, "remote": True}
+        tr.add(shifted)

@@ -1,11 +1,11 @@
 """Server entry point: ``python -m weaviate_tpu_torch`` (port of
-``weaviate_tpu/server.py``, its single-node branch).
+``weaviate_tpu/server.py``).
 
 Reference: cmd/weaviate-server/main.go → configure_api.go:456 — assemble
-config, auth, modules, DB, REST + gRPC + metrics listeners, then serve
-until signaled. The port serves one node: a cluster (``RAFT_JOIN`` with
-more than one member, ``CLUSTER_JOIN``; ROADMAP Queue 1 item 7b) raises
-instead of serving without its modules.
+config, auth, modules, DB, cluster, REST + gRPC + metrics listeners, then
+serve until signaled. Single node by default; ``RAFT_JOIN`` with more
+than one member (or ``CLUSTER_JOIN``) boots a ``cluster.ClusterNode``
+(gossip + Raft + the internal data plane) at replication factor 1.
 
 The database's vectors live on ``device``: the CUDA card by default; a
 machine without one raises unless the caller names ``device="cpu"``.
@@ -28,8 +28,6 @@ from weaviate_tpu_torch.device import resolve
 logger = logging.getLogger("weaviate_tpu_torch.server")
 
 VERSION = "0.1.0"
-
-CLUSTER = "cluster mode: ROADMAP Queue 1 item 7b"
 
 
 class Server:
@@ -88,9 +86,10 @@ class Server:
 
         if maybe_initialize_distributed():
             logger.info("joined the multi-process group")
-        if len(cfg.raft_join) > 1 or cfg.cluster_join:
-            raise NotImplementedError(
-                f"RAFT_JOIN / CLUSTER_JOIN: {CLUSTER}")
+        cluster_mode = len(cfg.raft_join) > 1 or bool(cfg.cluster_join)
+        if cluster_mode and not self._own_db:
+            raise ValueError("a cluster node opens its own database: "
+                             "RAFT_JOIN / CLUSTER_JOIN exclude db=")
         # the kernel build cache (build/torch_kernels) and its hit / miss
         # / nvcc-duration metrics, before the first kernel launch
         from weaviate_tpu_torch.runtime.compile_cache import \
@@ -129,15 +128,29 @@ class Server:
                             "hierarchical" if "host" in mesh.axis_names
                             else "1-D", mesh.shape)
 
-            from weaviate_tpu_torch.db.database import Database
+            if cluster_mode:
+                from weaviate_tpu_torch.cluster.node import ClusterNode
 
-            self.db = Database(cfg.data_path,
-                               local_node=cfg.cluster_hostname,
-                               start_cycles=True,
-                               memory_monitor=memwatch,
-                               async_indexing=cfg.async_indexing or None,
-                               sync_wal=cfg.wal_sync, device=self.device,
-                               mesh=mesh)
+                peers = cfg.raft_join or [cfg.cluster_hostname]
+                self.node = ClusterNode(
+                    cfg.cluster_hostname, cfg.data_path, raft_peers=peers,
+                    host=cfg.host, port=cfg.cluster_data_port,
+                    advertise=cfg.cluster_advertise or None,
+                    remote_timeout=cfg.remote_rpc_timeout_s,
+                    sync_wal=cfg.wal_sync, mesh=mesh,
+                    device=None if mesh is not None else self.device)
+                self.node.start(seed_addrs=cfg.cluster_join or None)
+                self.db = self.node.db
+            else:
+                from weaviate_tpu_torch.db.database import Database
+
+                self.db = Database(cfg.data_path,
+                                   local_node=cfg.cluster_hostname,
+                                   start_cycles=True,
+                                   memory_monitor=memwatch,
+                                   async_indexing=cfg.async_indexing or None,
+                                   sync_wal=cfg.wal_sync, device=self.device,
+                                   mesh=mesh)
 
         # tailboard: incident snapshots land in the data dir; explicit
         # SLO config (if any) replaces defaults
@@ -169,10 +182,18 @@ class Server:
 
         from weaviate_tpu_torch.api.rest import RestServer
 
-        self.rest = RestServer(self.db, host=cfg.host, port=cfg.rest_port,
-                               modules=self.modules, auth=self.auth,
-                               query_deadline_s=cfg.query_deadline_s)
-        self.rest.start()
+        if self.node is not None:
+            # schema writes through Raft, /v1/nodes from membership, and
+            # the participant side of cluster backups on the internal port
+            self.rest = self.node.serve_rest(
+                host=cfg.host, port=cfg.rest_port, modules=self.modules,
+                auth=self.auth, query_deadline_s=cfg.query_deadline_s)
+        else:
+            self.rest = RestServer(self.db, host=cfg.host,
+                                   port=cfg.rest_port, modules=self.modules,
+                                   auth=self.auth,
+                                   query_deadline_s=cfg.query_deadline_s)
+            self.rest.start()
 
         self._start_profiler(cfg.profiling_port)
 
@@ -275,10 +296,13 @@ class Server:
             self.metrics_server = None
         if self.grpc is not None:
             self.grpc.stop()
-        if self.rest is not None:
-            self.rest.stop()
-        if self.db is not None and self._own_db:
-            self.db.close()
+        if self.node is not None:
+            self.node.close()  # closes its REST server and database too
+        else:
+            if self.rest is not None:
+                self.rest.stop()
+            if self.db is not None and self._own_db:
+                self.db.close()
 
 
 def main() -> None:
