@@ -19,6 +19,7 @@ Run from the repository root:
     python3 chip_smoke.py --mesh-only [--rows N]     # phases 0-1 and 12 only
     python3 chip_smoke.py --tenants-only             # phases 0-1 and 13 at 1,000 tenants
     python3 chip_smoke.py --cluster-only [--rows N]  # phases 0-1 and 14 at 1,000,000 rows
+    python3 chip_smoke.py --replication-only [--rows N]  # phases 0-1 and 15 at 500,000 rows
 
 It drives the port's flat nearVector path at VectorDBBench's
 Performance768D1M case (Cohere wiki-22-12: 1,000,000 x 768, cosine,
@@ -282,16 +283,48 @@ is downloaded), in phases:
    answers with the missing_shard marker, equal bit for bit to the
    reference restricted to the survivors' shards.
 
+15. replication, last and alone: three ClusterNodes in this process, as in
+   phase 14, hold a Performance768D1M collection (768-d cosine flat,
+   desired_count 3) at replication factor 3, so every node holds every
+   shard on the card; both of the phase's collections are created through
+   Raft before any load. 15a imports through node-0's batch_put at QUORUM
+   (each shard's batch through the 2PC coordinator) for at most 15 s
+   (``--replication-only``: all --rows rows, 500,000 unless given: 1M
+   did not fit its ~1,100 s), and the same batches into a
+   one-node Database on the same card; rows/s beside the reference's and
+   each node's store bytes (each holds the whole collection). 15b:
+   nearVector k 100 through each node, unfiltered and under where(views >=
+   90), then a pass under selection "fused": ids (tie-aware) and distances
+   bit for bit the reference's, every read from the local replica (zero
+   remote search RPCs); distance_block, fused_topk_pairs and
+   fused_topk_scan must launch. 15c: node-2 cut off with faultline's
+   topology: a batch at QUORUM is acknowledged, a put at ALL raises
+   ConsistencyError, QUORUM get_object through node-0 reads the
+   acknowledged rows; healed, hashbeat rounds on every node until every
+   shard's Merkle roots are equal (rounds, rows applied, seconds),
+   /v1/debug/replication reporting every shard converged, node-2's answers
+   bit for bit node-0's and the reference's. 15d: a newer version of one
+   object on node-0's replica only; get_object at ALL through node-2
+   returns it and repairs the others; a nearVector with the old vector
+   never returns the old row's distance. 15e: a factor-1 collection of
+   8,192 rows (``--replication-only``: 65,536) scaled to 3 through
+   node-0's update_collection (the scaler's copies, then the placement
+   through Raft), rows copied a second, every node then answering locally,
+   bit for bit the reference's. The nodes' hashbeat cycle is off in this
+   phase (it drives the rounds itself); the launch counters are reset
+   before each run through the nodes and read after it (the reference's
+   runs do not count).
+
 Phases 11 and 12 read nothing of phases 3 to 10, so they run in a second
 process on the same card (the hidden ``--lane`` mode), started when phase
 2 ends and joined after phase 8; its lines are printed when it ends, with
 a line saying how long it ran beside the first. Phase 2's kernel times,
 which the kernels line reports, are taken before it starts, and phases 13
-and 14 after it ends; the times of phases 3 to 12 are taken with both
+to 15 after it ends; the times of phases 3 to 12 are taken with both
 processes on the card and the host's cores (``--ann-only`` and
 ``--mesh-only`` run phases 11 and 12 alone).
 
-Phases 5, 6, 7, 8, 9a, 9b, 9c, 10, 11, 12, 13 and 14 each reset the launch counters as they start
+Phases 5, 6, 7, 8, 9a, 9b, 9c, 10, 11, 12, 13, 14 and 15 each reset the launch counters as they start
 and read them as they end: every kernel in QUANT_KERNELS must have run in
 phases 5 and 6, and ``bm25_block`` and ``distance_block`` in phase 7,
 whose run (d) must launch ``fused_topk_scan``.
@@ -5746,16 +5779,23 @@ def _cluster_boot(base: str, dev: str) -> list:
     return nodes
 
 
-def _cluster_wait(cond, timeout: float, what: str) -> float:
+def _cluster_wait(cond, timeout: float, what: str, phase: str = "14",
+                  detail=None) -> float:
+    """Seconds until ``cond()`` holds; the condition is read once more at
+    the deadline (a thread starved past it still sees the last state).
+    ``detail()`` adds the state that was waited on to the failure."""
     t0 = time.perf_counter()
-    while time.perf_counter() - t0 < timeout:
+    while True:
         if cond():
             return time.perf_counter() - t0
+        if time.perf_counter() - t0 >= timeout:
+            break
         time.sleep(0.01)
-    raise AssertionError(f"phase 14: timed out waiting for {what}")
+    extra = f": {detail()}" if detail is not None else ""
+    raise AssertionError(f"phase {phase}: timed out waiting for {what}{extra}")
 
 
-def _cluster_schema(fn, done, what: str) -> None:
+def _cluster_schema(fn, done, what: str, phase: str = "14") -> None:
     """A schema write, retried while leadership moves under it; a propose
     that timed out after it committed shows up as ``done()``."""
     last = None
@@ -5768,7 +5808,7 @@ def _cluster_schema(fn, done, what: str) -> None:
             if done():
                 return
             time.sleep(0.2)
-    raise AssertionError(f"phase 14: {what} failed: {last}")
+    raise AssertionError(f"phase {phase}: {what} failed: {last}")
 
 
 def _cluster_rows(seed: int, start: int, n: int, cent, prefix: int) -> list:
@@ -5801,6 +5841,13 @@ def _same_cluster_answers(got: list, want: list, what: str) -> None:
 def _equal_hits(got: list, want: list) -> bool:
     """Two answers as (uuid, distance[, properties]) lists, bit for bit."""
     return got == want
+
+
+def _set_selection(cols, selection: str) -> None:
+    """Set the selection of every shard's flat store in ``cols``."""
+    for c in cols:
+        for s in c.shards.values():
+            s.vector_indexes[""].store.selection = selection
 
 
 def _dispatches(nodes, name: str) -> dict:
@@ -5949,9 +5996,7 @@ def phase_cluster(torch, K, seed: int, rows: int, budget_s: float, epoch_rows: i
             return lambda i: _gql(client, q, {"v": queries[i].tolist()})
 
         def set_selection(selection):
-            for c in [n.get_collection(name) for n in nodes] + [rcol]:
-                for s in c.shards.values():
-                    s.vector_indexes[""].store.selection = selection
+            _set_selection([n.get_collection(name) for n in nodes] + [rcol], selection)
 
         nf = CLUSTER_FUSED
         want, timings = {}, {}
@@ -6230,6 +6275,487 @@ def phase_cluster(torch, K, seed: int, rows: int, budget_s: float, epoch_rows: i
             torch.cuda.empty_cache()
 
 
+# -- phase 15: replication ----------------------------------------------------------
+
+# the default run's sizes keep phase 15 within about 60 s; --replication-only
+# imports --rows rows and scales 65,536
+REPL_BUDGET_S = 15.0        # the default run's 2PC import through node-0
+# --replication-only's default rows: 1,000,000 did not fit ~1,100 s (its
+# 2PC import alone ran 971.2 s, 1,030 rows/s, on an H100 80GB HBM3 at
+# 700 W: three nodes' LSM compaction and 2PC share one interpreter lock)
+REPL_ONLY_ROWS = 500_000
+REPL_QUERIES = 16           # nearVector a pass through each node (--replication-only 64)
+REPL_ONLY_QUERIES = 64
+REPL_FUSED = 4              # the pass under selection "fused", through each node
+REPL_PART_ROWS = 2000       # 15c's batch written at QUORUM behind the cut
+REPL_PART_START = 10 ** 9   # ... drawn past every row of 15a
+REPL_READ_BACK = 64         # 15c's QUORUM reads of the acknowledged rows
+REPL_CHECK_Q = 8            # 15c and 15e's nearVector through each node
+REPL_SCALE_ROWS = 8192      # 15e's factor-1 collection (--replication-only 65,536)
+REPL_SCALE_ONLY_ROWS = 65_536
+REPL_MAX_ROUNDS = 8         # hashbeat rounds 15c may take to converge
+REPL_DEPTH = 8              # the hashbeat's tree depth (HashBeater's default)
+
+
+def _repl_config(name: str, factor: int):
+    from weaviate_tpu_torch.schema.config import ReplicationConfig
+
+    cfg = _cluster_config(name)
+    cfg.replication = ReplicationConfig(factor=factor)
+    return cfg
+
+
+def _uid_int(uuid: str) -> int:
+    """``_uuid(prefix, row)`` back to one integer (prefix and row)."""
+    return int(uuid[-17:].replace("-", ""))
+
+
+def _repl_answers(col, queries, where=None) -> tuple:
+    """nearVector k 100 of each query: ids [nq, k] and distances [nq, k]."""
+    ids, dists = [], []
+    for q in queries:
+        res = col.near_vector(np.asarray(q, np.float32), k=CLUSTER_K, where=where,
+                              include_objects=False)
+        ids.append([_uid_int(r.uuid) for r in res])
+        dists.append([r.distance for r in res])
+    return ids, dists
+
+
+def _same_repl(got: tuple, want: tuple, what: str) -> None:
+    """ids through tie_aware_mismatches, distances bit for bit."""
+    if [len(r) for r in got[0]] != [len(r) for r in want[0]]:
+        raise AssertionError(f"phase 15 {what}: answer lengths differ")
+    ai, bi = np.asarray(got[0]), np.asarray(want[0])
+    ad, bd = np.float32(got[1]), np.float32(want[1])
+    bad = tie_aware_mismatches(ai, ad, bi, bd)
+    if bad or not np.array_equal(ad, bd) or not np.isfinite(ad).all():
+        raise AssertionError(f"phase 15 {what}: {bad} id mismatches, distances equal "
+                             f"{np.array_equal(ad, bd)}")
+
+
+@contextlib.contextmanager
+def _remote_searches(nodes):
+    """Every remote search leg the nodes send while the block runs."""
+    calls: list = []
+    for n in nodes:
+        orig = n.remote.search_shard
+
+        def counted(*a, _orig=orig, **kw):
+            calls.append(a[:3])
+            return _orig(*a, **kw)
+
+        n.remote.search_shard = counted
+    try:
+        yield calls
+    finally:
+        for n in nodes:
+            vars(n.remote).pop("search_shard", None)
+
+
+def _node_run(K, acc: dict, fn):
+    """``fn()`` with the launch counters set to 0 just before and added to
+    ``acc`` just after: the runs through the nodes count, the reference's
+    do not."""
+    K.reset_launch_counts()
+    try:
+        return fn()
+    finally:
+        for k, v in K.launch_counts.items():
+            acc[k] = acc.get(k, 0) + v
+
+
+def _schema_state(nodes, cols, shards) -> str:
+    """Each node's factor and replicas a shard beside its Raft position."""
+    out = []
+    for n, c in zip(nodes, cols):
+        r = n.raft
+        out.append(f"{n.name} factor {c.config.replication.factor} replicas "
+                   f"{[len(c.sharding.nodes_for(s)) for s in shards]} raft {r.role} "
+                   f"term {r.current_term} leader {r.leader_id} commit {r.commit_index} "
+                   f"applied {r.last_applied} last {r._abs_last()}")
+    return "; ".join(out)
+
+
+def _local_rows(col, shards) -> int:
+    return sum(col._load_shard(s).object_count() for s in shards)
+
+
+def _store_bytes(col) -> int:
+    """Device bytes of the collection's flat stores on this node."""
+    total = 0
+    for s in col.shards.values():
+        st = s.vector_indexes[""].store
+        for a in ("vectors", "valid", "sq_norms"):
+            t = getattr(st, a, None)
+            if t is not None:
+                total += t.numel() * t.element_size()
+    return total
+
+
+def _repl_serving(nodes, name: str, shards, timeout: float = 30.0) -> float:
+    """After the heal: wait until every replica answers a digest probe from
+    every node (the breakers opened by the cut released). The probe reads
+    one key: a hashtree probe would build the shard's tree first, seconds
+    at 100,000 rows a shard, past the probe's timeout."""
+    from weaviate_tpu_torch.cluster.transport import RpcError, rpc
+    from weaviate_tpu_torch.runtime import faultline
+
+    t0 = time.perf_counter()
+    pending = {(a.name, b.name) for a in nodes for b in nodes if a is not b}
+    last = None
+    while pending and time.perf_counter() - t0 < timeout:
+        for src, dst in sorted(pending):
+            addr = next(n.address for n in nodes if n.name == dst)
+            try:
+                with faultline.node_scope(src):
+                    rpc(addr, f"/replicas/{name}/{shards[0]}/digest",
+                        {"uuid": _uuid(0, 0)}, timeout=2.0)
+                pending.discard((src, dst))
+            except RpcError as e:
+                last = e
+        if pending:
+            time.sleep(0.1)
+    if pending:
+        raise AssertionError(f"phase 15c: {sorted(pending)} not serving after the heal: {last}")
+    return time.perf_counter() - t0
+
+
+def phase_replication(torch, K, seed: int, rows: int, budget_s: float, scale_rows: int,
+                      nq: int = REPL_QUERIES, dev: str = "cuda") -> dict:
+    """15: three ClusterNodes hold a Performance768D1M collection at
+    replication factor 3, every node a whole copy on the card; every answer
+    is held to a one-node Database on the same card."""
+    import copy
+
+    from weaviate_tpu_torch.api.client import Client
+    from weaviate_tpu_torch.db import Database
+    from weaviate_tpu_torch.filters import Filter, Operator
+    from weaviate_tpu_torch.replication import ConsistencyError, HashBeater
+    from weaviate_tpu_torch.runtime import faultline
+    from weaviate_tpu_torch.runtime.hbm_ledger import ledger
+    from weaviate_tpu_torch.storage.objects import StorageObject
+
+    smi = _smi_line() if dev == "cuda" else "cpu"
+    base = tempfile.mkdtemp(prefix="chip_smoke_repl_")
+    nodes, ref = [], None
+    paused = contextlib.ExitStack()
+    name, rname, sname, srname = "Repl768", "Repl768Ref", "Scale768", "Scale768Ref"
+    where = Filter.where("views", Operator.GREATER_THAN_EQUAL, VIEWS_CUT)
+    counts: dict = dict.fromkeys(K.launch_counts, 0)
+    try:
+        t0 = time.perf_counter()
+        nodes = _cluster_boot(base, dev)
+        for n in nodes:
+            # the phase drives the hashbeat rounds itself (15c): three nodes'
+            # beats in one process would share one interpreter lock with the
+            # import (a node of its own runs its own)
+            n.db.cycles.unregister("hashbeat")
+        boot_s = time.perf_counter() - t0
+        ref = Database(os.path.join(base, "ref"), device=dev)
+        # the phase's Raft schema writes, before any load (the scaler's
+        # placement, 15e, is the third)
+        t1 = time.perf_counter()
+        for cname, factor in ((name, 3), (sname, 1)):
+            _cluster_schema(lambda c=cname, f=factor: nodes[0].create_collection(
+                _repl_config(c, f)), lambda c=cname: c in nodes[0].db.collections,
+                f"create_collection {cname}", phase="15")
+            _cluster_wait(lambda c=cname: all(c in n.db.collections for n in nodes), 20.0,
+                          f"{cname} on every node", phase="15")
+        raft_s = time.perf_counter() - t1
+        ref.create_collection(_repl_config(rname, 1))  # the same shard names
+        ref.create_collection(_repl_config(srname, 1))
+        cols = [n.get_collection(name) for n in nodes]
+        col, rcol = cols[0], ref.get_collection(rname)
+        shards = sorted(col.sharding.shard_names)
+        if any(sorted(c.sharding.nodes_for(s)) != sorted(CLUSTER_NODES)
+               for c in cols for s in shards):
+            raise AssertionError("phase 15: a shard is not placed on all three nodes")
+
+        # 15a: the import at QUORUM through node-0, the same batches into the reference
+        cent = centers(seed + 16)
+        done, cl_s, ref_s, first = 0, 0.0, 0.0, None
+        while done < rows and cl_s < budget_s:
+            n = min(IMPORT_BATCH, rows - done)
+            batch = _cluster_rows(seed + 16, done, n, cent, 1600)
+            if first is None:
+                first = np.stack([o["vector"] for o in batch])
+            t1 = time.perf_counter()
+            res = col.batch_put(batch, consistency="QUORUM")
+            cl_s += time.perf_counter() - t1
+            t1 = time.perf_counter()
+            rres = rcol.batch_put(batch)
+            ref_s += time.perf_counter() - t1
+            if any(r["status"] != "SUCCESS" for r in res + rres):
+                raise AssertionError(f"phase 15a: batch_put failed: {res[0]} {rres[0]}")
+            done += n
+        # QUORUM returned on two acks: the third replica's commits may be in flight
+        t1 = time.perf_counter()
+        _cluster_wait(lambda: all(_local_rows(c, shards) == done for c in cols), 300.0,
+                      "every replica's commits", phase="15")
+        settle_s = time.perf_counter() - t1
+        cut = "" if done == rows else (f" (cut from {rows}: the import budget of "
+                                       f"{budget_s:.0f} s ran out)")
+        log(f"phase 15a replicated import [{smi}]: 3 nodes booted in {boot_s:.2f} s, both "
+            f"collections through Raft in {raft_s:.2f} s; {done} rows{cut} through node-0's "
+            f"batch_put at QUORUM, factor 3, in {cl_s:.1f} s ({done / cl_s:.0f} rows/s "
+            f"acknowledged; the third copies in {settle_s:.2f} s more, "
+            f"{done / (cl_s + settle_s):.0f} rows/s with all three); the one-node reference "
+            f"took the same batches in {ref_s:.1f} s ({done / ref_s:.0f} rows/s)")
+
+        # 15b: replicated reads through every node, from its local replica
+        t_part = time.perf_counter()
+        rng = np.random.default_rng([seed, 15])
+        queries = near_queries(seed + 16, rng.integers(0, len(first), nq), lambda r: first[r])
+        t1 = time.perf_counter()
+        want = {False: _repl_answers(rcol, queries), True: _repl_answers(rcol, queries, where)}
+        ref_q_s = time.perf_counter() - t1
+        _set_selection([rcol], "fused")
+        want["fused"] = _repl_answers(rcol, queries[:REPL_FUSED])
+        _set_selection([rcol], "approx")
+        got: dict = {}
+
+        def reads():
+            t = time.perf_counter()
+            for i, c in enumerate(cols):
+                got[(i, False)] = _repl_answers(c, queries)
+                got[(i, True)] = _repl_answers(c, queries, where)
+            spent = time.perf_counter() - t
+            _set_selection(cols, "fused")
+            try:
+                for i, c in enumerate(cols):
+                    got[(i, "fused")] = _repl_answers(c, queries[:REPL_FUSED])
+            finally:
+                _set_selection(cols, "approx")
+            return spent
+
+        with _remote_searches(nodes) as remote_calls:
+            nodes_q_s = _node_run(K, counts, reads)
+        read_counts = dict(counts)
+        for i in range(3):
+            for key in (False, True, "fused"):
+                what = {False: "unfiltered", True: "filtered", "fused": "selection fused"}[key]
+                _same_repl(got[(i, key)], want[key], f"15b {what} through node-{i}")
+        if remote_calls:
+            raise AssertionError(f"phase 15b: {len(remote_calls)} remote search RPCs: "
+                                 f"{remote_calls[:3]}")
+        if dev == "cuda":
+            for kname in CLUSTER_KERNELS:
+                if read_counts[kname] <= 0:
+                    raise AssertionError(f"{kname} was not launched in phase 15b")
+        node_bytes = {n.name: _store_bytes(c) for n, c in zip(nodes, cols)}
+        live = {n.name: sum(len(c._load_shard(s).vector_indexes[""]) for s in shards)
+                for n, c in zip(nodes, cols)}
+        if any(v != done for v in live.values()) \
+                or any(b < done * DIM * 4 for b in node_bytes.values()):
+            raise AssertionError(f"phase 15b: a node does not hold the whole collection: "
+                                 f"live rows {live}, store bytes {node_bytes}")
+        per_q = 1e3 * nodes_q_s / (6 * nq)
+        log(f"phase 15b replicated reads [{smi}]: nearVector k={CLUSTER_K} through each of the "
+            f"3 nodes, {nq} unfiltered and {nq} under where(views >= {VIEWS_CUT}), then "
+            f"{REPL_FUSED} under selection \"fused\": ids (tie-aware) and distances bit for "
+            f"bit the one-node reference's; 0 remote search RPCs; {per_q:.2f} ms a query "
+            f"through a node against {1e3 * ref_q_s / (2 * nq):.2f} on the reference; each "
+            f"node holds the whole collection on the card: live rows {live}, store bytes "
+            f"{node_bytes} (the ledger's {ledger.collection_bytes(name)} for all three); "
+            f"launches {read_counts} ({time.perf_counter() - t_part:.1f} s)")
+
+        # 15c: node-2 cut off; QUORUM acknowledged, ALL refused; heal and converge.
+        # The nodes' background cycles (LSM flush and compaction after the
+        # import) wait until the roots are equal, as in 14b; a cycle in
+        # flight finishes first
+        t_part = time.perf_counter()
+        for n in nodes:
+            paused.enter_context(n.db.cycles.pause())
+        pause_s = time.perf_counter() - t_part
+        faultline.isolate("node-2", name="repl-cut")
+        # rows of their own (vectors too), past any row 15a drew
+        part = _cluster_rows(seed + 16, REPL_PART_START, REPL_PART_ROWS, cent, 1601)
+        extra = _uuid(1602, 0)
+        try:
+            with faultline.node_scope("node-0"):
+                t1 = time.perf_counter()
+                res = col.batch_put(part, consistency="QUORUM")
+                part_s = time.perf_counter() - t1
+                if any(r["status"] != "SUCCESS" for r in res):
+                    raise AssertionError(f"phase 15c: a QUORUM write behind the cut was not "
+                                         f"acknowledged: {res[0]}")
+                try:
+                    col.put_object({"category": "all", "views": 0}, vector=first[0],
+                                   uuid=extra, consistency="ALL")
+                except ConsistencyError as e:
+                    all_err = str(e).split(":")[0]
+                else:
+                    raise AssertionError("phase 15c: a write at ALL was acknowledged with "
+                                         "node-2 cut off")
+                sample = part[::max(1, len(part) // REPL_READ_BACK)]
+                t1 = time.perf_counter()
+                for o in sample:
+                    obj = col.get_object(o["uuid"], consistency="QUORUM")
+                    if obj is None or obj.properties != o["properties"] \
+                            or not np.array_equal(obj.vector, o["vector"]):
+                        raise AssertionError(f"phase 15c: QUORUM read of {o['uuid']} "
+                                             "behind the cut")
+                quorum_read_ms = 1e3 * (time.perf_counter() - t1) / len(sample)
+            behind = {n.name: _local_rows(c, shards) for n, c in zip(nodes, cols)}
+        finally:
+            faultline.heal("repl-cut")
+        if behind != {"node-0": done + len(part), "node-1": done + len(part), "node-2": done}:
+            raise AssertionError(f"phase 15c: rows a node behind the cut {behind}")
+        if any(c._load_shard(col.sharding.shard_for(extra)).get_object(extra) is not None
+               for c in cols):
+            raise AssertionError("phase 15c: the write refused at ALL was committed")
+        rres = rcol.batch_put(part)
+        if any(r["status"] != "SUCCESS" for r in rres):
+            raise AssertionError(f"phase 15c: the reference's batch_put failed: {rres[0]}")
+        serve_s = _repl_serving(nodes, name, shards)
+        beaters = [HashBeater(c, depth=REPL_DEPTH) for c in cols]
+
+        def roots_equal() -> bool:
+            with faultline.node_scope("node-0"):
+                return all(beaters[0].roots_equal(s) for s in shards)
+
+        rounds, applied, t1 = 0, 0, time.perf_counter()
+        while not roots_equal():
+            if rounds == REPL_MAX_ROUNDS:
+                raise AssertionError(f"phase 15c: the roots differ after {rounds} hashbeat "
+                                     "rounds")
+            rounds += 1
+            for n, b in zip(nodes, beaters):
+                with faultline.node_scope(n.name):
+                    applied += sum(b.beat_shard(s) for s in shards)
+        conv_s = time.perf_counter() - t1
+        paused.close()
+        # one round more, every beat a no-op: the status registry reads it
+        for n, b in zip(nodes, beaters):
+            with faultline.node_scope(n.name):
+                if sum(b.beat_shard(s) for s in shards):
+                    raise AssertionError("phase 15c: a beat after convergence moved rows")
+        rest = nodes[0].serve_rest()
+        snap = Client(rest.address).request("GET", "/v1/debug/replication")
+        mine = {s["shard"]: s for s in snap["shards"] if s["collection"] == name}
+        if sorted(mine) != shards or any(s["state"] != "converged" or s["divergentEntries"]
+                                         for s in mine.values()):
+            raise AssertionError(f"phase 15c: /v1/debug/replication: {mine}")
+        check_q = queries[:REPL_CHECK_Q]
+        want_c = _repl_answers(rcol, check_q)
+        got_c = _node_run(K, counts, lambda: [_repl_answers(cols[i], check_q) for i in (0, 2)])
+        for i, g in zip((0, 2), got_c):
+            _same_repl(g, want_c, f"15c through node-{i} after the heal")
+        if got_c[0][0] != got_c[1][0]:
+            raise AssertionError("phase 15c: node-2's ids differ from node-0's")
+        if any(_local_rows(c, shards) != done + len(part) for c in cols):
+            raise AssertionError("phase 15c: a node's rows after the heal")
+        log(f"phase 15c partition and anti-entropy [{smi}]: node-2 cut off; {len(part)} rows at "
+            f"QUORUM through node-0 acknowledged in {part_s:.2f} s; one put at ALL refused "
+            f"({all_err}); {len(sample)} QUORUM get_object through node-0 read the "
+            f"acknowledged rows ({quorum_read_ms:.2f} ms each); healed, every replica serving "
+            f"after {serve_s:.2f} s; {rounds} hashbeat rounds on each node (tree depth "
+            f"{REPL_DEPTH}) applied {applied} rows in {conv_s:.2f} s until every shard's "
+            f"Merkle roots were equal; /v1/debug/replication: {len(mine)} shards converged, "
+            f"{snap['totals']['rounds']} rounds; {REPL_CHECK_Q} nearVector through node-2 and "
+            f"node-0 bit for bit the reference's ({time.perf_counter() - t_part:.1f} s, "
+            f"{pause_s:.1f} s of it waiting for the nodes' cycles in flight)")
+
+        # 15d: read repair of a newer version written to node-0's replica only
+        t_part = time.perf_counter()
+        u, v1 = _uuid(1600, 5), first[5]
+        old_d = {r.uuid: r.distance for r in rcol.near_vector(
+            v1, k=CLUSTER_K, include_objects=False)}[u]
+        v2 = first[6]
+        newer = StorageObject(uuid=u, properties={"category": "repaired", "views": 99},
+                              last_update_time_ms=int(time.time() * 1000) + 5000)
+        newer.vector = np.asarray(v2, np.float32)
+        s_u = col.sharding.shard_for(u)
+        cols[0]._load_shard(s_u).put_object_batch([newer])
+        with faultline.node_scope("node-2"):
+            t1 = time.perf_counter()
+            obj = cols[2].get_object(u, consistency="ALL")
+            repair_ms = 1e3 * (time.perf_counter() - t1)
+        if obj is None or obj.properties["category"] != "repaired":
+            raise AssertionError(f"phase 15d: the read at ALL through node-2 returned {obj}")
+        if any(c._load_shard(s_u).get_object(u).properties["category"] != "repaired"
+               for c in cols):
+            raise AssertionError("phase 15d: a replica is still stale after the read repair")
+        rcol.put_object({"category": "repaired", "views": 99}, vector=v2, uuid=u)
+        want_d = _repl_answers(rcol, v1[None])
+        got_d = _node_run(K, counts, lambda: [_repl_answers(c, v1[None]) for c in cols])
+        for i, g in enumerate(got_d):
+            _same_repl(g, want_d, f"15d through node-{i}")
+            if any(x == _uid_int(u) and float(d) == old_d for x, d in zip(g[0][0], g[1][0])):
+                raise AssertionError(f"phase 15d: node-{i} returned the old row's distance")
+        slots = [len(c._load_shard(s_u).vector_indexes[""]) - c._load_shard(s_u).object_count()
+                 for c in cols]
+        if any(slots):
+            raise AssertionError(f"phase 15d: live slots beyond the objects {slots}")
+        log(f"phase 15d read repair [{smi}]: a newer version of one object on node-0's replica "
+            f"only; get_object(consistency=\"ALL\") through node-2 returned it in "
+            f"{repair_ms:.1f} ms and repaired node-1 and node-2; nearVector with the old vector "
+            f"through each node bit for bit the reference's, none at the old row's distance "
+            f"{old_d:.6f}, no extra live slot ({time.perf_counter() - t_part:.1f} s)")
+
+        # 15e: the scaler, factor 1 -> 3 through node-0's update_collection
+        t_part = time.perf_counter()
+        scols = [n.get_collection(sname) for n in nodes]
+        srcol = ref.get_collection(srname)
+        scent = centers(seed + 17)
+        sdone, sfirst = 0, None
+        while sdone < scale_rows:
+            n = min(IMPORT_BATCH, scale_rows - sdone)
+            batch = _cluster_rows(seed + 17, sdone, n, scent, 1700)
+            if sfirst is None:
+                sfirst = np.stack([o["vector"] for o in batch])
+            res = scols[0].batch_put(batch) + srcol.batch_put(batch)
+            if any(r["status"] != "SUCCESS" for r in res):
+                raise AssertionError(f"phase 15e: batch_put failed: {res[0]}")
+            sdone += n
+        held = {n.name: _local_rows(c, [s for s in shards if c._is_local(s)])
+                for n, c in zip(nodes, scols)}
+        cfg = copy.deepcopy(scols[0].config)
+        cfg.replication.factor = 3
+        t1 = time.perf_counter()
+        _cluster_schema(lambda: nodes[0].update_collection(cfg),
+                        lambda: nodes[0].get_collection(sname).config.replication.factor == 3,
+                        "the scaler's update_collection", phase="15")
+        scale_s = time.perf_counter() - t1
+        _cluster_wait(lambda: all(c.config.replication.factor == 3 and all(
+            len(c.sharding.nodes_for(s)) == 3 for s in shards) for c in scols), 20.0,
+            "factor 3 on every node", phase="15",
+            detail=lambda: _schema_state(nodes, scols, shards))
+        placed_s = time.perf_counter() - t1
+        copied = 2 * sdone  # each shard to the two nodes that lacked it
+        if any(_local_rows(c, shards) != sdone for c in scols):
+            raise AssertionError(f"phase 15e: rows a node after the scale "
+                                 f"{[_local_rows(c, shards) for c in scols]}")
+        squeries = near_queries(seed + 17, rng.integers(0, len(sfirst), REPL_CHECK_Q),
+                                lambda r: sfirst[r])
+        want_e = _repl_answers(srcol, squeries)
+        with _remote_searches(nodes) as remote_calls:
+            got_e = _node_run(K, counts, lambda: [_repl_answers(c, squeries) for c in scols])
+        for i, g in enumerate(got_e):
+            _same_repl(g, want_e, f"15e through node-{i} after the scale")
+        if remote_calls:
+            raise AssertionError(f"phase 15e: {len(remote_calls)} remote search RPCs")
+        log(f"phase 15e scaler [{smi}]: a factor-1 collection of {sdone} rows (rows a node "
+            f"{held}) scaled to 3 through node-0's update_collection in {scale_s:.2f} s "
+            f"(the copies and two Raft commits; every node at factor 3 after "
+            f"{placed_s:.2f} s): {copied} rows copied, {copied / scale_s:.0f} rows/s; "
+            f"{REPL_CHECK_Q} nearVector through each node answered locally, bit for bit the "
+            f"reference's ({time.perf_counter() - t_part:.1f} s); phase 15's launches through "
+            f"the nodes {counts}")
+        return counts
+    finally:
+        faultline.heal()
+        paused.close()
+        for n in nodes:
+            n.close()
+        if ref is not None:
+            ref.close()
+        shutil.rmtree(base, ignore_errors=True)
+        gc.collect()
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+
+
 # -- phases 11 and 12 in a second process -----------------------------------------
 
 LANE_TAG = "lane result: "  # the second process's closing line, before its JSON
@@ -6295,8 +6821,9 @@ def run_lane(torch, K, seed: int, ann_rows: int, rows: int) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--rows", type=int, default=ROWS,
-                    help="corpus rows (default: the 1M of Performance768D1M)")
+    ap.add_argument("--rows", type=int, default=None,
+                    help="corpus rows (default: the 1M of Performance768D1M; "
+                    f"--replication-only: {REPL_ONLY_ROWS:,})")
     ap.add_argument("--hybrid-docs", type=int, default=FIQA_DOCS,
                     help="phase 7's documents (default: FiQA-2018's 57,638)")
     ap.add_argument("--topk-times", action="store_true",
@@ -6338,9 +6865,16 @@ def main() -> int:
                     help="only phases 0, 1 and 14 (the cluster) at --rows rows, no import "
                     f"budget, and sealed epochs of {CLUSTER_EPOCH_ONLY_ROWS:,} rows (no result "
                     "line)")
+    ap.add_argument("--replication-only", action="store_true",
+                    help="only phases 0, 1 and 15 (replication) at --rows rows (default "
+                    f"{REPL_ONLY_ROWS:,}), no import "
+                    f"budget, and a scaled collection of {REPL_SCALE_ONLY_ROWS:,} rows (no "
+                    "result line)")
     ap.add_argument("--import-run", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--lane", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.rows is None:
+        args.rows = REPL_ONLY_ROWS if args.replication_only else ROWS
     if args.import_run:  # --import-times' child: one import run, its JSON line
         import torch
 
@@ -6363,7 +6897,8 @@ def main() -> int:
     t0 = time.perf_counter()
     device = phase_card(torch)
     special = (args.topk_times or args.bq_times or args.block_times or args.dist_times
-               or args.ann_only or args.mesh_only or args.import_times or args.cluster_only)
+               or args.ann_only or args.mesh_only or args.import_times or args.cluster_only
+               or args.replication_only)
     warm_up = None if special else profiler_warm_up()  # beside the build
     phase_build(K)
     if args.topk_times:
@@ -6429,6 +6964,11 @@ def main() -> int:
                       CLUSTER_EPOCH_ONLY_ROWS, CLUSTER_ONLY_QUERIES)
         log(f"total {time.perf_counter() - t0:.1f} s")
         return 0
+    if args.replication_only:
+        phase_replication(torch, K, args.seed, args.rows, float("inf"),
+                          REPL_SCALE_ONLY_ROWS, REPL_ONLY_QUERIES)
+        log(f"total {time.perf_counter() - t0:.1f} s")
+        return 0
     if args.import_times:
         for part in import_times(torch, args.seed, args.hybrid_docs, args.import_rows):
             log(f"import times: {part}")
@@ -6486,15 +7026,17 @@ def main() -> int:
     counts13 = timed("13", phase_tenants, torch, K, args.seed, TENANTS, warm_up=warm_up)
     counts14 = timed("14", phase_cluster, torch, K, args.seed, args.rows, CLUSTER_BUDGET_S,
                      CLUSTER_EPOCH_ROWS)
+    counts15 = timed("15", phase_replication, torch, K, args.seed, args.rows, REPL_BUDGET_S,
+                     REPL_SCALE_ROWS)
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         # launches over the main paths: phases 4, 5, 6, 7, 8, the server's
         # 9a, 9b and 9c, the epochs' 10, the ANN indexes' 11, the mesh's 12,
-        # the tenants' 13 and the cluster's 14, and phase 2's window for the
-        # two kernels that no path runs
+        # the tenants' 13, the cluster's 14 and replication's 15, and phase
+        # 2's window for the two kernels that no path runs
         launches = sum(c[name] for c in (counts4, counts5, counts6, counts7, counts8,
                                          counts9a, counts9b, counts9c, counts10, counts11,
-                                         counts12, counts13, counts14))
+                                         counts12, counts13, counts14, counts15))
         if name in PHASE2_PATH:
             launches += counts2[name]
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,

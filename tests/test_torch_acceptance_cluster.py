@@ -1,8 +1,8 @@
 """Black-box multi-node acceptance against the port: three port cluster
 nodes (shards on the CPU) each serving the public REST API; schema via
-Raft from one node, writes through another, reads through a third (a copy
-of the factor-1 tests of tests/test_acceptance_cluster.py; its quorum
-test waits for the replication slice).
+Raft from one node, writes through another, reads through a third, and a
+replicated class surviving a node's death at QUORUM (a copy of the tests
+of tests/test_acceptance_cluster.py).
 
 Reference pattern: test/acceptance/multi_node + replication flows against
 real N-node clusters (docker compose); here the nodes are in-process but
@@ -207,3 +207,74 @@ def test_cluster_wide_backup_restore(cluster, tmp_path_factory):
         return n if n == 45 else None
 
     assert _wait(count, timeout=40) == 45
+
+
+def test_node_failure_detection_and_quorum(tmp_path_factory):
+    """Kill one node of three: gossip marks it dead, the survivors keep
+    serving, QUORUM writes to a replicated class still succeed, and
+    Raft re-elects so schema writes keep working (reference: memberlist
+    NotifyLeave + consistency levels + leader re-election)."""
+    tmp = tmp_path_factory.mktemp("failure")
+    nodes = _boot_cluster(tmp, ["f0", "f1", "f2"], gossip_interval=0.15)
+    victim_name = None
+    try:
+        clients = [Client(n.serve_rest().address) for n in nodes]
+        c0, c1, c2 = clients
+        c0.create_class({"class": "HA",
+                         "shardingConfig": {"desiredCount": 2},
+                         "replicationConfig": {"factor": 3},
+                         "properties": [{"name": "n",
+                                         "dataType": ["int"]}]})
+        _wait(lambda: c2.get_class("HA"))
+        rng = np.random.default_rng(0)
+        res = c0.batch_objects([
+            {"class": "HA", "properties": {"n": i},
+             "vector": rng.standard_normal(8).tolist()}
+            for i in range(20)])
+        assert all(r["result"]["status"] == "SUCCESS" for r in res)
+
+        # kill a NON-leader, NON-coordinator node
+        leader = next(n for n in nodes if n.raft.role == "leader")
+        victim = next(n for n in nodes
+                      if n is not leader and n is not nodes[0])
+        victim_name = victim.name
+        victim.close()
+
+        # survivors notice the death
+        survivors = [n for n in nodes if n.name != victim_name]
+        _wait(lambda: all(victim_name not in s.membership.alive_nodes()
+                          for s in survivors), timeout=20)
+        _wait(lambda: any(
+            n["name"] == victim_name and n["status"] != "HEALTHY"
+            for n in clients[0].nodes()), timeout=20)
+
+        # QUORUM writes (2 of 3) still succeed with one replica down
+        res = c0.batch_objects([
+            {"class": "HA", "properties": {"n": 100 + i},
+             "vector": rng.standard_normal(8).tolist()}
+            for i in range(10)])
+        assert all(r["result"]["status"] == "SUCCESS" for r in res), res
+
+        # reads through a survivor see all live data
+        def full_count():
+            o = c0.graphql("{ Aggregate { HA { meta { count } } } }")
+            if "errors" in o:
+                return None
+            n = o["data"]["Aggregate"]["HA"][0]["meta"]["count"]
+            return o if n == 30 else None
+
+        _wait(full_count, timeout=20)
+
+        # schema writes still work (raft majority of 2 holds; leader
+        # re-election covered when the victim WAS about to lead)
+        c0.create_class({"class": "PostFailure", "properties": [
+            {"name": "x", "dataType": ["text"]}]})
+        _wait(lambda: "PostFailure" in [
+            c["class"] for c in c0.get_schema()["classes"]])
+    finally:
+        for n in nodes:
+            if n.name != victim_name:
+                try:
+                    n.close()
+                except Exception:
+                    pass

@@ -1,7 +1,9 @@
-"""The port's cluster under chaos (a copy of the factor-1 cluster tests of
+"""The port's cluster under chaos (a copy of the cluster tests of
 tests/test_chaos.py, nodes on the CPU): a Raft leader isolated again and
 again, a dead node's shard degrading a scatter-gather read to a
-``missing_shard`` marker, and the two asymmetric leaders.
+``missing_shard`` marker, the two asymmetric leaders, 2PC writes under
+dropped replica replies, and a replicated read downgraded to the one
+replica left.
 """
 
 import time
@@ -24,6 +26,9 @@ def _port_cluster_isolation():
     faultline.heal()
     degrade.reset()
     transport.reset_breakers()
+    from weaviate_tpu_torch.replication.hashbeater import replication_status
+
+    replication_status.reset()
 
 
 def test_raft_partition_flap(tmp_path):
@@ -146,6 +151,81 @@ def _wait_for(cond, timeout=10.0, msg="condition"):
             return
         time.sleep(0.05)
     raise AssertionError(f"timed out waiting for {msg}")
+
+
+def _create_replicated(nodes, name, shards):
+    nodes[0].create_collection(CollectionConfig(
+        name=name, properties=[Property(name="body", data_type="text")],
+        sharding=ShardingConfig(desired_count=shards),
+        replication=ReplicationConfig(factor=3)))
+    _wait_for(lambda: all(name in n.db.collections for n in nodes),
+              msg="schema everywhere")
+    return [n.db.get_collection(name) for n in nodes]
+
+
+def test_2pc_commits_despite_injected_replica_rpc_drops(chaos_cluster):
+    """Seeded reply-drop schedule on the replica data plane during 2PC:
+    QUORUM writes must keep committing (a lost ack is not a lost
+    write), nothing may hang, and the fault counter must account for
+    every scheduled drop."""
+    from weaviate_tpu_torch.replication.replicator import ConsistencyError
+    from weaviate_tpu_torch.runtime.metrics import fault_injected_total
+
+    nodes = chaos_cluster
+    cols = _create_replicated(nodes, "Drop", 2)
+    before = fault_injected_total.labels("transport.rpc.send",
+                                         "drop").value
+    uuids = [f"00000000-0000-0000-0000-{i:012d}" for i in range(8)]
+    with faultline.injected(
+            "transport.rpc.send", action="drop", every=3,
+            match=lambda a: str(a.get("path", "")).startswith("/replicas/"),
+    ) as sched:
+        for i, u in enumerate(uuids):
+            end = time.time() + 20.0
+            while True:
+                try:
+                    cols[0].put_object({"body": f"doc {i}"},
+                                       vector=[float(i), 1.0], uuid=u,
+                                       consistency="QUORUM")
+                    break
+                except ConsistencyError:
+                    # a drop pattern can align with BOTH remote replicas
+                    # of one write; the coordinator aborts and the
+                    # client retries — never hangs
+                    assert time.time() < end
+        injected = sched.injected
+    assert injected >= 1  # the schedule really fired mid-2PC
+    assert fault_injected_total.labels(
+        "transport.rpc.send", "drop").value == before + injected
+    # every write is durably readable at QUORUM via another coordinator
+    for i, u in enumerate(uuids):
+        got = cols[1].get_object(u, consistency="QUORUM")
+        assert got is not None and got.properties["body"] == f"doc {i}"
+
+
+def test_replicated_read_downgrades_consistency_with_marker(chaos_cluster):
+    """With replicas dead, a QUORUM read serves the best-known value
+    tagged consistency_downgraded instead of raising; an ALL read stays
+    strict."""
+    from weaviate_tpu_torch.replication.replicator import ConsistencyError
+
+    nodes = chaos_cluster
+    cols = _create_replicated(nodes, "DownG", 1)
+    u = "10000000-0000-0000-0000-000000000001"
+    cols[0].put_object({"body": "survives"}, vector=[1.0, 0.0], uuid=u,
+                       consistency="ALL")
+    # kill both peers: only the local replica can answer
+    for n in nodes[1:]:
+        n.server.stop()
+    with degrade.collecting():
+        got = cols[0].get_object(u, consistency="QUORUM")
+        markers = degrade.snapshot()
+    assert got is not None and got.properties["body"] == "survives"
+    assert any(m["kind"] == "consistency_downgraded" for m in markers), \
+        markers
+    # ALL stays strict: the caller named every replica
+    with pytest.raises(ConsistencyError):
+        cols[0].get_object(u, consistency="ALL")
 
 
 def test_replica_loss_degrades_scatter_gather_reads(chaos_cluster):

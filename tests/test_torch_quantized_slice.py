@@ -293,7 +293,10 @@ def test_update_collection_compresses_live_class(tmp_path):
             tdb.update_collection(cfg3)
         cfg4 = copy.deepcopy(tc.config)
         cfg4.replication.factor = 2
-        with pytest.raises(NotImplementedError):
+        # the scaler refuses a factor above the node count, as the JAX one
+        from weaviate_tpu_torch.cluster.scaler import ScaleError
+
+        with pytest.raises(ScaleError, match="exceeds cluster size"):
             tdb.update_collection(cfg4)
         assert tc.config.replication.factor == 1
     finally:

@@ -1,8 +1,9 @@
 """The port's Raft log and schema FSM: restart safety (a copy of the Raft
-section of tests/test_crash_recovery.py, nodes on the CPU), the FSM held
-to the JAX package's after the same proposals, and the slice's rules (a
-replication factor above 1 is refused before anything is proposed; a
-node without ``device=`` needs CUDA; the cluster imports without JAX).
+section of tests/test_crash_recovery.py, nodes on the CPU), a proposal
+whose entry a new leader replaced (the port raises and proposes again;
+the JAX Raft reports it applied), the FSM held to the JAX package's after
+the same proposals, and the port's rules (a node without ``device=``
+needs CUDA; the cluster imports without JAX).
 """
 
 import subprocess
@@ -137,6 +138,96 @@ def test_raft_acked_append_survives_restart(tmp_path):
     assert [e["op"].get("i") for e in node2.log] == [0, 1, 2]
     assert node2.current_term == 1
     store2.close()
+
+
+def _overwritten_proposal(node) -> dict:
+    """A leader at term 2 proposes an op its followers never receive; a
+    leader of term 3 that never saw it puts its no-op barrier at the same
+    index and commits it. Returns what the proposal returned or raised."""
+    import threading
+
+    node.role = "leader"
+    node.leader_id = "me"
+    node.current_term = 2
+    node._next_index = {"a": 0, "b": 0}
+    node._match_index = {"a": -1, "b": -1}
+    node._replicate_all = lambda: None  # the entry reaches no follower
+    out: dict = {}
+
+    def propose():
+        try:
+            out["index"] = node.propose_local(
+                {"type": "update_sharding", "class": "C", "placement": {},
+                 "factor": 3}, timeout=10.0)
+        except Exception as e:  # noqa: BLE001 — the outcome under test
+            out["error"] = e
+
+    t = threading.Thread(target=propose)
+    t.start()
+    deadline = time.time() + 10.0
+    while node._abs_last() < 0 and time.time() < deadline:
+        time.sleep(0.01)
+    reply = node._handle_append({"term": 3, "leader": "a", "prev_index": -1,
+                                 "prev_term": 0,
+                                 "entries": [{"term": 3,
+                                              "op": {"type": "noop"}}],
+                                 "leader_commit": 0})
+    t.join(10.0)
+    assert reply["success"] and not t.is_alive()
+    assert node.log == [{"term": 3, "op": {"type": "noop"}}]
+    return out
+
+
+def test_an_overwritten_proposal_is_not_reported_applied(tmp_path):
+    """The index a proposal waited on applied another leader's entry: the
+    proposal raises, so the caller proposes again (a scaler's placement
+    reported committed here would never reach any node's schema)."""
+    from weaviate_tpu_torch.cluster.raft import LostEntryError
+
+    store = KVStore(str(tmp_path))
+    out = _overwritten_proposal(_solo_raft(store))
+    store.close()
+    assert "index" not in out
+    assert isinstance(out.get("error"), LostEntryError), out
+
+
+def test_the_jax_raft_reports_an_overwritten_proposal_applied(tmp_path):
+    """The JAX package's Raft returns the overwritten proposal's index as
+    if its op had committed: the port's raising is a deliberate
+    difference."""
+    from weaviate_tpu.cluster.raft import RaftNode
+    from weaviate_tpu.storage.kv import KVStore as JaxKVStore
+
+    store = JaxKVStore(str(tmp_path))
+    bucket = store.bucket("raft", "replace", sync_wal=True)
+    node = RaftNode("me", ["me", "a", "b"], lambda n: None, _StubServer(),
+                    apply_fn=lambda op: None, store_bucket=bucket)
+    out = _overwritten_proposal(node)
+    store.close()
+    assert out == {"index": 0}
+
+
+def test_propose_retries_a_lost_entry_until_it_commits(tmp_path):
+    """``propose`` on a leader whose first entry was replaced proposes the
+    op again and returns the index where it did commit."""
+    from weaviate_tpu_torch.cluster.raft import LostEntryError, RaftNode
+
+    store = KVStore(str(tmp_path))
+    node = _solo_raft(store)
+    node.role = "leader"
+    node.leader_id = "me"
+    calls = []
+
+    def flaky(op, timeout=10.0):
+        calls.append(op)
+        if len(calls) == 1:
+            raise LostEntryError("replaced")
+        return 7
+
+    node.propose_local = flaky
+    assert RaftNode.propose(node, {"type": "noop2"}, timeout=5.0) == 7
+    assert len(calls) == 2
+    store.close()
 
 
 @pytest.fixture
@@ -399,52 +490,6 @@ def solo_node(tmp_path):
 
 def _log_len(node) -> int:
     return node.raft.log_start + len(node.raft.log)
-
-
-def test_factor_above_one_is_refused_before_the_propose(solo_node):
-    """A factor-2 create, update or tenant add raises before anything is
-    proposed: the Raft log keeps its length."""
-    import copy
-
-    from weaviate_tpu_torch.schema.config import (CollectionConfig,
-                                                  MultiTenancyConfig,
-                                                  ReplicationConfig)
-
-    node = solo_node
-    node.create_collection(CollectionConfig(name="One"))
-    node.create_collection(CollectionConfig(
-        name="Tenants", multi_tenancy=MultiTenancyConfig(enabled=True)))
-    _wait(lambda: {"One", "Tenants"} <= set(node.db.collections),
-          msg="both classes applied")
-    before = _log_len(node)
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        node.create_collection(CollectionConfig(
-            name="Two", replication=ReplicationConfig(factor=2)))
-    cfg = copy.deepcopy(node.db.get_collection("One").config)
-    cfg.replication.factor = 2
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        node.update_collection(cfg)
-    col = node.db.get_collection("Tenants")
-    col.config.replication.factor = 2  # a factor the port never built
-    try:
-        with pytest.raises(NotImplementedError, match="item 7b"):
-            node.add_tenants("Tenants", ["t1"])
-    finally:
-        col.config.replication.factor = 1
-    assert _log_len(node) == before
-    assert "Two" not in node.db.collections
-    assert node.db.get_collection("One").config.replication.factor == 1
-    assert col.sharding.shard_names == []
-
-
-def test_node_registers_no_replication_plane(solo_node):
-    """The port's node registers no replica handlers and no hashbeat
-    cycle (the replication slice)."""
-    routes = set(solo_node.server.routes)
-    assert not any(r.startswith("/replicas") for r in routes), routes
-    assert "/indices/" in routes
-    cycles = set(solo_node.db.cycles._callbacks)
-    assert "hashbeat" not in cycles and "hbm-gossip" in cycles
 
 
 def test_node_without_device_needs_cuda(tmp_path):

@@ -378,16 +378,26 @@ def test_profiler_port_and_native_plane_degrade_as_the_jax_server(
     ("/debug/drift", "item 8"),
 ])
 def test_unported_debug_routes_answer_500(tmp_path, route, item):
-    """The route of a plane still unported (replication, ROADMAP Queue 1
-    item 7b) answers 500 naming its item. The device-time routes that
-    item 8 listed (kernelscope, profile, drift) are ported: they answer
-    with the port's snapshots, and an unknown capture id is a 404."""
+    """The routes of the planes that ROADMAP Queue 1 items 7 and 8 listed
+    are ported: replication answers with the JAX package's keys, the
+    device-time routes (kernelscope, profile, drift) with the port's
+    snapshots, and an unknown capture id is a 404."""
     srv = TServer(_config(TConfig, tmp_path), device="cpu").start()
     try:
         status, out = _request(srv.rest.address, "GET", route)
         if item == "item 7":
-            assert status == 500
-            assert "item 7b" in out["error"][0]["message"]
+            from weaviate_tpu.api.rest import RestServer as JRest
+            from weaviate_tpu.db.database import Database as JDatabase
+
+            jdb = JDatabase(str(tmp_path / "jax"))
+            try:
+                want = JRest(jdb)._debug_replication()
+            finally:
+                jdb.close()
+            assert status == 200
+            assert set(out) == set(want) == {"shards", "totals", "staged"}
+            assert set(out["totals"]) == set(want["totals"])
+            assert out["staged"] == want["staged"] == {}
         elif route.endswith("?id=x"):
             assert status == 404
         else:

@@ -85,9 +85,7 @@ DEBUG_ENDPOINTS = {
                "quarantined .corrupt, segments rebuilt.",
     "replication": "Anti-entropy convergence: hashbeat rounds, "
                    "divergent-entry estimates, staged-2PC state and "
-                   "breaker/peer health per replicated shard (not "
-                   "ported: ROADMAP Queue 1 item 7b, the route answers "
-                   "500).",
+                   "breaker/peer health per replicated shard.",
     "perf": "Last benchkeeper perf-gate verdict: per-entry values, "
             "deltas vs the reasoned baseline, regressions/stale/"
             "missing counts.",
@@ -1156,13 +1154,34 @@ class RestServer:
         return out
 
     def _debug_replication(self) -> dict:
-        """GET /v1/debug/replication: anti-entropy convergence state.
-        The replication plane it reads (replication/hashbeater.py, the
-        staged 2PC entries) is not ported: the route answers 500 with
-        this message until it is."""
-        raise NotImplementedError(
-            "/v1/debug/replication: replication (replication/hashbeater.py)"
-            " is ROADMAP Queue 1 item 7b")
+        """GET /v1/debug/replication: anti-entropy convergence state —
+        per-shard last-beat age, rounds run, entries reconciled, last
+        diff size and divergence estimate, plus read-path divergence
+        observations, the staged 2PC entries and any armed partition
+        topology. The same registry feeds
+        weaviate_tpu_hashbeat_rounds_total and
+        weaviate_tpu_replica_divergent_entries."""
+        from weaviate_tpu_torch.replication.hashbeater import (
+            replication_status)
+        from weaviate_tpu_torch.runtime import faultline as _faultline
+
+        out = replication_status.snapshot()
+        # staged-2PC visibility: live (un-committed, un-aborted) entries
+        # per loaded shard and how many the TTL path expired
+        staged = {}
+        for cname in self.db.list_collections():
+            col = self.db.get_collection(cname)
+            with col._lock:
+                items = sorted(col.shards.items())
+            for sname, shard in items:
+                st = shard.staged_status()
+                if st["staged"] or st["expired_total"]:
+                    staged[f"{cname}/{sname}"] = st
+        out["staged"] = staged
+        topo = _faultline.topology_snapshot()
+        if topo:
+            out["partitions"] = topo  # armed topology faults (chaos runs)
+        return out
 
     def _local_shard_details(self) -> list[dict]:
         """Per-shard breakdown for ?output=verbose (reference:

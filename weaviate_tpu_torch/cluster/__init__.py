@@ -1,10 +1,11 @@
 """Cluster layer: membership, schema consensus, remote shard data plane
-(port of ``weaviate_tpu/cluster``, replication factor 1).
+and the replica scaler (port of ``weaviate_tpu/cluster``).
 
 Reference: usecases/cluster/ (memberlist gossip), cluster/ (raft schema
 store), adapters/handlers/rest/clusterapi/ + adapters/clients/ (internal
-HTTP data plane), usecases/sharding (remote index). Replication (the
-scaler, 2PC, read repair, hashbeat) is ROADMAP Queue 1 item 7b.
+HTTP data plane), usecases/sharding (remote index), usecases/scaler
+(replication factor changes). 2PC writes, read repair and hashbeat live in
+``weaviate_tpu_torch.replication``.
 """
 
 from weaviate_tpu_torch.cluster.membership import Membership, NodeInfo

@@ -1,5 +1,5 @@
 """ClusterNode: one process-worth of the distributed database (port of
-``weaviate_tpu/cluster/node.py`` for replication factor 1).
+``weaviate_tpu/cluster/node.py``).
 
 Composes (reference: configure_api.go MakeAppState wiring order):
 internal HTTP server (clusterapi), gossip membership (usecases/cluster),
@@ -7,14 +7,11 @@ Raft schema store (cluster/), remote shard client (adapters/clients),
 and the node-local Database, whose shards live on ``device``: the CUDA
 card by default; without CUDA the node raises unless the caller names
 ``device="cpu"``. Schema writes go through Raft; object reads and writes
-go point to point over the data plane, and a shard's search runs on its
-owning node's card through that node's batcher.
-
-Two parts of the JAX node wait for replication (ROADMAP Queue 1 item
-7b): its replica handlers and the hashbeat cycle are not registered, and
-a replication factor above 1 is refused BEFORE anything is proposed (an
-entry that failed on every node's apply would stay in the log and fail
-again on every replay).
+go point to point over the data plane, and a shard's search runs on a
+node that holds a replica, on its card through that node's batcher. The
+replica handlers (``/replicas/...``: 2PC, digests, hashtree walks, sync)
+serve the node's shards, and a ``hashbeat`` cycle runs anti-entropy over
+every replicated collection.
 """
 
 from __future__ import annotations
@@ -33,14 +30,6 @@ from weaviate_tpu_torch.parallel.mesh import placement
 from weaviate_tpu_torch.schema.config import CollectionConfig, Property
 
 logger = logging.getLogger(__name__)
-
-REPLICATION = "replication factor above 1: ROADMAP Queue 1 item 7b"
-
-
-def _refuse_replication(factor: int) -> None:
-    if factor > 1:
-        raise NotImplementedError(REPLICATION)
-
 
 class ClusterNode:
     def __init__(self, name: str, data_dir: str, raft_peers: list[str],
@@ -78,6 +67,9 @@ class ClusterNode:
                            nodes_provider=self.membership.alive_nodes,
                            sync_wal=sync_wal, device=self.device)
         register_incoming(self.server, self.db)
+        from weaviate_tpu_torch.replication import register_replication
+
+        register_replication(self.server, self.db)
         self.fsm = SchemaFSM(self.db)
         # pinned sync regardless of PERSISTENCE_WAL_SYNC: raft answers
         # votes/appends only after (term, votedFor, log) are durable —
@@ -115,6 +107,10 @@ class ClusterNode:
         self.raft.start()
         if join:
             self.raft.request_join(join)
+        # anti-entropy beat over all replicated collections
+        # (reference: shard_hashbeater launched per shard at shard load)
+        self.db.cycles.register("hashbeat", self._hashbeat_cycle,
+                                interval=5.0, max_interval=60.0)
         # broadcast this node's device-memory ledger total (reference:
         # delegate.go piggybacks disk space on gossip the same way)
         self._publish_hbm()
@@ -131,6 +127,18 @@ class ClusterNode:
         up-to-30s-stale readings."""
         self.membership.set_meta(hbmBytes=self.db._local_hbm())
         return True
+
+    def _hashbeat_cycle(self) -> bool:
+        from weaviate_tpu_torch.replication import HashBeater
+        from weaviate_tpu_torch.runtime import faultline
+
+        did = False
+        # the cycle thread beats AS this node (partition topology src)
+        with faultline.node_scope(self.name):
+            for col in list(self.db.collections.values()):
+                if col.config.replication.factor > 1:
+                    did = HashBeater(col).beat() or did
+        return did
 
     def _gossiped_hbm(self) -> dict:
         """node -> last gossiped HBM ledger bytes (nodes that never
@@ -181,7 +189,6 @@ class ClusterNode:
         replays the descriptor's original placement so restored files
         match their shards)."""
         config.validate()
-        _refuse_replication(config.replication.factor)
         # placement computed ONCE here, applied identically everywhere.
         # Ledger-driven: candidates rank by gossiped HBM headroom
         # (lightest first, stable for un-reported nodes), so new
@@ -208,10 +215,15 @@ class ClusterNode:
         # successful propose would diverge this node from its peers
         self.db.validate_collection_update(new_cfg)
         cur = self.db.get_collection(new_cfg.name).config
-        # a factor change ships shard data through the scaler (the
-        # replication slice); refused here, before the propose
-        _refuse_replication(max(new_cfg.replication.factor,
-                                cur.replication.factor))
+        if new_cfg.replication.factor != cur.replication.factor:
+            # factor changes ship shard data first (usecases/scaler) and
+            # raft-commit placement+factor via "update_sharding"; by the
+            # time update_class applies, the factor already matches, so
+            # no node re-runs the scaler during FSM apply
+            from weaviate_tpu_torch.cluster.scaler import Scaler
+
+            Scaler(self.db, propose=self.raft.propose).scale(
+                new_cfg.name, new_cfg.replication.factor)
         self.raft.propose({"type": "update_class",
                            "config": new_cfg.to_dict()})
 
@@ -237,7 +249,6 @@ class ClusterNode:
 
     def add_tenants(self, collection: str, tenants: list[str]) -> None:
         col = self.db.get_collection(collection)
-        _refuse_replication(col.config.replication.factor)
         nodes = self.membership.alive_nodes()
         placed = []
         for t in tenants:

@@ -52,6 +52,12 @@ class NotLeaderError(RuntimeError):
         self.leader = leader
 
 
+class LostEntryError(RuntimeError):
+    """A proposal's entry was replaced before it committed: a new leader
+    that never received it wrote its own entry at the same index (Raft
+    §5.3), and the op that index applied is another one."""
+
+
 class RaftNode:
     def __init__(self, name: str, peers: list[str], resolver, server,
                  apply_fn, store_bucket=None,
@@ -98,6 +104,9 @@ class RaftNode:
         self.leader_id: str | None = None
         self._next_index: dict[str, int] = {}
         self._match_index: dict[str, int] = {}
+        # index -> term of the entry applied there, for the indexes a
+        # local proposal waits on (None until applied)
+        self._proposed: dict[int, int | None] = {}
         # last reply (ANY reply — an unsuccessful append still proves
         # connectivity) received from each peer while leading, and the
         # last time a leader's RPC reached US while following — the
@@ -589,6 +598,8 @@ class RaftNode:
         while self.last_applied < self.commit_index:
             self.last_applied += 1
             entry = self._entry(self.last_applied)
+            if self.last_applied in self._proposed:
+                self._proposed[self.last_applied] = entry["term"]
             op_type = entry["op"].get("type")
             if op_type in ("noop", "raft_conf"):
                 continue  # conf changes applied at append time
@@ -785,7 +796,16 @@ class RaftNode:
             with self._lock:
                 role, leader = self.role, self.leader_id
             if role == LEADER:
-                return self.propose_local(op, timeout=deadline - time.time())
+                try:
+                    return self.propose_local(
+                        op, timeout=deadline - time.time())
+                except (NotLeaderError, LostEntryError) as e:
+                    # deposed before the entry committed: propose again
+                    # through whoever leads now
+                    logger.info("raft %s: %s; proposing again", self.name, e)
+                    last_err = e
+                    time.sleep(0.05)
+                    continue
             if leader is not None:
                 try:
                     with faultline.node_scope(self.name):
@@ -817,7 +837,9 @@ class RaftNode:
             if self.role != LEADER:
                 raise NotLeaderError(self.leader_id)
             index = self._abs_last() + 1
-            self.log.append({"term": self.current_term, "op": op})
+            term = self.current_term
+            self.log.append({"term": term, "op": op})
+            self._proposed[index] = None
             self._persist_log(index)
             if op.get("type") == "raft_conf":
                 self._recompute_peers()  # conf effective at append (§6)
@@ -825,10 +847,21 @@ class RaftNode:
         self._replicate_all()
         deadline = time.time() + timeout
         with self._applied_cv:
-            while self.last_applied < index:
-                if time.time() >= deadline:
-                    raise TimeoutError("raft commit timed out")
-                self._applied_cv.wait(max(0.05, deadline - time.time()))
+            try:
+                while self.last_applied < index:
+                    if time.time() >= deadline:
+                        raise TimeoutError("raft commit timed out")
+                    self._applied_cv.wait(max(0.05, deadline - time.time()))
+                applied_term = self._proposed.get(index)
+            finally:
+                self._proposed.pop(index, None)
+        # an index reached through an installed snapshot has no applied
+        # term on record: the snapshot holds the op's effect or not, and
+        # the index stands as before
+        if applied_term is not None and applied_term != term:
+            raise LostEntryError(
+                f"raft entry {index} of term {term} was replaced by an "
+                f"entry of term {applied_term} before it committed")
         return index
 
     def wait_for_leader(self, timeout: float = 10.0) -> str:

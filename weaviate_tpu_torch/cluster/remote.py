@@ -10,7 +10,13 @@ encoding).
 
 Paths: POST /indices/{collection}/{shard}/{op}
 ops: search | objects (batch put) | object:get | object:delete |
-     object:exists | aggregate | overview
+     object:exists | aggregate | overview | objects:copy
+
+``objects:copy`` is the port's one op beyond the JAX package's wire: the
+scaler's copy onto a node that joins a shard's placement only after every
+copy has landed, so the node does not own the shard yet (the JAX
+package's scaler sends it as ``objects``, which that ownership check
+refuses).
 """
 
 from __future__ import annotations
@@ -100,6 +106,13 @@ class RemoteShardClient:
         self._call(node, collection, shard, "objects",
                    {"objects": raw_objects})
 
+    def copy_objects(self, node: str, collection: str, shard: str,
+                     raw_objects: list[bytes]) -> None:
+        """A scaler's copy: ``node`` takes the objects into its copy of
+        ``shard`` before the placement names it a replica."""
+        self._call(node, collection, shard, "objects:copy",
+                   {"objects": raw_objects})
+
     def get_object(self, node: str, collection: str, shard: str,
                    uuid: str) -> bytes | None:
         reply = self._call(node, collection, shard, "object:get",
@@ -152,6 +165,13 @@ def register_incoming(server, db) -> None:
             raise KeyError(subpath)
         collection_name, shard_name, op = parts
         col = db.get_collection(collection_name)
+        if op == "objects:copy":
+            # the scaler's copy lands BEFORE the placement (committed
+            # through Raft once every copy is in) names this node a
+            # replica: the only write taken for a shard not owned yet
+            col._load_shard(shard_name).put_object_batch(
+                [StorageObject.from_bytes(raw) for raw in payload["objects"]])
+            return {"ok": True}
         if db.local_node not in col.sharding.nodes_for(shard_name):
             raise ValueError(
                 f"node {db.local_node} does not own shard {shard_name!r}")

@@ -1,5 +1,5 @@
 """Collection: shard routing + scatter-gather queries (port of
-``weaviate_tpu/db/collection.py`` for replication factor 1).
+``weaviate_tpu/db/collection.py``).
 
 Reference: adapters/repos/db/index.go — putObject routes by sharding
 state, objectVectorSearch scatter-gathers across shards and merges by
@@ -16,9 +16,11 @@ backend. In a cluster a shard placed on another node is reached through
 aggregations and the nearVector / BM25 scatter legs go to the owning
 node, which searches its shard on its own card and batcher; a shard
 whose node is unreachable answers nothing and the query carries a
-``missing_shard`` marker. Replication (a factor above 1) is ROADMAP Queue
-1 item 7b. The write methods keep the JAX package's ``consistency``
-keyword, which a single-replica collection ignores, as the JAX one does.
+``missing_shard`` marker. A shard with several replicas (replication
+factor above 1) is written through the 2PC coordinator
+(``replication.Replicator``) at the write's consistency level and read at
+a level through ``replication.Finder`` (digest comparison, read repair);
+a query searches the local replica when this node holds one.
 """
 
 from __future__ import annotations
@@ -131,8 +133,6 @@ class Collection:
                  local_hbm_provider=None,
                  async_indexing: bool | None = None, device=None):
         config.validate()
-        if config.replication.factor > 1:
-            raise NotImplementedError("replication: ROADMAP Queue 1 item 7b")
         self.config = config
         self.data_dir = data_dir
         # row-sharded vector stores over a device mesh (parallel/mesh.py):
@@ -179,7 +179,8 @@ class Collection:
                 # starts at the lightest node
                 sharding_state = ShardingState.create(
                     config.sharding.desired_count,
-                    nodes=self._placement_nodes(), replication_factor=1)
+                    nodes=self._placement_nodes(),
+                    replication_factor=config.replication.factor)
         self.sharding = sharding_state
         # persistence hook: auto-created tenants must reach the schema
         # store or they vanish from the sharding state on restart
@@ -322,8 +323,9 @@ class Collection:
                 raise KeyError(f"tenant {tenant!r} does not exist")
             hook = self._auto_tenant_hook
             if hook is None:
-                self.sharding.add_tenant(tenant, nodes=self._nodes_provider(),
-                                         replication_factor=1)
+                self.sharding.add_tenant(
+                    tenant, nodes=self._nodes_provider(),
+                    replication_factor=self.config.replication.factor)
                 self._on_sharding_change(self)
                 self._record_tenant(tenant, "write")
                 return
@@ -426,7 +428,7 @@ class Collection:
         with self._lock:
             self.sharding.add_tenant(
                 tenant, nodes=nodes or self._nodes_provider(),
-                replication_factor=1)
+                replication_factor=self.config.replication.factor)
             if self._is_local(tenant):
                 self._load_shard(tenant)
             self._on_sharding_change(self)
@@ -556,14 +558,25 @@ class Collection:
             obj.vectors[name] = np.asarray(vec, dtype=np.float32)
         if self.config.multi_tenancy.enabled:
             self._ensure_tenant_shard(tenant)
-        self._write_to_shard(self.sharding.shard_for(uuid, tenant), [obj])
+        self._write_to_shard(self.sharding.shard_for(uuid, tenant), [obj],
+                             consistency)
         monitoring.objects_total.labels(self.config.name, "put").inc()
         return uuid
 
-    def _write_to_shard(self, shard_name: str, objs: list[StorageObject]) -> None:
-        """Write a batch to the shard's one replica: here, or on its node
-        over the shard RPC (the objects cross as their stored bytes)."""
-        node = self.sharding.nodes_for(shard_name)[0]
+    def _write_to_shard(self, shard_name: str, objs: list[StorageObject],
+                        consistency: str = "QUORUM") -> None:
+        """Write a batch to the shard's replicas. A replicated shard takes
+        the 2PC coordinator (reference: replica.Replicator,
+        replicator.go:57); a single-replica shard is written here, or on
+        its node over the shard RPC (the objects cross as their stored
+        bytes)."""
+        nodes = self.sharding.nodes_for(shard_name)
+        if len(nodes) > 1:
+            from weaviate_tpu_torch.replication import Replicator
+
+            Replicator(self).put_objects(shard_name, objs, consistency)
+            return
+        node = nodes[0]
         if node != self.local_node:
             self._require_remote(shard_name).put_objects(
                 node, self.config.name, shard_name,
@@ -603,7 +616,7 @@ class Collection:
             try:
                 if self.config.multi_tenancy.enabled:
                     self._ensure_tenant_shard(shard_name)
-                self._write_to_shard(shard_name, objs)
+                self._write_to_shard(shard_name, objs, consistency)
                 monitoring.objects_total.labels(self.config.name, "put"
                                                 ).inc(len(objs))
             except MemoryError:
@@ -618,8 +631,15 @@ class Collection:
 
     def get_object(self, uuid: str, tenant: str | None = None,
                    consistency: str | None = None) -> StorageObject | None:
+        """``consistency``: None = direct read from the preferred replica;
+        a level (ONE/QUORUM/ALL) = digest-compared read with read repair
+        (reference: Finder.Pull, coordinator.go:178)."""
         self._check_tenant(tenant)
         name = self.sharding.shard_for(uuid, tenant)
+        if consistency is not None and len(self.sharding.nodes_for(name)) > 1:
+            from weaviate_tpu_torch.replication import Finder
+
+            return Finder(self).get_object(uuid, name, consistency)
         if not self._is_local(name):
             raw = self._require_remote(name).get_object(
                 self._read_node(name), self.config.name, name, uuid)
@@ -644,10 +664,14 @@ class Collection:
                       consistency: str = "QUORUM") -> bool:
         self._check_tenant(tenant, kind="write")  # deletes are writes
         name = self.sharding.shard_for(uuid, tenant)
-        node = self.sharding.nodes_for(name)[0]
-        if node != self.local_node:
+        nodes = self.sharding.nodes_for(name)
+        if len(nodes) > 1:
+            from weaviate_tpu_torch.replication import Replicator
+
+            ok = Replicator(self).delete(name, uuid, consistency)
+        elif nodes[0] != self.local_node:
             ok = self._require_remote(name).delete_object(
-                node, self.config.name, name, uuid)
+                nodes[0], self.config.name, name, uuid)
         else:
             shard = self._load_shard(name)
             ok = shard.delete_object(uuid)
@@ -669,6 +693,7 @@ class Collection:
         return ok
 
     def object_count(self, tenant: str | None = None) -> int:
+        """One replica per shard counts (replicas would double-count)."""
         if self.config.multi_tenancy.enabled and not tenant:
             return 0
         total = 0

@@ -251,18 +251,23 @@ class Database:
         """Apply a schema update to a live collection: validate, persist
         the runtime-mutable fields, then push them into the live shards
         (runtime compression included). A replication-factor change moves
-        shard data through the scaler, which is not ported: it raises.
-        ``allow_scale=False`` is the Raft FSM's apply path, which ignores
-        a factor change as the JAX package's does (a factor only ever
-        commits through the "update_sharding" op)."""
+        shard data through the scaler first. ``allow_scale=False`` is the
+        Raft FSM's apply path: a factor change is IGNORED there (it only
+        ever commits through the deterministic "update_sharding" op), as
+        running the scaler inside FSM apply would make log application
+        network-dependent and differ across nodes."""
         with self._lock:
             self.validate_collection_update(new_cfg)
             cur = self.get_collection(new_cfg.name).config
             if allow_scale and \
                     new_cfg.replication.factor != cur.replication.factor:
-                raise NotImplementedError(
-                    "replication factor changes (the scaler): ROADMAP "
-                    "Queue 1 item 7b")
+                # recording the new number without copying would leave
+                # phantom replicas that hold nothing, so reads routed
+                # there would miss data (reference: usecases/scaler)
+                from weaviate_tpu_torch.cluster.scaler import Scaler
+
+                Scaler(self).scale(new_cfg.name,
+                                   new_cfg.replication.factor)
 
             def apply(cfg):
                 cfg.description = new_cfg.description

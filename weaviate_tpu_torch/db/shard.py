@@ -8,8 +8,11 @@ objects + postings land in the KV store, vectors in the device index;
 read path: the vector index's top-k through the shard's query batcher,
 resolved to uuids; keyword search in the inverted index; hybrid search as
 one fused device program (BM25F of the host-planned candidates + fusion
-with the dense scan) riding the same batcher. The on-disk layout is the
-JAX package's, so either package reopens the other's shards.
+with the dense scan) riding the same batcher. For replication the shard
+stages 2PC writes until commit or abort, serves replica digests and a
+Merkle tree over them, and applies a peer's newer state (``apply_sync``).
+The on-disk layout is the JAX package's, so either package reopens the
+other's shards.
 """
 
 from __future__ import annotations
@@ -32,6 +35,12 @@ logger = logging.getLogger(__name__)
 
 class ShardReadOnlyError(RuntimeError):
     """Write refused: shard status is READONLY."""
+
+
+class StagedExpiredError(RuntimeError):
+    """2PC commit refused: the staged entry outlived the staged-entry
+    TTL (WEAVIATE_TPU_STAGED_TTL_S). The coordinator treats this like
+    any other per-replica commit failure — abort + anti-entropy."""
 
 
 # bucket names (reference: helpers/helpers.go:22-25)
@@ -173,6 +182,27 @@ class Shard:
         self.meta = self.store.bucket(BUCKET_META, "replace")
         # deletion tombstones (uuid -> mtime ms), as the JAX shard keeps
         self.tombstones = self.store.bucket("tombstones", "replace")
+        # staged 2PC batches: request id -> ("put", [objs]) | ("delete",
+        # uuid, tombstone_ms). In memory ON PURPOSE: a replica that dies
+        # between prepare and commit restarts with nothing staged (an
+        # implicit abort), and the write converges through anti-entropy
+        # if it committed elsewhere. Live orphans expire after
+        # ``staged_ttl_s``: gc drops them, and commit_staged REFUSES them
+        # even before gc ran, so a straggler commit racing a partition
+        # heal never lands a stale write late.
+        self._staged: dict[str, tuple] = {}
+        self.staged_ttl_s = float(os.environ.get(
+            "WEAVIATE_TPU_STAGED_TTL_S", str(self.STAGED_TTL_S)))
+        self._staged_expired = 0
+        # anti-entropy's digest snapshot: every write that changes an
+        # object's or a tombstone's digest bumps ``_digest_version``; the
+        # digest list and the hashtrees built at a version serve until
+        # the next such write. A beat round walks each replica's tree
+        # from every peer, and a rebuild decodes every object of the
+        # shard (the JAX shard rebuilds per walk).
+        self._digest_version = 0
+        self._digest_cache: tuple | None = None  # (version, [digests])
+        self._tree_cache: dict[int, tuple] = {}  # depth -> (version, tree)
         # epoch-migration routing overrides (uuid -> destination shard),
         # durable in the meta bucket; the in-memory count keeps the common
         # case (no migration ever) a free check on reads and puts
@@ -464,6 +494,7 @@ class Shard:
             self.tombstones.delete_many(k for k, _ in docid_puts)
             self.docid.put_many(docid_puts)
             self.objects.put_many(object_puts)
+            self._digest_version += 1
             for vec_name, (ids, vecs) in vec_batches.items():
                 idx = self._ensure_vector_index(vec_name, len(vecs[0]))
                 if idx is None:
@@ -615,6 +646,7 @@ class Shard:
             self.objects.delete(uuid.encode())
             self.tombstones.put(uuid.encode(),
                                 tombstone_ms or int(_time.time() * 1000))
+            self._digest_version += 1
             doc_id = int(raw)
             for q in self._index_queues.values():
                 q.delete(doc_id)  # drop any queued insert for this doc
@@ -1099,6 +1131,7 @@ class Shard:
                 self._delete_docs_batch(pairs)
             self.docid.delete_many(keys)
             self.objects.delete_many(keys)
+            self._digest_version += 1
             return len(pairs)
 
     def epoch_maintenance(self) -> bool:
@@ -1118,6 +1151,229 @@ class Shard:
             if idx_maintain is not None:
                 idx_maintain()
         return did
+
+    # -- replication support -------------------------------------------------
+
+    STAGED_TTL_S = 120.0
+
+    def stage(self, request_id: str, task: tuple) -> None:
+        """2PC prepare: hold a write until commit/abort
+        (reference: replica store staging before commit). A READONLY
+        shard votes NO here — failing at prepare keeps all replicas
+        consistent instead of silently diverging at commit."""
+        import time as _time
+
+        with self._lock:
+            if self.read_only:
+                raise ShardReadOnlyError(
+                    f"shard {self.name!r} is read-only (status READONLY)")
+            self._staged[request_id] = (_time.monotonic(), task)
+
+    def gc_staged(self) -> int:
+        """Drop staged batches whose coordinator never came back (crash
+        between prepare and commit/abort) — anti-entropy re-delivers the
+        write if it committed elsewhere. Every expiry is counted
+        (``weaviate_tpu_replication_staged_expired_total``): an orphaned
+        prepare must neither leak nor commit, and the counter is how a
+        chaos run proves the TTL path actually fired."""
+        import time as _time
+
+        cutoff = _time.monotonic() - self.staged_ttl_s
+        with self._lock:
+            stale = [rid for rid, (t, _task) in self._staged.items()
+                     if t < cutoff]
+            for rid in stale:
+                del self._staged[rid]
+            self._staged_expired += len(stale)
+        if stale:
+            self._count_staged_expired(len(stale))
+        return len(stale)
+
+    def _count_staged_expired(self, n: int) -> None:
+        try:
+            from weaviate_tpu_torch.runtime.metrics import (
+                replication_staged_expired)
+
+            replication_staged_expired.labels(
+                self.collection_name, self.name).inc(n)
+        except Exception:  # pragma: no cover — registry unavailable
+            pass
+
+    def commit_staged(self, request_id: str):
+        """2PC commit. An entry past its TTL is REFUSED, not applied:
+        without this, a commit that sat in flight across a partition
+        (or a coordinator straggler thread racing the heal) could land
+        a stale write long after the rest of the replica set aborted —
+        the expiry has to be deterministic at the commit boundary, not
+        dependent on whether the gc cycle happened to run first."""
+        import time as _time
+
+        with self._lock:
+            entry = self._staged.pop(request_id, None)
+            if entry is not None \
+                    and _time.monotonic() - entry[0] > self.staged_ttl_s:
+                self._staged_expired += 1
+                self._count_staged_expired(1)
+                raise StagedExpiredError(
+                    f"replication request {request_id!r} staged "
+                    f"{_time.monotonic() - entry[0]:.1f}s ago, past the "
+                    f"{self.staged_ttl_s:.0f}s TTL — refused (late "
+                    "commit after partition heal)")
+        if entry is None:
+            raise KeyError(f"unknown replication request {request_id!r}")
+        _t, task = entry
+        kind = task[0]
+        if kind == "put":
+            return self.put_object_batch(task[1])
+        if kind == "delete":
+            return self.delete_object(task[1], tombstone_ms=task[2])
+        raise ValueError(f"unknown staged task kind {kind!r}")
+
+    def staged_status(self) -> dict:
+        """Introspection for the chaos checker's leak invariant: live
+        staged entries (gc'd first so the answer is TTL-deterministic)
+        and the total this shard ever expired."""
+        self.gc_staged()
+        with self._lock:
+            return {"staged": len(self._staged),
+                    "expired_total": self._staged_expired}
+
+    def abort_staged(self, request_id: str) -> None:
+        with self._lock:
+            self._staged.pop(request_id, None)
+
+    def object_digest(self, uuid: str) -> dict | None:
+        """Replica-comparable digest (reference: Finder digest reads,
+        repairer.go). None = never seen here."""
+        raw = self.objects.get(uuid.encode())
+        if raw is not None:
+            obj = StorageObject.from_bytes(raw)
+            return {"uuid": uuid, "mtime": obj.last_update_time_ms,
+                    "deleted": False, "hash": obj.content_hash()}
+        ts = self.tombstones.get(uuid.encode())
+        if ts is not None:
+            return {"uuid": uuid, "mtime": int(ts), "deleted": True,
+                    "hash": b""}
+        return None
+
+    def iter_digests(self):
+        """Every live object's digest, in doc-id order, then every
+        tombstone's: the JAX shard's entries in its order. The objects come
+        from ONE scan of the objects bucket (a point read a uuid, as the
+        JAX shard does, costs several times as much once the bucket has
+        segments)."""
+        with self._lock:
+            uuids = list(self._doc_to_uuid.values())
+            tombs = [(k.decode(), int(v)) for k, v in
+                     ((k, self.tombstones.get(k)) for k in
+                      self.tombstones.keys()) if v is not None]
+        live = {}
+        for _key, raw in self.objects.iter_items():
+            obj = StorageObject.from_bytes(raw)
+            live[obj.uuid] = {"uuid": obj.uuid,
+                              "mtime": obj.last_update_time_ms,
+                              "deleted": False, "hash": obj.content_hash()}
+        for uuid in uuids:
+            d = live.get(uuid)
+            if d is not None:
+                yield d
+        for uuid, ts in tombs:
+            yield {"uuid": uuid, "mtime": ts, "deleted": True, "hash": b""}
+
+    def _digests(self) -> list[dict]:
+        """``iter_digests`` as a list, kept until the next write that
+        changes a digest. A write racing the walk leaves nothing cached."""
+        with self._lock:
+            version, cached = self._digest_version, self._digest_cache
+        if cached is not None and cached[0] == version:
+            return cached[1]
+        digests = list(self.iter_digests())
+        with self._lock:
+            if self._digest_version == version:
+                self._digest_cache = (version, digests)
+        return digests
+
+    def build_hashtree(self, depth: int = 8):
+        """Merkle tree over all digests (reference: shard hashtree kept
+        by the hashbeater), built once a digest version and depth; the
+        tree is shared, so callers only read it."""
+        from weaviate_tpu_torch.replication.hashtree import MerkleTree
+
+        with self._lock:
+            version = self._digest_version
+            cached = self._tree_cache.get(depth)
+        if cached is not None and cached[0] == version:
+            return cached[1]
+        tree = MerkleTree(depth)
+        for d in self._digests():
+            tree.insert(d["uuid"], d["mtime"], d["deleted"], d["hash"])
+        with self._lock:
+            if self._digest_version == version:
+                self._tree_cache[depth] = (version, tree)
+        return tree
+
+    def bucket_digests(self, depth: int, buckets: list[int]) -> list[dict]:
+        """Digest entries falling into the given hashtree leaf buckets."""
+        from weaviate_tpu_torch.replication.hashtree import MerkleTree
+
+        want = set(buckets)
+        return [d for d in self._digests()
+                if MerkleTree.bucket_of(d["uuid"], depth) in want]
+
+    def apply_sync(self, raw_objects: list[bytes],
+                   deletes: list[dict]) -> int:
+        """Apply newer peer state (anti-entropy propagation). Winner per
+        uuid decided by digest_rank (mtime, tombstone-beats-object,
+        content-hash tie-break). The winning objects land in ONE
+        put_object_batch (one scatter into the device store, where the
+        JAX shard puts them one at a time); a uuid pushed twice keeps its
+        highest-ranked copy."""
+        from weaviate_tpu_torch.replication.hashtree import digest_rank
+
+        applied = 0
+        with self._lock:
+            wins: dict[str, tuple] = {}  # uuid -> (object, its digest)
+            for raw in raw_objects:
+                obj = StorageObject.from_bytes(raw)
+                if self.migrated_to(obj.uuid):
+                    # the durable cutover moved this uuid to its marker
+                    # destination: re-applying a peer's (stale) copy here
+                    # would resurrect the moved-away object at its old
+                    # ring home — double-present to search, and the next
+                    # hashbeat would propagate the zombie back out.
+                    # Anti-entropy must respect the marker like reads do.
+                    logger.debug("apply_sync: skipping %s — migrated to "
+                                 "%s", obj.uuid, self.migrated_to(obj.uuid))
+                    continue
+                mine = wins.get(obj.uuid, (None, None))[1] \
+                    or self.object_digest(obj.uuid)
+                incoming = {"mtime": obj.last_update_time_ms,
+                            "deleted": False, "hash": obj.content_hash()}
+                if mine is not None and digest_rank(mine) >= digest_rank(incoming):
+                    continue
+                obj.doc_id = 0  # re-assigned locally
+                wins[obj.uuid] = (obj, incoming)
+            if wins:
+                self.put_object_batch([o for o, _d in wins.values()])
+                applied += len(wins)
+            for d in deletes:
+                mine = self.object_digest(d["uuid"])
+                incoming = {"mtime": d["mtime"], "deleted": True, "hash": b""}
+                if mine is None:
+                    # never saw it: record the tombstone so our tree converges
+                    self.tombstones.put(d["uuid"].encode(), d["mtime"])
+                    self._digest_version += 1
+                    applied += 1
+                    continue
+                if digest_rank(mine) >= digest_rank(incoming):
+                    continue
+                if mine["deleted"]:
+                    self.tombstones.put(d["uuid"].encode(), d["mtime"])
+                    self._digest_version += 1
+                else:
+                    self.delete_object(d["uuid"], tombstone_ms=d["mtime"])
+                applied += 1
+        return applied
 
     # -- maintenance ---------------------------------------------------------
 
@@ -1142,6 +1398,8 @@ class Shard:
             vector_index_hbm_bytes, vector_index_tombstones)
 
         did = False
+        if self.gc_staged():
+            did = True
         for b in self.store.buckets():
             # sealed-memtable flush + threshold compaction, all off the
             # write path (reference: store_cyclecallbacks.go)
