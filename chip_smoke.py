@@ -20,6 +20,7 @@ Run from the repository root:
     python3 chip_smoke.py --tenants-only             # phases 0-1 and 13 at 1,000 tenants
     python3 chip_smoke.py --cluster-only [--rows N]  # phases 0-1 and 14 at 1,000,000 rows
     python3 chip_smoke.py --replication-only [--rows N]  # phases 0-1 and 15 at 500,000 rows
+    python3 chip_smoke.py --chaos-only [--rows N]    # phases 0-1 and 16, 16c at 100,000 rows
 
 It drives the port's flat nearVector path at VectorDBBench's
 Performance768D1M case (Cohere wiki-22-12: 1,000,000 x 768, cosine,
@@ -315,6 +316,41 @@ is downloaded), in phases:
    before each run through the nodes and read after it (the reference's
    runs do not count).
 
+16. crash and chaos on the card over the port's harnesses
+   (tools/crashtest_torch, tools/clusterchaos_torch); 16b and 16c last
+   and alone (their elections and kills are timed). 16a, after phase 8
+   while this process waits for the second one (it times no election):
+   crashtest workers with ``--device cuda`` killed at
+   hnsw.snap.pre_replace, hnsw.snap.post_replace and
+   wal.append.post_fsync, side by side; each plan must fire and its store
+   verify after the restart (no acknowledged op lost, none phantom, a
+   non-empty recovery report) with the HNSW index reopened on the card.
+   16b: the chaos scenarios crash_during_2pc and partition_plus_crash
+   with every node's stores on cuda:0, the subprocess node's too: every
+   invariant held, every event fired. 16c: a Performance768D1M collection
+   (768-d cosine flat, factor 3) on three nodes, n2 a subprocess on the
+   card; 20,000 rows (``--chaos-only``: 100,000) through n0's batch_put
+   at QUORUM in batches of 1,000, n2 SIGKILLed at the midpoint and the
+   import going on, then n2 restarted: the seconds its shards take to
+   rebuild their device stores from the LSM, hashbeat rounds until every
+   shard's Merkle roots are equal, every acknowledged row's digest equal
+   on the three replicas and its object as written on n0 and n2 (read in
+   bulk), 512 of them read back through get_object at ALL, n2's store
+   bytes equal to n0's shard for shard, and 64 unfiltered, 64 filtered
+   and 16 fused nearVector k 100 through n2 (``/chaos/near_vector``)
+   served from its local replica (0 remote search RPCs), bit for bit n0's
+   local answers (ids tie-aware); n2's launch counters
+   (``/chaos/status``) must show distance_block, fused_topk_pairs and
+   fused_topk_scan. 16d runs right after phase 10, on phase 3's index
+   (``--chaos-only``: an index of its own with the same rows and
+   deletes): FlatIndex.search_by_vector_distance of 4 queries (thresholds
+   keeping about 50, 400, 3,000 and 20,000 rows, the last query under a
+   50% allow list) under selections approx and fused, every row within
+   the threshold as the host's recomputation finds it, none past it,
+   distances within 1e-5, launching distance_block, fused_topk_pairs and
+   fused_topk_scan; then EpochStore.get of 4,096 rows across five flat
+   epochs equal to the rows written.
+
 Phases 11 and 12 read nothing of phases 3 to 10, so they run in a second
 process on the same card (the hidden ``--lane`` mode), started when phase
 2 ends and joined after phase 8; its lines are printed when it ends, with
@@ -324,10 +360,11 @@ to 15 after it ends; the times of phases 3 to 12 are taken with both
 processes on the card and the host's cores (``--ann-only`` and
 ``--mesh-only`` run phases 11 and 12 alone).
 
-Phases 5, 6, 7, 8, 9a, 9b, 9c, 10, 11, 12, 13, 14 and 15 each reset the launch counters as they start
-and read them as they end: every kernel in QUANT_KERNELS must have run in
-phases 5 and 6, and ``bm25_block`` and ``distance_block`` in phase 7,
-whose run (d) must launch ``fused_topk_scan``.
+Phases 5, 6, 7, 8, 9a, 9b, 9c, 10, 11, 12, 13, 14, 15, 16c and 16d each
+reset the launch counters as they start and read them as they end (16c also
+reads n2's own before and after its queries): every kernel in QUANT_KERNELS
+must have run in phases 5 and 6, and ``bm25_block`` and ``distance_block``
+in phase 7, whose run (d) must launch ``fused_topk_scan``.
 
 It prints one line per phase, then a JSON line of per-kernel numbers, and
 as its last line ``{"ok": true, "device": {...}}``. Any failure exits
@@ -4153,6 +4190,7 @@ def phase_epochs(torch, K, seed: int, rows: int, st3: dict) -> dict:
             replace=False)) for eid in cut])
     eidx.delete(*doomed.tolist())
     idx.delete(*doomed.tolist())
+    st3["deleted"] = np.union1d(deleted, doomed)  # phase 16d reads phase 3's index after
     gc.collect()
     torch.cuda.synchronize()
     b_before, a_before = _epoch_bytes(ledger, owner), torch.cuda.memory_allocated()
@@ -6321,15 +6359,15 @@ def _repl_answers(col, queries, where=None) -> tuple:
     return ids, dists
 
 
-def _same_repl(got: tuple, want: tuple, what: str) -> None:
+def _same_repl(got: tuple, want: tuple, what: str, phase: str = "15") -> None:
     """ids through tie_aware_mismatches, distances bit for bit."""
     if [len(r) for r in got[0]] != [len(r) for r in want[0]]:
-        raise AssertionError(f"phase 15 {what}: answer lengths differ")
+        raise AssertionError(f"phase {phase} {what}: answer lengths differ")
     ai, bi = np.asarray(got[0]), np.asarray(want[0])
     ad, bd = np.float32(got[1]), np.float32(want[1])
     bad = tie_aware_mismatches(ai, ad, bi, bd)
     if bad or not np.array_equal(ad, bd) or not np.isfinite(ad).all():
-        raise AssertionError(f"phase 15 {what}: {bad} id mismatches, distances equal "
+        raise AssertionError(f"phase {phase} {what}: {bad} id mismatches, distances equal "
                              f"{np.array_equal(ad, bd)}")
 
 
@@ -6756,6 +6794,481 @@ def phase_replication(torch, K, seed: int, rows: int, budget_s: float, scale_row
             torch.cuda.empty_cache()
 
 
+# -- phase 16: crash and chaos on the card ------------------------------------------
+
+CRASH_PLANS = (("hnsw.snap.pre_replace", "kill"), ("hnsw.snap.post_replace", "kill"),
+               ("wal.append.post_fsync", "kill"))
+CHAOS_SCENARIOS = ("crash_during_2pc", "partition_plus_crash")
+KILL_ROWS = 20_000          # 16c's rows in the default run
+KILL_ONLY_ROWS = 100_000    # --chaos-only's
+KILL_BATCH = 1000           # 16c's QUORUM batches through n0
+KILL_QUERIES = 64           # 16c's nearVector through n2, unfiltered and filtered
+KILL_FUSED = 16             # ... and under selection "fused"
+KILL_MAX_ROUNDS = 8         # hashbeat rounds 16c may take to converge
+KILL_ALL_READS = 512        # 16c's rows read through get_object at ALL, spread over the
+                            # import (a read costs 6-13 ms of one host core; every row is
+                            # held by digest on the three replicas)
+KILL_RPC_S = 60.0           # per-attempt ceiling of a replica RPC in 16c
+RANGE_QUERIES = 4           # 16d's range searches, the last one filtered
+RANGE_WITHIN = (50, 400, 3000, 20_000)  # rows each query's threshold keeps (about)
+RANGE_TOL = 1e-5            # 16d: a returned distance against the host's float32 one;
+                            # rows this close to the threshold may fall either way
+EPOCH_GET_ROWS = 70_000     # 16d: rows of the EpochStore read back
+EPOCH_GET_EPOCH = 16_384
+CHAOS_KERNELS = ("distance_block", "fused_topk_pairs", "fused_topk_scan")
+
+
+def phase_crash(dev: str = "cuda") -> None:
+    """16a: tools/crashtest_torch workers killed at three crashpoints, side
+    by side, each store then reopened and verified with its HNSW index on
+    ``dev``."""
+    from tools.crashtest_torch.harness import POINT_PLANS, run_side_by_side
+
+    base = tempfile.mkdtemp(prefix="chip_smoke_crash_")
+    cases = [(point, variant, dict(POINT_PLANS[point])[variant],
+              os.path.join(base, f"{point}.{variant}")) for point, variant in CRASH_PLANS]
+    for case in cases:
+        os.makedirs(case[3])
+    t = time.perf_counter()
+    try:
+        results = run_side_by_side(cases, device=dev)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    parts = []
+    for res in results:
+        if not (res.fired and res.ok and res.recovery_nonempty):
+            raise AssertionError(f"phase 16a {res.point} {res.variant}: fired {res.fired} "
+                                 f"(rc {res.worker_rc}), ok {res.ok}, lost {res.lost[:3]}, "
+                                 f"phantom {res.phantom[:3]}")
+        if not res.hnsw_device.startswith(dev):
+            raise AssertionError(f"phase 16a {res.point}: the HNSW index reopened on "
+                                 f"{res.hnsw_device}")
+        parts.append(f"{res.point} ({res.variant}) fired, rc {res.worker_rc}, after "
+                     f"{res.journaled_ops} acknowledged ops: 0 lost, 0 phantom, HNSW reopened "
+                     f"on {res.hnsw_device}")
+    log(f"phase 16a crash workers [{_smi_line() if dev == 'cuda' else dev}]: "
+        + "; ".join(parts) + f" ({len(cases)} workers side by side, "
+        f"{time.perf_counter() - t:.1f} s with the verifies)")
+
+
+def phase_chaos_scenarios(dev: str = "cuda") -> None:
+    """16b: two tools/clusterchaos_torch scenarios, every node's stores on
+    ``dev``, the subprocess node's too."""
+    from tools.clusterchaos_torch.harness import SCENARIOS, run_scenario
+
+    parts = []
+    for name in CHAOS_SCENARIOS:
+        v = run_scenario(SCENARIOS[name], device=dev)
+        want = len(SCENARIOS[name]["events"])
+        bad = [i["name"] for i in v["invariants"] if not i["ok"]]
+        if bad or len(v["events_fired"]) != want or not str(v["sub_device"]).startswith(dev):
+            raise AssertionError(f"phase 16b {name}: invariants failed {bad} "
+                                 f"{[i for i in v['invariants'] if not i['ok']]}, events "
+                                 f"fired {len(v['events_fired'])} of {want}, the subprocess "
+                                 f"node on {v['sub_device']}")
+        st = v["stats"]
+        parts.append(f"{name}: {len(v['invariants'])} invariants held, {want} of {want} events "
+                     f"fired, {st['acked_writes']} of {st['writes']} writes acknowledged, "
+                     f"{st['beat_rounds']} hashbeat rounds, subprocess node on "
+                     f"{v['sub_device']} ({v['wall_s']} s)")
+    log(f"phase 16b chaos scenarios [{_smi_line() if dev == 'cuda' else dev}]: "
+        + "; ".join(parts))
+
+
+def _shard_stores(col) -> dict:
+    """Device bytes and live rows of each local shard's flat store (as
+    tools/clusterchaos_torch/nodeproc reports them)."""
+    out = {}
+    for s, shard in sorted(col.shards.items()):
+        st = shard.vector_indexes[""].store
+        out[s] = {"bytes": sum(t.numel() * t.element_size()
+                               for t in (st.vectors, st.valid, st.sq_norms)),
+                  "live": len(shard.vector_indexes[""])}
+    return out
+
+
+def _replica_rows(cluster, cols, name: str, shards, vecs, props) -> str:
+    """Every acknowledged row on every replica: its digest equal on the
+    three (the agreement a read at ALL requires; one ``digests:bucket``
+    call a shard and node) and its object, fetched in bulk from n0's and
+    n2's replicas, as written. Returns what differs, or ""."""
+    from weaviate_tpu_torch.cluster.transport import rpc
+    from weaviate_tpu_torch.runtime import faultline
+    from weaviate_tpu_torch.storage.objects import StorageObject
+
+    buckets = list(range(1 << REPL_DEPTH))
+    want = {_uuid(1800, i): i for i in range(len(vecs))}
+    digests: dict = {}
+    for node in ("n0", "n1", "n2"):
+        got, raw = {}, {}
+        for s in shards:
+            if node == "n2":
+                with faultline.node_scope("n0"):
+                    ds = rpc(cluster.sub_addr, f"/replicas/{name}/{s}/digests:bucket",
+                             {"depth": REPL_DEPTH, "buckets": buckets},
+                             timeout=KILL_RPC_S)["digests"]
+                us = [d["uuid"] for d in ds]
+                for i in range(0, len(us), 2000):
+                    with faultline.node_scope("n0"):
+                        out = rpc(cluster.sub_addr, f"/replicas/{name}/{s}/objects:fetch",
+                                  {"uuids": us[i:i + 2000]}, timeout=KILL_RPC_S)["objects"]
+                    raw.update(zip(us[i:i + 2000], out))
+            else:
+                shard = cols[int(node[1])]._load_shard(s)
+                ds = shard.bucket_digests(REPL_DEPTH, buckets)
+                if node == "n0":
+                    raw.update((d["uuid"], shard.objects.get(d["uuid"].encode())) for d in ds)
+            got.update({d["uuid"]: (d["mtime"], d["deleted"], bytes(d["hash"])) for d in ds})
+        live = {u for u, d in got.items() if not d[1]}
+        if live != set(want):
+            return (f"{node} holds {len(live)} live rows, {len(set(want) - live)} acknowledged "
+                    f"missing, {len(live - set(want))} unknown")
+        for u, r in raw.items():
+            obj = StorageObject.from_bytes(r)
+            i = want[u]
+            if obj.properties != props[i] or not np.array_equal(obj.vector, vecs[i]):
+                return f"{node}'s object {u} differs from the row written"
+        digests[node] = got
+    for node in ("n1", "n2"):
+        if digests[node] != digests["n0"]:
+            return f"{node}'s digests differ from n0's"
+    return ""
+
+
+def _sub_answers(cluster, name: str, queries, where=None, selection=None) -> tuple:
+    """nearVector k 100 through the subprocess node's own Collection."""
+    from weaviate_tpu_torch.cluster.transport import rpc
+    from weaviate_tpu_torch.runtime import faultline
+
+    with faultline.node_scope(faultline.OBSERVER):
+        out = rpc(cluster.sub_addr, "/chaos/near_vector",
+                  {"collection": name, "vectors": np.asarray(queries, np.float32),
+                   "k": CLUSTER_K, "where": where, "selection": selection}, timeout=600.0)
+    if out["remote_searches"]:
+        raise AssertionError(f"phase 16c: {out['remote_searches']} remote search RPCs "
+                             "through n2")
+    return [[_uid_int(u) for u in r] for r in out["uuids"]], out["distances"]
+
+
+def phase_kill(torch, K, seed: int, rows: int, dev: str = "cuda") -> dict:
+    """16c: a Performance768D1M collection (768-d cosine flat, factor 3) on
+    three nodes, n2 a subprocess on the card; n2 SIGKILLed midway through a
+    QUORUM import through n0, restarted, converged and queried."""
+    from weaviate_tpu_torch.cluster.transport import RpcError, rpc
+    from weaviate_tpu_torch.filters import Filter, Operator
+    from weaviate_tpu_torch.replication import HashBeater
+    from weaviate_tpu_torch.runtime import faultline
+
+    from tools.clusterchaos_torch.workload import ChaosCluster
+
+    smi = _smi_line() if dev == "cuda" else "cpu"
+    base = tempfile.mkdtemp(prefix="chip_smoke_kill_")
+    name = "Kill768"
+    counts: dict = dict.fromkeys(K.launch_counts, 0)
+    cluster = None
+    try:
+        t0 = time.perf_counter()
+        cluster = ChaosCluster(base, subprocess_node="n2", remote_timeout=KILL_RPC_S,
+                               gossip_interval=0.1, election_timeout=(0.3, 0.6),
+                               dead_after=5.0, device=dev)
+        nodes = [cluster.nodes[n] for n in cluster.inproc_names()]
+        for n in nodes:
+            # the phase drives the hashbeat rounds itself, as phase 15 does
+            for cycle in ("hashbeat", "driftwatch"):
+                n.db.cycles.unregister(cycle)
+        cluster.wait_members()
+        _cluster_schema(lambda: nodes[0].create_collection(_repl_config(name, 3)),
+                        lambda: name in nodes[0].db.collections,
+                        f"create_collection {name}", phase="16")
+        _cluster_wait(lambda: all(name in n.db.collections for n in nodes)
+                      and name in cluster.sub_status()["collections"], 30.0,
+                      f"{name} on every node", phase="16")
+        boot_s = time.perf_counter() - t0
+        cols = [n.get_collection(name) for n in nodes]
+        shards = sorted(cols[0].sharding.shard_names)
+        if any(sorted(cols[0].sharding.nodes_for(s)) != ["n0", "n1", "n2"] for s in shards):
+            raise AssertionError("phase 16c: a shard is not placed on all three nodes")
+
+        # the import at QUORUM through n0; n2 SIGKILLed at the midpoint
+        cent = centers(seed + 18)
+        vecs = np.empty((rows, DIM), np.float32)
+        props: list = []
+        kill_at, kill_rc, t1 = None, None, time.perf_counter()
+        for start in range(0, rows, KILL_BATCH):
+            if kill_at is None and start >= rows // 2:
+                cluster.kill_sub()
+                kill_at, kill_rc = start, cluster.sub_proc.returncode
+            batch = _cluster_rows(seed + 18, start, min(KILL_BATCH, rows - start), cent, 1800)
+            res = cols[0].batch_put(batch, consistency="QUORUM")
+            bad = [r for r in res if r["status"] != "SUCCESS"]
+            if bad:
+                raise AssertionError(f"phase 16c: {len(bad)} rows of the batch at {start} not "
+                                     f"acknowledged at QUORUM: {bad[0]}")
+            for i, o in enumerate(batch):
+                vecs[start + i] = o["vector"]
+                props.append(o["properties"])
+        import_s = time.perf_counter() - t1
+        if kill_rc != -9:
+            raise AssertionError(f"phase 16c: n2 exited {kill_rc} at the kill, not SIGKILL")
+
+        # restart n2 on its data directory; each shard rebuilds its device
+        # store from the LSM when it is first opened (the digest probes)
+        t1 = time.perf_counter()
+        cluster.restart_sub()
+        ready_s = time.perf_counter() - t1
+        cluster.wait_members(timeout=30.0)
+        pending, last = set(shards), None
+        while pending and time.perf_counter() - t1 < 120.0:
+            for s in sorted(pending):
+                try:
+                    with faultline.node_scope("n0"):
+                        rpc(cluster.sub_addr, f"/replicas/{name}/{s}/digest",
+                            {"uuid": _uuid(1800, 0)}, timeout=KILL_RPC_S)
+                    pending.discard(s)
+                except RpcError as e:
+                    last = e
+            if pending:
+                time.sleep(0.1)
+        if pending:
+            raise AssertionError(f"phase 16c: n2's shards {sorted(pending)} not serving after "
+                                 f"the restart: {last}")
+        serve_s = time.perf_counter() - t1
+        status = cluster.sub_status()
+        rebuilt = [r for r in status["rebuilds"] if r["collection"] == name]
+        if sorted(r["shard"] for r in rebuilt) != shards or not str(status["device"]).startswith(dev):
+            raise AssertionError(f"phase 16c: n2 rebuilt {rebuilt} on {status['device']}")
+        rebuild_s = sum(r["seconds"] for r in rebuilt)
+        rebuild_rows = sum(r["rows"] for r in rebuilt)
+
+        # hashbeat rounds from n0 and n1 until every shard's roots are equal
+        beaters = [HashBeater(c, depth=REPL_DEPTH) for c in cols]
+
+        def roots_equal() -> bool:
+            with faultline.node_scope("n0"):
+                return all(beaters[0].roots_equal(s) for s in shards)
+
+        rounds, applied, t2 = 0, 0, time.perf_counter()
+        while not roots_equal():
+            if rounds == KILL_MAX_ROUNDS:
+                raise AssertionError(f"phase 16c: the roots differ after {rounds} rounds")
+            rounds += 1
+            for n, b in zip(nodes, beaters):
+                with faultline.node_scope(n.name):
+                    applied += sum(b.beat_shard(s) for s in shards)
+        conv_s = time.perf_counter() - t2
+        roots_s = time.perf_counter() - t1
+
+        # every acknowledged row: its digest equal on the three replicas and
+        # its object as written on n0 and n2; KILL_ALL_READS of them read
+        # through get_object at ALL
+        t2 = time.perf_counter()
+        wrong = _replica_rows(cluster, cols, name, shards, vecs, props)
+        if wrong:
+            raise AssertionError(f"phase 16c: after convergence {wrong}")
+        bulk_s = time.perf_counter() - t2
+        t2 = time.perf_counter()
+        sample = np.linspace(0, rows - 1, KILL_ALL_READS).astype(int)
+        for i in sample:
+            with faultline.node_scope("n0"):
+                obj = cols[0].get_object(_uuid(1800, i), consistency="ALL")
+            if obj is None or obj.properties != props[i] \
+                    or not np.array_equal(obj.vector, vecs[i]):
+                raise AssertionError(f"phase 16c: row {i} does not read back at ALL: {obj}")
+        all_ms = 1e3 * (time.perf_counter() - t2) / len(sample)
+
+        # n2's flat stores equal n0's, shard for shard
+        mine = _shard_stores(cols[0])
+        theirs = cluster.sub_status()["stores"].get(name)
+        if theirs != mine or any(v["live"] != len(cols[0]._load_shard(s).vector_indexes[""])
+                                 for s, v in mine.items()) \
+                or sum(v["live"] for v in mine.values()) != rows:
+            raise AssertionError(f"phase 16c: n2's stores {theirs} against n0's {mine}")
+
+        # nearVector through n2, served from its local replica, against n0's
+        # local answers bit for bit
+        rng = np.random.default_rng([seed, 16])
+        queries = near_queries(seed + 18, rng.integers(0, rows, KILL_QUERIES), lambda r: vecs[r])
+        where = Filter.where("views", Operator.GREATER_THAN_EQUAL, VIEWS_CUT)
+
+        def local():
+            out = {False: _repl_answers(cols[0], queries),
+                   True: _repl_answers(cols[0], queries, where)}
+            _set_selection(cols[:1], "fused")
+            try:
+                out["fused"] = _repl_answers(cols[0], queries[:KILL_FUSED])
+            finally:
+                _set_selection(cols[:1], "approx")
+            return out
+
+        with _remote_searches(nodes) as remote_calls:
+            want = _node_run(K, counts, local)
+        if remote_calls:
+            raise AssertionError(f"phase 16c: {len(remote_calls)} remote search RPCs via n0")
+        before = cluster.sub_status()["launches"]
+        t2 = time.perf_counter()
+        got = {False: _sub_answers(cluster, name, queries),
+               True: _sub_answers(cluster, name, queries,
+                                  ["views", Operator.GREATER_THAN_EQUAL, VIEWS_CUT]),
+               "fused": _sub_answers(cluster, name, queries[:KILL_FUSED], selection="fused")}
+        q_s = time.perf_counter() - t2
+        after = cluster.sub_status()["launches"]
+        sub_launches = {k: after[k] - before[k] for k in after}
+        for key, what in ((False, "unfiltered"), (True, "filtered"), ("fused", "selection fused")):
+            _same_repl(got[key], want[key], f"16c {what} through n2 against n0", phase="16")
+        if dev == "cuda":
+            missing = [k for k in CHAOS_KERNELS if sub_launches.get(k, 0) <= 0]
+            if missing:
+                raise AssertionError(f"phase 16c: {missing} not launched inside n2: "
+                                     f"{sub_launches}")
+        n0_launches = {k: v for k, v in counts.items() if v}
+        for k, v in sub_launches.items():
+            counts[k] += v
+        log(f"phase 16c kill and restart [{smi}]: 3 nodes (n2 a subprocess on "
+            f"{status['device']}) up with a factor-3 {DIM}-d {METRIC} collection in "
+            f"{boot_s:.2f} s; {rows} rows through n0's batch_put at QUORUM in {import_s:.2f} s "
+            f"({rows / import_s:.0f} rows/s acknowledged across the kill), n2 SIGKILLed (rc "
+            f"{kill_rc}) at row {kill_at}; restarted and answering in {ready_s:.2f} s, its "
+            f"{len(rebuilt)} shards rebuilt their device stores from the LSM ({rebuild_rows} "
+            f"rows) in {rebuild_s:.3f} s, every shard serving {serve_s:.2f} s after the "
+            f"restart; {rounds} hashbeat rounds applied {applied} rows in {conv_s:.2f} s, "
+            f"roots equal {roots_s:.2f} s after the restart; every acknowledged row's digest "
+            f"equal on the three replicas and its object as written on n0 and n2 "
+            f"({bulk_s:.2f} s), {len(sample)} of them, spread over the import, read back "
+            f"through get_object at ALL ({all_ms:.2f} ms each); n2's store bytes equal "
+            f"n0's shard for shard ({sum(v['bytes'] for v in mine.values())} bytes); "
+            f"{KILL_QUERIES} unfiltered, {KILL_QUERIES} filtered and {KILL_FUSED} fused "
+            f"nearVector k={CLUSTER_K} through n2 bit for bit n0's local answers, 0 remote "
+            f"search RPCs, {1e3 * q_s / (2 * KILL_QUERIES + KILL_FUSED):.2f} ms a query; "
+            f"launches through n0 {n0_launches}, inside n2 "
+            f"{ {k: v for k, v in sub_launches.items() if v} }")
+        return counts
+    finally:
+        if cluster is not None:
+            cluster.close()
+        faultline.heal()
+        shutil.rmtree(base, ignore_errors=True)
+        gc.collect()
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+
+
+def phase_chaos(torch, K, seed: int, rows: int, dev: str = "cuda") -> dict:
+    """16b and 16c, alone (their elections and kills are timed): the two
+    scenarios, then the kill."""
+    timed("16b", phase_chaos_scenarios, dev)
+    return timed("16c", phase_kill, torch, K, seed, rows, dev)
+
+
+def _range_threshold(d: np.ndarray, want: int) -> float:
+    """A threshold near the ``want``-th smallest of ``d``, in the middle of
+    the widest gap among the 32 around it."""
+    s = np.sort(d)
+    lo, hi = max(want - 16, 1), min(want + 16, len(s) - 1)
+    at = lo + int(np.argmax(s[lo:hi] - s[lo - 1:hi - 1]))
+    return float((s[at] + s[at - 1]) / 2)
+
+
+def phase_range_get(torch, K, seed: int, st3: dict, dev: str = "cuda") -> dict:
+    """16d: FlatIndex.search_by_vector_distance on phase 3's index against
+    the host's recomputation of every row within the threshold, under both
+    selections; EpochStore.get on flat epochs against the rows written."""
+    from weaviate_tpu_torch.engine.epochs import EpochStore
+
+    idx, corpus, deleted = st3["idx"], st3["corpus"], st3["deleted"]
+    rows = len(corpus)
+    live = np.ones(rows, bool)
+    live[deleted] = False
+    rng = np.random.default_rng([seed, 16, 4])
+    allow = np.nonzero(rng.random(rows) < 0.5)[0]
+    allowed = np.zeros(rows, bool)
+    allowed[allow] = True
+    counts: dict = dict.fromkeys(K.launch_counts, 0)
+    parts = []
+    queries = near_queries(seed + 19, rng.integers(0, rows, RANGE_QUERIES),
+                           lambda r: corpus[r], noise=NEAR_NOISE)
+    # the host's recomputation: cosine distance of every row to each query
+    qn = queries / np.linalg.norm(queries, axis=1, keepdims=True)
+    norms = np.sqrt(np.einsum("ij,ij->i", corpus, corpus))
+    host = 1.0 - (corpus @ qn.T) / norms[:, None]
+    for qi, (q, want) in enumerate(zip(queries, RANGE_WITHIN)):
+        filtered = qi == RANGE_QUERIES - 1
+        keep = live & allowed if filtered else live
+        d = host[:, qi]
+        thr = _range_threshold(d[keep], want)
+        inside = np.nonzero(keep & (d <= thr - RANGE_TOL))[0]
+        outside = keep & (d > thr + RANGE_TOL)
+        band = int(np.count_nonzero(keep & (np.abs(d - thr) <= RANGE_TOL)))
+        for selection in ("approx", "fused"):
+            idx.store.selection = selection
+            K.reset_launch_counts()
+            t = time.perf_counter()
+            try:
+                ids, dists = idx.search_by_vector_distance(q, thr, allow if filtered else None)
+            finally:
+                idx.store.selection = "approx"
+            ms = 1e3 * (time.perf_counter() - t)
+            for k, v in K.launch_counts.items():
+                counts[k] += v
+            missing = np.setdiff1d(inside, ids)
+            extra = ids[outside[ids] | ~keep[ids]]
+            if len(missing) or len(extra):
+                raise AssertionError(
+                    f"phase 16d query {qi} ({selection}): {len(ids)} rows within {thr:.6f}; "
+                    f"{len(missing)} the host finds are missing, {len(extra)} are past the "
+                    f"threshold or not allowed")
+            err = float(np.max(np.abs(dists - d[ids]))) if len(ids) else 0.0
+            if err > RANGE_TOL or np.any(np.diff(dists) < 0):
+                raise AssertionError(f"phase 16d query {qi} ({selection}): distances off the "
+                                     f"host's by {err:.2e}, or not ascending")
+            parts.append(f"{len(ids)} rows{' (filtered)' if filtered else ''} {selection} "
+                         f"{ms:.1f} ms (max err {err:.1e}, {band} within {RANGE_TOL} of the "
+                         "threshold)")
+    if dev == "cuda":
+        missing = [k for k in CHAOS_KERNELS if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"phase 16d: {missing} not launched: {counts}")
+    # EpochStore.get on flat epochs (l2: rows are stored as written)
+    es = EpochStore(DIM, epoch_rows=EPOCH_GET_EPOCH, device=dev)
+    es.add(corpus[:EPOCH_GET_ROWS])
+    dead = rng.choice(EPOCH_GET_ROWS, 2000, replace=False)
+    es.delete(dead)
+    es.compact()
+    pick = rng.choice(np.setdiff1d(np.arange(EPOCH_GET_ROWS), dead), 4096, replace=False)
+    t = time.perf_counter()
+    got = es.get(pick)
+    get_ms = 1e3 * (time.perf_counter() - t)
+    if not np.array_equal(got, corpus[pick]):
+        raise AssertionError("phase 16d: EpochStore.get differs from the rows written")
+    n_epochs = len(es.epochs)
+    del es
+    log(f"phase 16d range search and row fetch [{_smi_line() if dev == 'cuda' else dev}]: "
+        f"FlatIndex.search_by_vector_distance on phase 3's {rows} x {DIM} {METRIC} index "
+        f"({len(deleted)} deleted), {RANGE_QUERIES} queries each under selection approx and "
+        f"fused, every row within the threshold as the host's float32 recomputation finds "
+        f"them and no row past it, distances within {RANGE_TOL}: " + "; ".join(parts)
+        + f"; launches {counts}; EpochStore.get of {len(pick)} rows across {n_epochs} flat "
+        f"epochs ({EPOCH_GET_EPOCH} rows each, after 2000 deletes and a compaction) equal to "
+        f"the rows written in {get_ms:.1f} ms")
+    return counts
+
+
+def range_index(torch, seed: int, rows: int) -> dict:
+    """--chaos-only's stand-in for phase 3's index: the same rows and
+    deletes, without phase 3's queries."""
+    from weaviate_tpu_torch.engine.flat import FlatIndex
+
+    rng = np.random.default_rng([seed, 3])
+    idx = FlatIndex(dim=DIM, metric=METRIC, chunk_size=CHUNK, device="cuda")
+    corpus = np.empty((rows, DIM), dtype=np.float32)
+    for s in range(0, rows, ADD_BATCH):
+        v = corpus_batch(seed, s, min(ADD_BATCH, rows - s))
+        corpus[s:s + len(v)] = v
+        idx.add_batch(np.arange(s, s + len(v)), v)
+    deleted = rng.choice(rows, 10_000, replace=False)
+    idx.delete(*deleted.tolist())
+    return dict(idx=idx, corpus=corpus, deleted=deleted)
+
+
 # -- phases 11 and 12 in a second process -----------------------------------------
 
 LANE_TAG = "lane result: "  # the second process's closing line, before its JSON
@@ -6870,6 +7383,10 @@ def main() -> int:
                     f"{REPL_ONLY_ROWS:,}), no import "
                     f"budget, and a scaled collection of {REPL_SCALE_ONLY_ROWS:,} rows (no "
                     "result line)")
+    ap.add_argument("--chaos-only", action="store_true",
+                    help=f"only phases 0, 1 and 16 (crash and chaos on the card), 16c at "
+                    f"{KILL_ONLY_ROWS:,} rows and 16d on an index of --rows rows of its own "
+                    "(no result line)")
     ap.add_argument("--import-run", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--lane", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -6898,7 +7415,7 @@ def main() -> int:
     device = phase_card(torch)
     special = (args.topk_times or args.bq_times or args.block_times or args.dist_times
                or args.ann_only or args.mesh_only or args.import_times or args.cluster_only
-               or args.replication_only)
+               or args.replication_only or args.chaos_only)
     warm_up = None if special else profiler_warm_up()  # beside the build
     phase_build(K)
     if args.topk_times:
@@ -6969,6 +7486,17 @@ def main() -> int:
                           REPL_SCALE_ONLY_ROWS, REPL_ONLY_QUERIES)
         log(f"total {time.perf_counter() - t0:.1f} s")
         return 0
+    if args.chaos_only:
+        timed("16a", phase_crash)
+        counts = phase_chaos(torch, K, args.seed, KILL_ONLY_ROWS)
+        log(f"phase 16 launches (16c through the nodes): {counts}")
+        st = timed("16d index", range_index, torch, args.seed, args.rows)
+        timed("16d", phase_range_get, torch, K, args.seed, st)
+        del st
+        log("phase seconds: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items()))
+        log(f"total {time.perf_counter() - t0:.1f} s")
+        return 0
     if args.import_times:
         for part in import_times(torch, args.seed, args.hybrid_docs, args.import_rows):
             log(f"import times: {part}")
@@ -6983,6 +7511,7 @@ def main() -> int:
     try:
         st3 = timed("3", phase_index, torch, args.seed, args.rows)
         counts10 = timed("10", phase_epochs, torch, K, args.seed, args.rows, st3)
+        counts16d = timed("16d", phase_range_get, torch, K, args.seed, st3)
         del st3
         gc.collect()
         torch.cuda.empty_cache()
@@ -7014,6 +7543,9 @@ def main() -> int:
                 db.close()
             shutil.rmtree(tmp, ignore_errors=True)
         counts8 = timed("8", phase_conformance, K)
+        # 16a times no election: its crash workers run while this process
+        # waits for the second one
+        timed("16a", phase_crash)
         counts11, counts12 = join_lane(lane, lane_log, t_lane)
     finally:
         if lane.poll() is None:  # this process failed first: stop the second
@@ -7028,15 +7560,18 @@ def main() -> int:
                      CLUSTER_EPOCH_ROWS)
     counts15 = timed("15", phase_replication, torch, K, args.seed, args.rows, REPL_BUDGET_S,
                      REPL_SCALE_ROWS)
+    counts16 = phase_chaos(torch, K, args.seed, KILL_ROWS)
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         # launches over the main paths: phases 4, 5, 6, 7, 8, the server's
         # 9a, 9b and 9c, the epochs' 10, the ANN indexes' 11, the mesh's 12,
-        # the tenants' 13, the cluster's 14 and replication's 15, and phase
-        # 2's window for the two kernels that no path runs
+        # the tenants' 13, the cluster's 14, replication's 15 and phase 16's
+        # range search (16d) and restarted node (16c, inside n2 too), and
+        # phase 2's window for the two kernels that no path runs
         launches = sum(c[name] for c in (counts4, counts5, counts6, counts7, counts8,
                                          counts9a, counts9b, counts9c, counts10, counts11,
-                                         counts12, counts13, counts14, counts15))
+                                         counts12, counts13, counts14, counts15, counts16,
+                                         counts16d))
         if name in PHASE2_PATH:
             launches += counts2[name]
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,

@@ -1,27 +1,26 @@
 """The port's cluster under partition topology faults and circuit
 breakers, the staged-2PC TTL hardening and the convergence plane (a copy
 of the topology, breaker, staged-2PC and /v1/debug/replication tests of
-tests/test_clusterchaos.py; the cluster is three port ClusterNodes on the
-CPU). The scenario matrix and its sabotage checks run on
-tools/clusterchaos, which drives the JAX package.
+tests/test_clusterchaos.py; the cluster is tools/clusterchaos_torch's
+ChaosCluster, three port ClusterNodes on the CPU). The scenario matrix, its sabotage checks and the sweep replay run
+on tools/clusterchaos_torch in tests/test_torch_clusterchaos_matrix.py.
 """
 
 import json
-import os
 import time
 
 import pytest
 
 from weaviate_tpu_torch.cluster import transport
-from weaviate_tpu_torch.cluster.node import ClusterNode
 from weaviate_tpu_torch.cluster.transport import RpcError, rpc
 from weaviate_tpu_torch.db.shard import StagedExpiredError
-from weaviate_tpu_torch.replication import HashBeater
 from weaviate_tpu_torch.replication.hashbeater import replication_status
 from weaviate_tpu_torch.runtime import faultline
 from weaviate_tpu_torch.storage.objects import StorageObject
 
-NAMES = ["n0", "n1", "n2"]
+from tools.clusterchaos_torch import checker
+from tools.clusterchaos_torch.workload import COLLECTION, ChaosCluster
+
 
 
 @pytest.fixture(autouse=True)
@@ -34,48 +33,6 @@ def _port_cluster_isolation():
     degrade.reset()
     transport.reset_breakers()
     replication_status.reset()
-
-
-class _PortCluster:
-    """Three port nodes wired as tools/clusterchaos's ChaosCluster wires
-    its in-process ones (short remote timeout, membership dead_after
-    1.5 s so a partition outlives it)."""
-
-    def __init__(self, base_dir: str, dead_after: float = 1.5):
-        self.nodes = {}
-        for name in NAMES:
-            n = ClusterNode(name, os.path.join(base_dir, name),
-                            raft_peers=NAMES, gossip_interval=0.1,
-                            election_timeout=(0.2, 0.4),
-                            remote_timeout=1.5, device="cpu")
-            n.membership.dead_after = dead_after
-            n.membership.suspect_after = dead_after * 0.6
-            self.nodes[name] = n
-        seeds = [n.address for n in self.nodes.values()]
-        for n in self.nodes.values():
-            n.membership.join(seeds)
-        for n in self.nodes.values():
-            n.start()
-        self.nodes["n0"].raft.wait_for_leader(timeout=20.0)
-
-    def addr_of(self, name: str) -> str:
-        return self.nodes[name].address
-
-    def wait_members(self, timeout: float = 20.0) -> None:
-        deadline = time.time() + timeout
-        while time.time() < deadline:
-            if all(len(n.membership.alive_nodes()) == len(NAMES)
-                   for n in self.nodes.values()):
-                return
-            time.sleep(0.05)
-        raise AssertionError("gossip did not converge")
-
-    def close(self) -> None:
-        for n in self.nodes.values():
-            try:
-                n.close()
-            except Exception:  # noqa: BLE001
-                pass
 
 
 # -- 1. unit: topology layer ---------------------------------------------------
@@ -200,7 +157,7 @@ def test_heal_recovery_is_probe_bound_not_cooldown_bound(tmp_path):
     partitioned peer with a LONG cooldown, heal the partition, and the
     next data-plane call must go through within gossip-probe time —
     not after the cooldown."""
-    cluster = _PortCluster(str(tmp_path))
+    cluster = ChaosCluster(str(tmp_path), device="cpu")
     try:
         cluster.wait_members()
         addr = cluster.addr_of("n2")
@@ -335,56 +292,6 @@ def test_apply_sync_respects_migration_marker(tmp_path, monkeypatch):
 # -- 4. convergence observability ----------------------------------------------
 
 
-COLLECTION = "Chaos"
-
-
-def _wait_replicas_serving(cluster: _PortCluster, shard: str,
-                           timeout: float = 20.0) -> None:
-    """Post-heal barrier: every replica answers a hashtree probe before
-    the convergence rounds start counting."""
-    deadline = time.time() + timeout
-    pending = set(NAMES)
-    last = None
-    while pending and time.time() < deadline:
-        for node in sorted(pending):
-            try:
-                with faultline.node_scope(faultline.OBSERVER):
-                    rpc(cluster.addr_of(node),
-                        f"/replicas/{COLLECTION}/{shard}/hashtree:level",
-                        {"depth": 8, "level": 0, "positions": [0],
-                         "token": None}, timeout=2.0)
-                pending.discard(node)
-            except RpcError as e:
-                last = e
-        if pending:
-            time.sleep(0.2)
-    if pending:
-        raise TimeoutError(f"replicas {sorted(pending)} never served "
-                           f"post-heal: {last}")
-
-
-def _drive_convergence(cluster: _PortCluster, shard: str,
-                       max_rounds: int = 6) -> dict:
-    """Hashbeat rounds from every node until the replicas' hashtree
-    roots agree."""
-    _wait_replicas_serving(cluster, shard)
-    beaters = {n: HashBeater(cluster.nodes[n].db.get_collection(COLLECTION))
-               for n in NAMES}
-    rounds = reconciled = 0
-    for _ in range(max_rounds):
-        with faultline.node_scope("n0"):
-            if beaters["n0"].roots_equal(shard):
-                return {"converged": True, "rounds": rounds,
-                        "reconciled": reconciled}
-        rounds += 1
-        for name, beater in beaters.items():
-            with faultline.node_scope(name):
-                reconciled += beater.beat_shard(shard)
-        time.sleep(0.25)
-    with faultline.node_scope("n0"):
-        ok = beaters["n0"].roots_equal(shard)
-    return {"converged": ok, "rounds": rounds, "reconciled": reconciled}
-
 
 def test_debug_replication_and_metrics_watch_heal(tmp_path):
     """/v1/debug/replication + the hashbeat/divergence metrics report
@@ -395,33 +302,15 @@ def test_debug_replication_and_metrics_watch_heal(tmp_path):
         hashbeat_rounds,
         replica_divergent_entries,
     )
-    from weaviate_tpu_torch.schema.config import (CollectionConfig,
-                                                  Property,
-                                                  ReplicationConfig,
-                                                  ShardingConfig)
 
-    cluster = _PortCluster(str(tmp_path))
+    cluster = ChaosCluster(str(tmp_path), device="cpu")
     try:
         cluster.wait_members()
         for n in cluster.nodes.values():  # the test drives the beats
             n.db.cycles.unregister("hashbeat")
-        cfg = CollectionConfig(
-            name=COLLECTION,
-            properties=[Property(name="client", data_type="int"),
-                        Property(name="seq", data_type="int"),
-                        Property(name="rev", data_type="int")],
-            sharding=ShardingConfig(desired_count=1),
-            replication=ReplicationConfig(factor=3))
-        leader = next((n for n in cluster.nodes.values()
-                       if n.raft.is_leader), cluster.nodes["n0"])
-        leader.create_collection(cfg)
-        deadline = time.time() + 20.0
-        while not all(COLLECTION in n.db.collections
-                      for n in cluster.nodes.values()):
-            assert time.time() < deadline, "schema did not propagate"
-            time.sleep(0.05)
-        col = cluster.nodes["n0"].db.get_collection(COLLECTION)
-        shard = next(iter(col.sharding.shard_names))
+        cluster.create_collection()
+        shard = cluster.shard_name()
+        col = cluster.col("n0")
         rest = cluster.nodes["n0"].serve_rest()
         client = Client(rest.address)
         # diverge: cut n0 off and write at ONE — the local replica acks
@@ -436,11 +325,11 @@ def test_debug_replication_and_metrics_watch_heal(tmp_path):
         faultline.heal("diverge")
         # every replica answering again, THEN a consistency-level read
         # catches the divergence between beats
-        _wait_replicas_serving(cluster, shard)
+        checker.wait_replicas_serving(cluster, shard)
         with faultline.node_scope("n0"):
             got = col.get_object(uuids[0], consistency="QUORUM")
         assert got is not None and got.properties["rev"] == 900
-        conv = _drive_convergence(cluster, shard)
+        conv = checker.drive_convergence(cluster, shard, max_rounds=6)
         assert conv["converged"], conv
         assert conv["reconciled"] >= 2 * len(uuids) - 2  # pushed to 2 peers
         snap = client.request("GET", "/v1/debug/replication")

@@ -192,14 +192,24 @@ def test_port_imports_without_jax():
 
 
 def test_port_sources_never_import_the_jax_package():
-    """Every module of the port (the cluster's among them), and
-    chip_smoke.py, which drives it on the card."""
+    """Every module of the port (the cluster's among them), chip_smoke.py,
+    which drives it on the card, and the port's crash and cluster-chaos
+    harnesses (tools/crashtest_torch, tools/clusterchaos_torch), which
+    import neither the JAX package nor the JAX tools that drive it."""
     offenders = []
     paths = [os.path.join(REPO, "chip_smoke.py")]
-    for root, _dirs, files in os.walk(PORT):
-        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    tools = [os.path.join(REPO, "tools", t)
+             for t in ("crashtest_torch", "clusterchaos_torch")]
+    for top in [PORT] + tools:
+        for root, _dirs, files in os.walk(top):
+            paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     for mod in ("transport", "membership", "raft", "fsm", "remote", "node"):
         assert os.path.join(PORT, "cluster", f"{mod}.py") in paths, mod
+    for tool, mods in zip(tools, (("harness", "workload"),
+                                  ("harness", "checker", "workload", "nodeproc"))):
+        for mod in ("__init__", "__main__") + mods:
+            assert os.path.join(tool, f"{mod}.py") in paths, (tool, mod)
+    jax_tools = ("tools.crashtest", "tools.clusterchaos")
     for path in paths:
         tree = ast.parse(open(path).read(), path)
         for node in ast.walk(tree):
@@ -210,7 +220,8 @@ def test_port_sources_never_import_the_jax_package():
                 names = [node.module]
             for n in names:
                 top = n.split(".")[0]
-                if top in ("weaviate_tpu", "jax", "jaxlib"):
+                if top in ("weaviate_tpu", "jax", "jaxlib") or any(
+                        n == t or n.startswith(t + ".") for t in jax_tools):
                     offenders.append(f"{path}:{node.lineno} {n}")
     assert not offenders, offenders
 

@@ -50,8 +50,8 @@ from weaviate_tpu_torch.engine.quantized import (RESCORE_BLOCK_ELEMS, RESCORE_TH
                                                  QuantizedVectorStore, _row_blocks,
                                                  _run_blocks)
 from weaviate_tpu_torch.engine.store import (DeviceVectorStore, _next_pow2,
-                                             normalize_allow_mask, storage_dtype,
-                                             to_host)
+                                             normalize_allow_mask, range_search,
+                                             storage_dtype, to_host)
 from weaviate_tpu_torch.ops.bq import _auto_reduce_l
 from weaviate_tpu_torch.ops.topk import merge_epoch_topk
 from weaviate_tpu_torch.parallel.mesh import placement
@@ -653,14 +653,7 @@ class EpochStore:
 
     def search_by_distance(self, query: np.ndarray, max_distance: float,
                            allow_mask: np.ndarray | None = None):
-        k = min(64, max(self.capacity, 1))
-        while True:
-            d, i = self.search(query, k, allow_mask)
-            within = d <= max_distance
-            if ((~within).any() or k >= self.capacity
-                    or within.sum() >= self.live_count()):
-                return d[within], i[within]
-            k = min(k * 4, self.capacity)
+        return range_search(self, query, max_distance, allow_mask)
 
     # -- maintenance: compaction / migration ----------------------------------
 

@@ -424,6 +424,17 @@ class FlatIndex:
         h = self.hybrid_batch_async(queries, k, allow_list, sparse_ops)
         return None if h is None else h.result()
 
+    def search_by_vector_distance(self, query: np.ndarray, max_distance: float,
+                                  allow_list: np.ndarray | None = None):
+        """Range search (reference SearchByVectorDistance,
+        vector_index.go:31): (doc_ids, dists) of every live row within
+        ``max_distance``, ascending."""
+        with self._lock:
+            allow_mask = self._allow_mask(allow_list)
+            d, slots = self.store.search_by_distance(np.asarray(query), max_distance,
+                                                     allow_mask)
+            return self._resolve(d, slots, len(slots))
+
     # -- helpers --------------------------------------------------------------
 
     def _allow_mask(self, allow_list):

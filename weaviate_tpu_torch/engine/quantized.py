@@ -40,7 +40,8 @@ import torch
 
 from weaviate_tpu_torch.engine.store import (_next_pow2, and_mask,
                                              batched_mask_operands,
-                                             normalize_allow_mask, to_host)
+                                             normalize_allow_mask, range_search,
+                                             to_host)
 from weaviate_tpu_torch.ops import bq as bq_ops
 from weaviate_tpu_torch.ops import pq as pq_ops
 from weaviate_tpu_torch.ops.candidates import gather_rescore_topk
@@ -739,13 +740,7 @@ class QuantizedVectorStore:
 
     def search_by_distance(self, query: np.ndarray, max_distance: float,
                            allow_mask: np.ndarray | None = None):
-        k = min(64, self.capacity)
-        while True:
-            d, i = self.search(query, k, allow_mask)
-            within = d <= max_distance
-            if (~within).any() or k >= self.capacity or within.sum() >= self.live_count():
-                return d[within], i[within]
-            k = min(k * 4, self.capacity)
+        return range_search(self, query, max_distance, allow_mask)
 
     # -- maintenance / persistence -------------------------------------------
 

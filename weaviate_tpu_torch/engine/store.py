@@ -68,6 +68,23 @@ def and_mask(valid, full: np.ndarray, mesh):
                       valid.shape, 0, mesh, valid.dtype)
 
 
+def range_search(store, query: np.ndarray, max_distance: float,
+                 allow_mask=None):
+    """Every slot of ``store`` within ``max_distance`` of one query
+    (reference SearchByVectorDistance, vector_index.go:31): the store's
+    ``search`` at k 64, widened four times a round until a hit past the
+    threshold surfaces or every live row came back. Each round is one
+    scan, so on the card it runs the store's scan kernels."""
+    k = min(64, max(store.capacity, 1))
+    while True:
+        d, i = store.search(query, k, allow_mask)
+        within = d <= max_distance
+        if ((~within).any() or k >= store.capacity
+                or within.sum() >= store.live_count()):
+            return d[within], i[within]
+        k = min(k * 4, store.capacity)
+
+
 def _next_pow2(n: int) -> int:
     p = 1
     while p < n:
@@ -426,6 +443,19 @@ class DeviceVectorStore:
                         f"says {self._live_count}")
             return self._live_count
 
+    def get(self, slots) -> np.ndarray:
+        """Rows at ``slots`` as host float32 (the object-resolution path):
+        staged rows are flushed first, so a row added a moment ago reads
+        back as stored (normalized for cosine, rounded for bf16)."""
+        slots = np.atleast_1d(np.asarray(slots, dtype=np.int64))
+        with self._lock:
+            self._flush_staged_locked()
+            if self.mesh is not None:
+                rows = self.vectors.take(slots)
+            else:
+                rows = self.vectors[torch.from_numpy(slots).to(self.device)]
+        return to_host(rows).astype(np.float32, copy=False)
+
     def search(self, queries: np.ndarray, k: int, allow_mask: np.ndarray | None = None):
         """Brute-force top-k. queries [B,d] (or [d]); returns (dists [B,k],
         slots [B,k]) as numpy, ascending by distance.
@@ -616,6 +646,10 @@ class DeviceVectorStore:
             d_np = np.pad(d_np, ((0, 0), (0, pad)),
                           constant_values=np.float32(np.inf))
         return d_np, i_np
+
+    def search_by_distance(self, query: np.ndarray, max_distance: float,
+                           allow_mask: np.ndarray | None = None):
+        return range_search(self, query, max_distance, allow_mask)
 
     # -- maintenance ---------------------------------------------------------
 

@@ -5,6 +5,7 @@ from weaviate_tpu_torch.ops.distances import (
     MASKED_DISTANCE,
     normalize,
     pairwise_distance,
+    single_distance,
 )
 from weaviate_tpu_torch.ops.topk import (
     chunked_topk,
@@ -18,6 +19,7 @@ __all__ = [
     "MASKED_DISTANCE",
     "normalize",
     "pairwise_distance",
+    "single_distance",
     "chunked_topk",
     "chunked_topk_distances",
     "merge_topk",

@@ -99,3 +99,10 @@ def pairwise_distance(
     diff = (q[:, None, :].float() - x[None, :, :].float()).abs()
     return diff.sum(dim=-1)
 
+
+def single_distance(a, b, metric: str = "l2-squared") -> torch.Tensor:
+    """Distance between two single vectors [d], [d] -> 0-d float32
+    tensor (the reference's ``SingleDist``, distancer/provider.go)."""
+    a = torch.as_tensor(a)
+    b = torch.as_tensor(b, device=a.device)
+    return pairwise_distance(a[None, :], b[None, :], metric=metric)[0, 0]
